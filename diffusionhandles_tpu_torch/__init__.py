@@ -1,0 +1,21 @@
+"""diffusionhandles_tpu_torch: DiffusionHandles in PyTorch for NVIDIA Hopper.
+
+The PyTorch/CUDA port of the JAX package: the same four-step editing
+API (`DiffusionHandles`), module layout and numerics, with the JAX
+package's Pallas flash-attention kernels rewritten as CUDA kernels for the
+H100 (`csrc/`). Imports torch only; never jax.
+"""
+
+from diffusionhandles_tpu_torch.config import (DiffusionHandlesConfig,
+                                               load_config)
+
+__all__ = ["DiffusionHandles", "DiffusionHandlesConfig", "load_config"]
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # Lazy: `import diffusionhandles_tpu_torch` stays config-only.
+    if name == "DiffusionHandles":
+        from diffusionhandles_tpu_torch.pipeline import DiffusionHandles
+        return DiffusionHandles
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

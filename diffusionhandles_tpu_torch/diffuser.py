@@ -1,0 +1,340 @@
+"""Guided depth-to-image diffuser.
+
+The counterpart of the JAX package's `diffuser.py` (reference:
+diffhandles/guided_stable_diffuser.py). The JAX package's `lax.scan`s are
+Python loops here:
+
+* `initial_inference` (reference :155-275): one batch-2 [uncond_t, cond]
+  U-Net pass per step; the cond row's decoder activations are recorded.
+* `guided_inference` (reference :291-488): under `guidance_max_step`, each
+  step first runs `num_optsteps` iterations of
+  `latents -= guidance_lr * grad(energy)` through the U-Net (autograd on
+  the latents), then the batch-2 classifier-free-guidance DDIM step.
+
+Layouts are NCHW: latents [1, 4, h, w], depth [1, 1, h, w], activation
+stacks [T, C, H, W] (the reference's own layout).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from diffusionhandles_tpu_torch.config import (GuidedDiffuserConfig,
+                                               ModelPathsConfig)
+from diffusionhandles_tpu_torch.guidance import (
+    ProcessedCorrespondences, background_loss_apply,
+    background_orig_precompute, build_guidance_weight_schedule,
+    foreground_loss_apply, foreground_orig_precompute)
+from diffusionhandles_tpu_torch.models.clip_text import (CLIPTextConfig,
+                                                         CLIPTextModel,
+                                                         tiny_clip_config)
+from diffusionhandles_tpu_torch.models.tokenizer import load_tokenizer
+from diffusionhandles_tpu_torch.models.unet import (UNet2DConditionModel,
+                                                    UNetConfig,
+                                                    tiny_unet_config)
+from diffusionhandles_tpu_torch.models.vae import (AutoencoderKL, VAEConfig,
+                                                   tiny_vae_config)
+from diffusionhandles_tpu_torch.ops.resize import resize_hw
+from diffusionhandles_tpu_torch.scheduler import (add_noise, ddim_step,
+                                                  make_ddim_schedule)
+from diffusionhandles_tpu_torch.utils.rng import seeded_randn
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+@dataclasses.dataclass
+class SDModels:
+    """The SD-2-depth component models."""
+
+    unet: UNet2DConditionModel
+    vae: AutoencoderKL
+    text_encoder: CLIPTextModel
+    tokenizer: Any
+    unet_config: UNetConfig
+    vae_config: VAEConfig
+    clip_config: CLIPTextConfig
+
+
+@torch.no_grad()
+def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights from `generator` with flax's default initializers:
+    truncated-normal LeCun kernels, zero biases, unit norm scales,
+    embeddings with std 1/sqrt(features) (positions 0.01)."""
+    for name, p in module.named_parameters():
+        tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        leaf = name.rsplit(".", 1)[-1]
+        owner = module.get_submodule(name.rsplit(".", 1)[0])
+        if isinstance(owner, (nn.GroupNorm, nn.LayerNorm)):
+            tmp.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "bias":
+            tmp.zero_()
+        elif isinstance(owner, nn.Embedding):
+            std = (0.01 if "position" in name
+                   else 1.0 / math.sqrt(p.shape[-1]))
+            tmp.normal_(0.0, std, generator=generator)
+        else:
+            fan_in = p[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+        p.copy_(tmp)
+    return module
+
+
+def create_sd_models(model_paths: Optional[ModelPathsConfig] = None,
+                     conf: Optional[GuidedDiffuserConfig] = None,
+                     variant: str = "sd2", seed: int = 0,
+                     device=None) -> SDModels:
+    """The SD stack on `device` with seeded random weights.
+
+    variant='sd2': the real SD-2-depth architecture; 'tiny': the miniature
+    test architecture. Loading a checkpoint directory is not ported."""
+    conf = conf or GuidedDiffuserConfig()
+    device = torch.device(device or "cpu")
+    if model_paths is not None and model_paths.checkpoint_dir is not None:
+        raise NotImplementedError("checkpoint_dir loading is not ported yet")
+    dtype = DTYPES[conf.dtype]
+    param_dtype = DTYPES[conf.param_dtype]
+    in_ch = 5 if conf.use_depth else 4
+    if variant == "tiny":
+        ucfg = tiny_unet_config(in_channels=in_ch,
+                                flash_attention=conf.flash_attention)
+        vcfg = tiny_vae_config()
+        ccfg = tiny_clip_config()
+    else:
+        ucfg = UNetConfig(in_channels=in_ch, dtype=dtype,
+                          param_dtype=param_dtype,
+                          flash_attention=conf.flash_attention)
+        vcfg = VAEConfig(dtype=dtype, param_dtype=param_dtype)
+        ccfg = CLIPTextConfig()  # the text encoder stays fp32
+    with torch.device(device):
+        gen = torch.Generator(device=device)
+        unet = seeded_init_(UNet2DConditionModel(ucfg),
+                            gen.manual_seed(seed))
+        vae = seeded_init_(AutoencoderKL(vcfg), gen.manual_seed(seed + 1))
+        clip = seeded_init_(CLIPTextModel(ccfg), gen.manual_seed(seed + 2))
+    for m in (unet, vae, clip):
+        m.eval().requires_grad_(False)
+    tokenizer = load_tokenizer(None, max_length=77,
+                               vocab_size=ccfg.vocab_size)
+    return SDModels(unet, vae, clip, tokenizer, ucfg, vcfg, ccfg)
+
+
+def _stack_uncond(uncond_embeddings, num_steps: int, device) -> torch.Tensor:
+    """Null-text embeddings as [T, 77, D] fp32 ([1, ...] is broadcast)."""
+    u = torch.as_tensor(uncond_embeddings, dtype=torch.float32,
+                        device=device)
+    u = u.reshape((u.shape[0],) + tuple(u.shape[-2:]))
+    if u.shape[0] == 1:
+        u = u.expand((num_steps,) + tuple(u.shape[1:]))
+    return u
+
+
+class GuidedStableDiffuser:
+    """The depth-conditioned SD-2 diffuser with activation-guided
+    inference."""
+
+    def __init__(self, conf: GuidedDiffuserConfig,
+                 models: Optional[SDModels] = None,
+                 model_paths: Optional[ModelPathsConfig] = None,
+                 variant: str = "sd2", device=None):
+        self.conf = conf
+        self.device = torch.device(device or "cpu")
+        self.models = models or create_sd_models(model_paths, conf, variant,
+                                                 device=self.device)
+        self.schedule = make_ddim_schedule(conf.num_timesteps)
+        self.latent_res = self.models.unet_config.sample_size
+        self.image_res = (self.latent_res
+                          * self.models.vae_config.downscale_factor)
+        self.act_dtype = DTYPES[conf.activation_store_dtype]
+        self._prompt_cache = {}
+
+    @staticmethod
+    def get_depth_intrinsics() -> np.ndarray:
+        """Pinhole intrinsics, fov 55 deg, [-1,1]^2 image plane
+        (reference: guided_stable_diffuser.py:129-153)."""
+        f = 1.0 / np.tan(0.5 * 55.0 * (np.pi / 180.0))
+        return np.array([[f, 0.0, 0.0], [0.0, f, 0.0], [0.0, 0.0, 1.0]],
+                        dtype=np.float32)
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def init_depth(self, depth) -> torch.Tensor:
+        """Disparity resized (bicubic) to the latent grid and normalized to
+        [-1, 1]: [1, 1, L, L] fp32 (reference: :110-127). Accepts [H, W],
+        [1, H, W] or [1, 1, H, W]."""
+        depth = self._tensor(depth)
+        depth = depth.reshape(depth.shape[-2:])[None, None]
+        depth = resize_hw(depth, (self.latent_res, self.latent_res),
+                          "bicubic")
+        dmin, dmax = depth.amin(), depth.amax()
+        return 2.0 * (depth - dmin) / (dmax - dmin) - 1.0
+
+    def encode_prompt(self, prompt: str) -> torch.Tensor:
+        """CLIP-encode a prompt -> [1, 77, D] fp32 (memoized)."""
+        if prompt not in self._prompt_cache:
+            ids = torch.tensor(self.models.tokenizer([prompt]),
+                               dtype=torch.long, device=self.device)
+            with torch.no_grad():
+                self._prompt_cache[prompt] = self.models.text_encoder(ids)
+        return self._prompt_cache[prompt]
+
+    def init_prompt(self, prompt: str):
+        """(uncond, cond) embeddings (reference: init_prompt :93-108)."""
+        return self.encode_prompt(""), self.encode_prompt(prompt)
+
+    @torch.no_grad()
+    def encode_latent_image(self, image) -> torch.Tensor:
+        """[1, 3, H, W] in [0, 1] -> scaled latents [1, 4, h, w]."""
+        image = self._tensor(image)
+        return (self.models.vae.encode(image * 2.0 - 1.0)
+                * self.models.vae_config.scaling_factor)
+
+    @torch.no_grad()
+    def decode_latent_image(self, latents) -> torch.Tensor:
+        """Scaled latents -> image [1, 3, H, W] clipped to [0, 1]."""
+        z = self._tensor(latents) / self.models.vae_config.scaling_factor
+        return torch.clamp(self.models.vae.decode(z) / 2.0 + 0.5, 0.0, 1.0)
+
+    def seeded_init_latents(self) -> torch.Tensor:
+        """Zeros noised to timesteps[0] with the seeded CPU noise
+        (reference: guided_stable_diffuser.py:191-200)."""
+        c = self.models.unet_config
+        lat_ch = c.in_channels - 1 if self.conf.use_depth else c.in_channels
+        noise = seeded_randn((1, lat_ch, self.latent_res, self.latent_res),
+                             self.conf.seed, self.conf.noise_rng,
+                             device=self.device)
+        return add_noise(self.schedule, torch.zeros_like(noise), noise,
+                         int(self.schedule.timesteps[0]))
+
+    def unet_in(self, latents, depth64) -> torch.Tensor:
+        if not self.conf.use_depth:
+            return latents
+        b = latents.shape[0]
+        return torch.cat([latents, depth64.expand(b, -1, -1, -1)], dim=1)
+
+    def timestep(self, step_idx: int) -> torch.Tensor:
+        return torch.tensor(int(self.schedule.timesteps[step_idx]),
+                            device=self.device)
+
+    def cfg_step(self, latents, depth64, uncond_t, cond, step_idx: int):
+        """One classifier-free-guidance DDIM step (batch-2 U-Net pass).
+        Returns (new latents, the cond row's activations)."""
+        lat2 = torch.cat([latents, latents], dim=0)
+        ctx = torch.stack([uncond_t, cond[0]], dim=0)
+        eps, acts, _ = self.models.unet(self.unet_in(lat2, depth64),
+                                        self.timestep(step_idx), ctx)
+        gs = self.conf.guidance_scale
+        noise_pred = eps[0] + gs * (eps[1] - eps[0])
+        return (ddim_step(self.schedule, noise_pred[None], step_idx,
+                          latents), acts)
+
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def initial_inference(self, init_latents, depth, uncond_embeddings,
+                          prompt: str):
+        """Depth-conditioned reconstruction that records the decoder
+        activations of the cond row.
+
+        Returns (activations: 3 stacks [T, C, H, W], final latents,
+        uncond_seq [T, 77, D], init_latents)."""
+        T = self.schedule.num_inference_steps
+        depth64 = self.init_depth(depth) if self.conf.use_depth else None
+        cond = self.encode_prompt(prompt)
+        if uncond_embeddings is None:
+            uncond_seq = self.encode_prompt("").expand(T, -1, -1)
+        else:
+            uncond_seq = _stack_uncond(uncond_embeddings, T, self.device)
+        if init_latents is None:
+            init_latents = self.seeded_init_latents()
+        init_latents = self._tensor(init_latents)
+        latents = init_latents
+        recorded = []
+        for i in range(T):
+            latents, acts = self.cfg_step(latents, depth64, uncond_seq[i],
+                                          cond, i)
+            recorded.append([a[1].to(self.act_dtype) for a in acts])
+        stacks = [torch.stack([r[k] for r in recorded]) for k in range(3)]
+        return stacks, latents, uncond_seq, init_latents
+
+    def guidance_energy(self, latents, depth64, cond, step_idx: int,
+                        fg_pre, bg_pre, fgw, bgw,
+                        pc: ProcessedCorrespondences):
+        """The weighted fg + bg activation energy of `latents` at step
+        `step_idx` (fgw, bgw: the 3 per-layer weights)."""
+        conf = self.conf
+        size = (self.latent_res, self.latent_res)
+        _, acts, _ = self.models.unet(self.unet_in(latents, depth64),
+                                      self.timestep(step_idx), cond)
+        loss = 0.0
+        for k in range(3):
+            loss = loss + float(fgw[k]) * foreground_loss_apply(
+                fg_pre[k], acts[k][0], pc, conf.fg_patch_size, size)
+            loss = loss + float(bgw[k]) * background_loss_apply(
+                bg_pre[k], acts[k][0], pc, conf.bg_patch_size, size,
+                conf.bg_loss_type)
+        return loss
+
+    def guided_inference(self, latents, depth, uncond_embeddings,
+                         prompt: str, activations_orig: Sequence,
+                         correspondences=None,
+                         fg_weight: Optional[float] = None,
+                         bg_weight: Optional[float] = None,
+                         save_denoising_steps: bool = False,
+                         processed_correspondences: Optional[
+                             ProcessedCorrespondences] = None):
+        """Guided denoising toward the 3D-warped activations; returns the
+        edited image [1, 3, H, W] in [0, 1]."""
+        if save_denoising_steps:
+            raise NotImplementedError("save_denoising_steps is not ported")
+        if processed_correspondences is None:
+            raise NotImplementedError(
+                "pass processed_correspondences (the packed [N, 4] host "
+                "correspondence path is not ported)")
+        del correspondences
+        conf = self.conf
+        pc = processed_correspondences
+        fg_weight = conf.fg_weight if fg_weight is None else fg_weight
+        bg_weight = conf.bg_weight if bg_weight is None else bg_weight
+        T = self.schedule.num_inference_steps
+        size = (self.latent_res, self.latent_res)
+        depth64 = self.init_depth(depth) if conf.use_depth else None
+        cond = self.encode_prompt(prompt)
+        uncond_seq = _stack_uncond(uncond_embeddings, T, self.device)
+        fgw, bgw = build_guidance_weight_schedule(
+            fg_weight, bg_weight, conf.guidance_max_step, T,
+            conf.num_optsteps, conf.guidance_schedule_type)
+        acts_orig = [torch.as_tensor(a, device=self.device).to(
+            self.act_dtype) for a in activations_orig]
+        latents = self._tensor(latents)
+
+        for i in range(T):
+            if i < conf.guidance_max_step:
+                # latent-independent halves of the losses, once per step
+                fg_pre = [foreground_orig_precompute(
+                    acts_orig[k][i], pc, conf.fg_patch_size, size)
+                    for k in range(3)]
+                bg_pre = [background_orig_precompute(
+                    acts_orig[k][i], pc, conf.bg_patch_size, size,
+                    conf.bg_loss_type) for k in range(3)]
+                for it in range(conf.num_optsteps):
+                    lat = latents.detach().requires_grad_(True)
+                    with torch.enable_grad():
+                        energy = self.guidance_energy(
+                            lat, depth64, cond, i, fg_pre, bg_pre,
+                            fgw[i, it], bgw[i, it], pc)
+                        (grad,) = torch.autograd.grad(energy, lat)
+                    latents = latents - conf.guidance_lr * grad
+            with torch.no_grad():
+                latents, _ = self.cfg_step(latents, depth64, uncond_seq[i],
+                                           cond, i)
+        return self.decode_latent_image(latents)

@@ -1,0 +1,475 @@
+"""Depth-conditioned Stable Diffusion 2 U-Net (diffusers
+UNet2DConditionModel semantics), NCHW.
+
+The counterpart of the JAX package's `models/unet.py`. Modules carry the
+diffusers names, so the state dict has a real checkpoint's keys
+(`down_blocks.0.attentions.1.transformer_blocks.0.attn2.to_k.weight`). The
+forward returns what the JAX U-Net returns: `(eps, activations, attn)`, with
+`activations` the hidden states after each cross-attention up block (the
+guidance capture points, reference unet_2d_condition.py:1146-1161) and
+`attn` the optional cross-attention probabilities.
+
+Numerics follow the JAX module: parameters are stored in `param_dtype`,
+matmuls and convs run in the compute `dtype`, GroupNorm and LayerNorm run in
+fp32 (then SiLU, then a cast), attention logits and softmax in fp32, and
+eps and the activations come out fp32. Long self-attentions take the flash
+kernels where the JAX package's gate sends them (`ops/attention.py`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diffusionhandles_tpu_torch.ops.attention import dot_product_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """SD-2-depth defaults (stabilityai/stable-diffusion-2-depth unet);
+    in_channels = 4 latent channels + 1 depth channel."""
+
+    sample_size: int = 64
+    in_channels: int = 5
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D", "DownBlock2D")
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D")
+    layers_per_block: int = 2
+    # heads per block (head dim = channels // heads = 64 at SD-2's widths)
+    num_heads: Tuple[int, ...] = (5, 10, 20, 20)
+    cross_attention_dim: int = 1024
+    norm_num_groups: int = 32
+    flip_sin_to_cos: bool = True
+    freq_shift: int = 0
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    flash_attention: bool = False
+
+
+def tiny_unet_config(**overrides) -> UNetConfig:
+    """The JAX package's tiny_unet_config (same topology, tiny widths)."""
+    base = dict(sample_size=8, in_channels=5, out_channels=4,
+                block_out_channels=(32, 64, 64, 64), layers_per_block=1,
+                num_heads=(2, 2, 2, 2), cross_attention_dim=32,
+                dtype=torch.float32)
+    base.update(overrides)
+    return UNetConfig(**base)
+
+
+# ---------------------------------------------------------------------------
+# Layers with separate parameter and compute dtypes (flax's dtype /
+# param_dtype split): weights are cast to the compute dtype at use.
+# ---------------------------------------------------------------------------
+
+class Linear(nn.Linear):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias,
+                         dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(nn.Conv2d):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt))
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm computed in fp32 (output fp32; callers cast)."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm computed in fp32 (output fp32; callers cast)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(), self.eps)
+
+
+def timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
+                       freq_shift: float = 0.0, max_period: int = 10000):
+    """Sinusoidal timestep embedding (diffusers get_timestep_embedding)."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device) / (
+            half - freq_shift)
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+
+
+def gn_silu(norm: GroupNorm, x, dtype):
+    """GroupNorm in fp32, SiLU, then a cast to the compute dtype (the JAX
+    package's GNSiLU reference composition)."""
+    return F.silu(norm(x)).to(dtype)
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, temb_ch: Optional[int],
+                 groups: int, eps: float, dtype, param_dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = GroupNorm(groups, in_ch, eps=eps, dtype=param_dtype)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, dtype=dtype,
+                            param_dtype=param_dtype)
+        if temb_ch is not None:
+            self.time_emb_proj = Linear(temb_ch, out_ch, dtype=dtype,
+                                        param_dtype=param_dtype)
+        else:
+            self.time_emb_proj = None
+        self.norm2 = GroupNorm(groups, out_ch, eps=eps, dtype=param_dtype)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, dtype=dtype,
+                            param_dtype=param_dtype)
+        self.conv_shortcut = (Conv2d(in_ch, out_ch, 1, dtype=dtype,
+                                     param_dtype=param_dtype)
+                              if in_ch != out_ch else None)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(gn_silu(self.norm1, x, self.dtype))
+        if self.time_emb_proj is not None:
+            t = self.time_emb_proj(F.silu(temb).to(self.dtype))
+            h = h + t[:, :, None, None]
+        h = self.conv2(gn_silu(self.norm2, h, self.dtype))
+        residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return h + residual
+
+
+class Attention(nn.Module):
+    """diffusers Attention: to_q/k/v without bias, to_out.0 with bias.
+    Self-attention when `context` is None."""
+
+    def __init__(self, query_dim: int, context_dim: int, heads: int,
+                 head_dim: int, dtype, param_dtype, use_flash: bool = False):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        self.use_flash = use_flash
+        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype,
+                           param_dtype=param_dtype)
+        self.to_k = Linear(context_dim, inner, bias=False, dtype=dtype,
+                           param_dtype=param_dtype)
+        self.to_v = Linear(context_dim, inner, bias=False, dtype=dtype,
+                           param_dtype=param_dtype)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim, dtype=dtype,
+                                            param_dtype=param_dtype)])
+
+    def forward(self, x, context=None, capture_probs: bool = False):
+        is_self = context is None
+        context = x if context is None else context
+        b, sq, _ = x.shape
+        sk = context.shape[1]
+        q = self.to_q(x).view(b, sq, self.heads, self.head_dim)
+        k = self.to_k(context).view(b, sk, self.heads, self.head_dim)
+        v = self.to_v(context).view(b, sk, self.heads, self.head_dim)
+        probs = None
+        if capture_probs:
+            out, probs = dot_product_attention(q, k, v, return_probs=True)
+        else:
+            out = dot_product_attention(q, k, v,
+                                        use_flash=self.use_flash and is_self)
+        return self.to_out[0](out.reshape(b, sq, -1)), probs
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int, dtype, param_dtype):
+        super().__init__()
+        self.proj = Linear(dim_in, dim_out * 2, dtype=dtype,
+                           param_dtype=param_dtype)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, dtype, param_dtype):
+        super().__init__()
+        self.net = nn.ModuleList([
+            GEGLU(dim, dim * 4, dtype, param_dtype), nn.Dropout(0.0),
+            Linear(dim * 4, dim, dtype=dtype, param_dtype=param_dtype)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    """Self-attention, cross-attention, GEGLU feed-forward."""
+
+    def __init__(self, dim: int, heads: int, context_dim: int, dtype,
+                 param_dtype, use_flash: bool):
+        super().__init__()
+        self.dtype = dtype
+        head_dim = dim // heads
+        self.norm1 = LayerNorm(dim, dtype=param_dtype)
+        self.attn1 = Attention(dim, dim, heads, head_dim, dtype, param_dtype,
+                               use_flash)
+        self.norm2 = LayerNorm(dim, dtype=param_dtype)
+        self.attn2 = Attention(dim, context_dim, heads, head_dim, dtype,
+                               param_dtype, use_flash)
+        self.norm3 = LayerNorm(dim, dtype=param_dtype)
+        self.ff = FeedForward(dim, dtype, param_dtype)
+
+    def forward(self, x, context, capture_probs: bool = False):
+        x = x + self.attn1(self.norm1(x).to(self.dtype))[0]
+        h, probs = self.attn2(self.norm2(x).to(self.dtype), context,
+                              capture_probs=capture_probs)
+        x = x + h
+        return x + self.ff(self.norm3(x).to(self.dtype)), probs
+
+
+class Transformer2DModel(nn.Module):
+    """Spatial transformer with linear projections (SD-2)."""
+
+    def __init__(self, channels: int, heads: int, context_dim: int,
+                 groups: int, dtype, param_dtype, use_flash: bool):
+        super().__init__()
+        self.dtype = dtype
+        self.norm = GroupNorm(groups, channels, eps=1e-6, dtype=param_dtype)
+        self.proj_in = Linear(channels, channels, dtype=dtype,
+                              param_dtype=param_dtype)
+        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
+            channels, heads, context_dim, dtype, param_dtype, use_flash)])
+        self.proj_out = Linear(channels, channels, dtype=dtype,
+                               param_dtype=param_dtype)
+
+    def forward(self, x, context, capture_probs: bool = False):
+        b, c, h, w = x.shape
+        hid = self.norm(x).to(self.dtype).permute(0, 2, 3, 1).reshape(
+            b, h * w, c)
+        hid = self.proj_in(hid)
+        hid, probs = self.transformer_blocks[0](hid, context, capture_probs)
+        hid = self.proj_out(hid)
+        return hid.reshape(b, h, w, c).permute(0, 3, 1, 2) + x, probs
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int, dtype, param_dtype):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1,
+                           dtype=dtype, param_dtype=param_dtype)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels: int, dtype, param_dtype):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype,
+                           param_dtype=param_dtype)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class DownBlock(nn.Module):
+    """CrossAttnDownBlock2D (heads > 0) or DownBlock2D."""
+
+    def __init__(self, in_ch, out_ch, temb_ch, num_layers, heads,
+                 context_dim, add_downsample, groups, dtype, param_dtype,
+                 use_flash):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_ch,
+                          groups, 1e-5, dtype, param_dtype)
+            for i in range(num_layers)])
+        self.attentions = (nn.ModuleList([
+            Transformer2DModel(out_ch, heads, context_dim, groups, dtype,
+                               param_dtype, use_flash)
+            for _ in range(num_layers)]) if heads else None)
+        self.downsamplers = (nn.ModuleList([Downsample2D(out_ch, dtype,
+                                                         param_dtype)])
+                             if add_downsample else None)
+
+    def forward(self, x, temb, context, capture_probs: bool = False):
+        skips, probs = [], []
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(x, temb)
+            if self.attentions is not None:
+                x, p = self.attentions[i](x, context, capture_probs)
+                probs.append(p)
+            skips.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+            skips.append(x)
+        return x, skips, probs
+
+
+class UpBlock(nn.Module):
+    """CrossAttnUpBlock2D (heads > 0) or UpBlock2D."""
+
+    def __init__(self, prev_ch, skip_chs: Sequence[int], out_ch, temb_ch,
+                 heads, context_dim, add_upsample, groups, dtype,
+                 param_dtype, use_flash):
+        super().__init__()
+        resnets = []
+        ch = prev_ch
+        for skip_ch in skip_chs:
+            resnets.append(ResnetBlock2D(ch + skip_ch, out_ch, temb_ch,
+                                         groups, 1e-5, dtype, param_dtype))
+            ch = out_ch
+        self.resnets = nn.ModuleList(resnets)
+        self.attentions = (nn.ModuleList([
+            Transformer2DModel(out_ch, heads, context_dim, groups, dtype,
+                               param_dtype, use_flash)
+            for _ in skip_chs]) if heads else None)
+        self.upsamplers = (nn.ModuleList([Upsample2D(out_ch, dtype,
+                                                     param_dtype)])
+                           if add_upsample else None)
+
+    def forward(self, x, skips: List[torch.Tensor], temb, context,
+                capture_probs: bool = False):
+        probs = []
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(torch.cat([x, skips[-(i + 1)]], dim=1), temb)
+            if self.attentions is not None:
+                x, p = self.attentions[i](x, context, capture_probs)
+                probs.append(p)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
+        return x, probs
+
+
+class MidBlock(nn.Module):
+    def __init__(self, channels, temb_ch, heads, context_dim, groups, dtype,
+                 param_dtype, use_flash):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(channels, channels, temb_ch, groups, 1e-5, dtype,
+                          param_dtype) for _ in range(2)])
+        self.attentions = nn.ModuleList([Transformer2DModel(
+            channels, heads, context_dim, groups, dtype, param_dtype,
+            use_flash)])
+
+    def forward(self, x, temb, context, capture_probs: bool = False):
+        x = self.resnets[0](x, temb)
+        x, probs = self.attentions[0](x, context, capture_probs)
+        return self.resnets[1](x, temb), [probs]
+
+
+class UNet2DConditionModel(nn.Module):
+    """The denoising U-Net. Input NCHW; returns (eps, activations, attn)."""
+
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        self.config = cfg = config
+        dt, pdt = cfg.dtype, cfg.param_dtype
+        g = cfg.norm_num_groups
+        ch0 = cfg.block_out_channels[0]
+        temb_ch = ch0 * 4
+        flash = cfg.flash_attention
+        self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1, dtype=dt,
+                              param_dtype=pdt)
+        self.time_embedding = nn.Module()
+        self.time_embedding.linear_1 = Linear(ch0, temb_ch, dtype=dt,
+                                              param_dtype=pdt)
+        self.time_embedding.linear_2 = Linear(temb_ch, temb_ch, dtype=dt,
+                                              param_dtype=pdt)
+
+        n = len(cfg.block_out_channels)
+        down, ch, skip_chs = [], ch0, [ch0]
+        for i, btype in enumerate(cfg.down_block_types):
+            out_ch = cfg.block_out_channels[i]
+            heads = cfg.num_heads[i] if btype == "CrossAttnDownBlock2D" else 0
+            down.append(DownBlock(ch, out_ch, temb_ch, cfg.layers_per_block,
+                                  heads, cfg.cross_attention_dim, i < n - 1,
+                                  g, dt, pdt, flash))
+            skip_chs.extend([out_ch] * cfg.layers_per_block)
+            if i < n - 1:
+                skip_chs.append(out_ch)
+            ch = out_ch
+        self.down_blocks = nn.ModuleList(down)
+        self.mid_block = MidBlock(ch, temb_ch, cfg.num_heads[-1],
+                                  cfg.cross_attention_dim, g, dt, pdt, flash)
+
+        up, prev = [], ch
+        rev_channels = list(reversed(cfg.block_out_channels))
+        rev_heads = list(reversed(cfg.num_heads))
+        for i, btype in enumerate(cfg.up_block_types):
+            out_ch = rev_channels[i]
+            heads = rev_heads[i] if btype == "CrossAttnUpBlock2D" else 0
+            block_skips = [skip_chs.pop()
+                           for _ in range(cfg.layers_per_block + 1)]
+            up.append(UpBlock(prev, block_skips, out_ch, temb_ch, heads,
+                              cfg.cross_attention_dim, i < n - 1, g, dt, pdt,
+                              flash))
+            prev = out_ch
+        self.up_blocks = nn.ModuleList(up)
+        self.conv_norm_out = GroupNorm(g, prev, eps=1e-5, dtype=pdt)
+        # the output conv runs in fp32, like the JAX model's
+        self.conv_out = Conv2d(prev, cfg.out_channels, 3, padding=1,
+                               dtype=torch.float32, param_dtype=pdt)
+
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                capture_attention: bool = False):
+        """sample [B, C_in, H, W]; timesteps scalar or [B];
+        encoder_hidden_states [B, 77, cross_attention_dim].
+
+        Returns eps [B, out, H, W] fp32, the three decoder activations
+        (fp32, NCHW) and, with `capture_attention`, a dict of cross-attention
+        probability lists ('down', 'mid', 'up'), else None."""
+        cfg = self.config
+        dt = cfg.dtype
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                  cfg.flip_sin_to_cos, cfg.freq_shift)
+        temb = self.time_embedding.linear_1(temb.to(dt))
+        temb = self.time_embedding.linear_2(F.silu(temb))
+        context = encoder_hidden_states.to(dt)
+
+        x = self.conv_in(sample.to(dt))
+        skips = [x]
+        attn_down = []
+        for i, block in enumerate(self.down_blocks):
+            x, block_skips, probs = block(x, temb, context, capture_attention)
+            skips.extend(block_skips)
+            if cfg.down_block_types[i] == "CrossAttnDownBlock2D":
+                attn_down.append(probs)
+        x, attn_mid = self.mid_block(x, temb, context, capture_attention)
+
+        activations, attn_up = [], []
+        for i, block in enumerate(self.up_blocks):
+            num_layers = cfg.layers_per_block + 1
+            block_skips = skips[-num_layers:]
+            skips = skips[:-num_layers]
+            x, probs = block(x, block_skips, temb, context, capture_attention)
+            if cfg.up_block_types[i] == "CrossAttnUpBlock2D":
+                activations.append(x.float())
+                attn_up.append(probs)
+
+        eps = self.conv_out(gn_silu(self.conv_norm_out, x, dt))
+        attn = ({"down": attn_down, "mid": attn_mid, "up": attn_up}
+                if capture_attention else None)
+        return eps.float(), tuple(activations), attn

@@ -1,0 +1,161 @@
+"""DiffusionHandles pipeline facade.
+
+The counterpart of the JAX package's `pipeline.py` (reference:
+diffhandles/diffusion_handles.py): the four-step public API
+  invert_input_image -> generate_input_image -> set_foreground ->
+  transform_foreground
+with the same NCHW contracts ([1, 1, H, W] depths, [1, 3, H, W] images in
+[0, 1], [T, C, H, W] activation stacks). Inputs may be numpy arrays or
+tensors. Images and disparities come back as numpy; the null-text
+embeddings, noise, activation stacks and latents stay on the device as
+tensors, since the next step consumes them there.
+
+Precision: the U-Net and VAE run in the config's `dtype` (bf16 by
+default), CLIP and the geometry in fp32. On a CUDA device, set
+`torch.backends.cuda.matmul.allow_tf32 = False` and
+`torch.backends.cudnn.allow_tf32 = False` to keep the fp32 parts in full
+fp32 (chip_smoke.py does); PyTorch's default lets cuDNN run fp32
+convolutions in TF32.
+"""
+
+from __future__ import annotations
+
+import pathlib
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from diffusionhandles_tpu_torch.config import (DiffusionHandlesConfig,
+                                               config_from_dict, load_config)
+from diffusionhandles_tpu_torch.diffuser import GuidedStableDiffuser
+from diffusionhandles_tpu_torch.geometry.depth import normalize_depth
+from diffusionhandles_tpu_torch.geometry.transform import \
+    transform_depth_pc_processed
+from diffusionhandles_tpu_torch.inverter import StableNullInverter
+from diffusionhandles_tpu_torch.ops.poisson import harmonize_depth
+
+
+def _same(a, b) -> bool:
+    if a is b:
+        return True
+    a = torch.as_tensor(a, dtype=torch.float32)
+    b = torch.as_tensor(b, dtype=torch.float32, device=a.device)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+class DiffusionHandles:
+    """Training-free 3D-aware image editing (PyTorch)."""
+
+    def __init__(self, conf: Optional[Union[DiffusionHandlesConfig, str,
+                                            dict]] = None,
+                 variant: str = "sd2", device=None):
+        if conf is None or isinstance(conf, (str, pathlib.Path)):
+            conf = load_config(conf)
+        elif isinstance(conf, dict):
+            conf = config_from_dict(conf)
+        if conf.depth_transform_mode != "pc":
+            raise NotImplementedError(
+                f"depth_transform_mode={conf.depth_transform_mode!r}: only "
+                f"'pc' is ported")
+        self.conf = conf
+        self.device = torch.device(device or "cpu")
+        self.diffuser = GuidedStableDiffuser(
+            conf.guided_diffuser, model_paths=conf.model_paths,
+            variant=variant, device=self.device)
+        # the inversion rolls forward at the CFG scale the guided pass
+        # replays with
+        self.inverter = StableNullInverter(
+            self.diffuser,
+            guidance_scale=conf.guided_diffuser.guidance_scale)
+        self.img_res = self.diffuser.image_res
+        self._recording = None
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _disparity(self, depth) -> torch.Tensor:
+        return normalize_depth(1.0 / self._tensor(depth))
+
+    def invert_input_image(self, img, depth, prompt: str):
+        """Invert an input image (reference: diffusion_handles.py:36-56).
+
+        img [1, 3, H, W] in [0, 1]; depth [1, 1, H, W] (depth, not
+        disparity). Returns (null_text_emb [T, 1, 77, D],
+        init_noise [1, 4, h, w]) as device tensors."""
+        fused = self.conf.guided_diffuser.fused_recording
+        out = self.inverter.invert(self._tensor(img), self._disparity(depth),
+                                   prompt, num_inner_steps=5,
+                                   record_activations=fused,
+                                   return_recon=False)
+        _, init_noise, null_text_emb = out[:3]
+        if fused:
+            acts, final_latents = out[3]
+            self._recording = {
+                "prompt": prompt, "depth": np.asarray(depth, np.float32),
+                "null": null_text_emb, "noise": init_noise, "acts": acts,
+                "latents": final_latents}
+        return null_text_emb, init_noise
+
+    def generate_input_image(self, depth, prompt: str, null_text_emb=None,
+                             init_noise=None):
+        """Reconstruction pass that records the guidance activations
+        (reference: diffusion_handles.py:58-88). When the inputs are those
+        of the last fused-recording inversion, its capture is served.
+
+        Returns (null_text_emb [T, 1, 77, D], init_noise [1, 4, h, w],
+        activations: 3 stacks [T, C, H, W], latents [1, 4, h, w])."""
+        rec = self._recording
+        if (rec is not None and self.conf.guided_diffuser.fused_recording
+                and null_text_emb is not None and init_noise is not None
+                and prompt == rec["prompt"]
+                and np.array_equal(np.asarray(depth, np.float32),
+                                   rec["depth"])
+                and _same(null_text_emb, rec["null"])
+                and _same(init_noise, rec["noise"])):
+            return (rec["null"], rec["noise"], list(rec["acts"]),
+                    rec["latents"])
+        acts, latents, uncond, init_latents = \
+            self.diffuser.initial_inference(
+                init_latents=init_noise, depth=self._disparity(depth),
+                uncond_embeddings=null_text_emb, prompt=prompt)
+        return uncond[:, None], init_latents, acts, latents
+
+    def set_foreground(self, depth, fg_mask, bg_depth) -> np.ndarray:
+        """Infill the foreground hole of the input depth from the bg
+        depth's Laplacian inside the 15x-dilated foreground mask
+        (reference: diffusion_handles.py:90-111). Returns [1, 1, H, W]."""
+        hw = (np.shape(depth)[-2], np.shape(depth)[-1])
+        depth2d = self._tensor(depth).reshape(hw)
+        bg2d = self._tensor(bg_depth).reshape(hw)
+        mask2d = self._tensor(fg_mask).reshape(hw) > 0.5
+        out = harmonize_depth(depth2d, bg2d, mask2d)
+        return out.cpu().numpy()[None, None]
+
+    def transform_foreground(self, depth, prompt: str, fg_mask, bg_depth,
+                             null_text_emb, init_noise, activations,
+                             rot_angle: Optional[float] = None,
+                             rot_axis=None, translation=None,
+                             fg_weight: Optional[float] = None,
+                             bg_weight: Optional[float] = None,
+                             use_input_depth_normalization: bool = False):
+        """3D-transform the foreground and re-generate
+        (reference: diffusion_handles.py:113-166).
+
+        Returns (edited image [1, 3, H, W] in [0, 1], edited disparity
+        [1, 1, H, W]) as numpy."""
+        gconf = self.conf.guided_diffuser
+        edited_disparity, pc = transform_depth_pc_processed(
+            depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
+            intrinsics=self.diffuser.get_depth_intrinsics(),
+            rot_angle=rot_angle, rot_axis=rot_axis, translation=translation,
+            use_input_depth_normalization=use_input_depth_normalization,
+            bg_erosion=gconf.bg_erosion, max_corr=gconf.max_correspondences,
+            latent_res=self.diffuser.latent_res, device=self.device)
+        edited = self.diffuser.guided_inference(
+            latents=init_noise, depth=edited_disparity,
+            uncond_embeddings=null_text_emb, prompt=prompt,
+            activations_orig=activations, processed_correspondences=pc,
+            fg_weight=fg_weight, bg_weight=bg_weight,
+            save_denoising_steps=gconf.save_denoising_steps)
+        return edited.cpu().numpy(), edited_disparity.cpu().numpy()

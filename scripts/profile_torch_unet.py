@@ -1,0 +1,116 @@
+"""Per-call cost of the PyTorch port's SD-2-depth U-Net on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_unet.py
+
+Times the three U-Net call shapes of the main path at 64x64 latents with
+seeded random weights (median of repeats, synchronized): the batch-1
+forward (DDIM inversion, the null-text conditional pass), the batch-1
+forward + backward to the latents (guidance; null-text differentiates to
+the embedding instead), and the batch-2 CFG forward. Then one batch-1
+forward + backward under torch.profiler: device time by kernel, the flash
+kernels' share, and the device's busy share of the wall time (profiled, and
+against the unprofiled call). Prints JSON lines; needs CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+
+def _median_ms(calls, repeats: int = 9) -> dict:
+    """Median wall ms of each call, timed round-robin (one warm-up round),
+    so that clock ramps and neighbours hit every call alike."""
+    times = {name: [] for name in calls}
+    for rnd in range(repeats + 1):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if rnd:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def main() -> None:
+    from diffusionhandles_tpu_torch.config import GuidedDiffuserConfig
+    from diffusionhandles_tpu_torch.diffuser import create_sd_models
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    unet = create_sd_models(conf=GuidedDiffuserConfig(),
+                            device="cuda").unet
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 5, 64, 64), generator=gen).cuda()
+    ctx = torch.randn((2, 77, 1024), generator=gen).cuda()
+    t = torch.tensor(500, device="cuda")
+
+    def fwd_b1():
+        with torch.no_grad():
+            unet(x, t, ctx[:1])
+
+    def fwd_b2():
+        with torch.no_grad():
+            unet(torch.cat([x, x]), t, ctx)
+
+    def fwd_bwd_b1():
+        lat = x.clone().requires_grad_(True)
+        acts = unet(lat, t, ctx[:1])[1]
+        torch.autograd.grad(sum(a.float().square().mean() for a in acts),
+                            lat)
+
+    calls = {"fwd_b1": fwd_b1, "fwd_bwd_b1": fwd_bwd_b1, "fwd_b2": fwd_b2}
+    call_ms = _median_ms(calls)
+    print(json.dumps({"unet_call_ms": call_ms}))
+
+    from torch.profiler import ProfilerActivity, profile
+    fwd_bwd_b1()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fwd_bwd_b1()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies): a CPU op's device
+        # time would count its kernels a second time
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    total_us = sum(r[0] for r in rows)
+    flash_us = sum(r[0] for r in rows if "flash" in r[1])
+    print(json.dumps({
+        "fwd_bwd_b1_profiled": {
+            "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
+            "device_busy_share": total_us / 1e3 / (wall * 1e3),
+            # the profiler slows the host; against the unprofiled call:
+            "device_busy_share_unprofiled": total_us / 1e3
+            / call_ms["fwd_bwd_b1"],
+            "flash_kernels_ms": flash_us / 1e3,
+            "kernel_launches": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
+                    for us, k, n in rows[:15]]}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,109 @@
+"""PyTorch port vs the JAX package: config, tokenizers, seeded noise and
+the DDIM scheduler. All exact in fp32."""
+
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusionhandles_tpu import config as jconfig
+from diffusionhandles_tpu import scheduler as jsched
+from diffusionhandles_tpu.models import tokenizer as jtok
+from diffusionhandles_tpu.utils.rng import seeded_randn as j_randn
+from diffusionhandles_tpu_torch import config as tconfig
+from diffusionhandles_tpu_torch import scheduler as tsched
+from diffusionhandles_tpu_torch.models import tokenizer as ttok
+from diffusionhandles_tpu_torch.utils.rng import seeded_randn as t_randn
+
+
+def test_config_fields_and_defaults_match():
+    for jcls, tcls in [(jconfig.GuidedDiffuserConfig,
+                        tconfig.GuidedDiffuserConfig),
+                       (jconfig.ModelPathsConfig, tconfig.ModelPathsConfig)]:
+        assert dataclasses.asdict(jcls()) == dataclasses.asdict(tcls())
+    j = jconfig.config_to_dict(jconfig.DiffusionHandlesConfig())
+    t = tconfig.config_to_dict(tconfig.DiffusionHandlesConfig())
+    assert j == t
+
+
+def test_load_config_yaml_overlay(tmp_path):
+    path = tmp_path / "c.yaml"
+    path.write_text("guided_diffuser:\n  num_timesteps: 7\n  fg_weight: 2.0\n"
+                    "depth_transform_mode: pc\n")
+    t = tconfig.load_config(str(path))
+    j = jconfig.load_config(str(path))
+    assert tconfig.config_to_dict(t) == jconfig.config_to_dict(j)
+    assert t.guided_diffuser.num_timesteps == 7
+    with pytest.raises(KeyError):
+        tconfig.config_from_dict({"guided_diffuser": {"nope": 1}})
+
+
+def test_hash_tokenizer_matches():
+    prompts = ["a toy cube on a table", "", "  Two   WORDS "]
+    for vocab in (1024, 49408):
+        assert (ttok.HashTokenizer(vocab_size=vocab)(prompts)
+                == jtok.HashTokenizer(vocab_size=vocab)(prompts))
+
+
+def test_bpe_tokenizer_matches(tmp_path):
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1, "!": 2}
+    for ch in "abcdefghijklmnopqrstuvwxyz":
+        vocab[ch] = len(vocab)
+    for piece in ["a</w>", "t</w>", "at</w>", "c", "ca", "cat</w>", "ta",
+                  "hat</w>", "h", "ha"]:
+        vocab[piece] = len(vocab)
+    merges = ["a t</w>", "c a", "ca t</w>", "h a", "ha t</w>", "t a"]
+    (tmp_path / "tokenizer").mkdir()
+    (tmp_path / "tokenizer" / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "tokenizer" / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(merges))
+    t = ttok.load_tokenizer(str(tmp_path), max_length=8)
+    j = jtok.load_tokenizer(str(tmp_path), max_length=8)
+    assert isinstance(t, ttok.CLIPBPETokenizer)
+    for text in ["cat hat", "a cat", "cat " * 50, " CAT "]:
+        assert t([text]) == j([text])
+
+
+def test_seeded_randn_bitwise():
+    shape = (1, 4, 64, 64)
+    got = t_randn(shape, 2773)
+    want = j_randn(shape, 2773)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        t_randn(shape, 0, method="jax")
+
+
+@pytest.mark.parametrize("steps", [6, 50])
+def test_schedule_tables_exact(steps):
+    t = tsched.make_ddim_schedule(steps)
+    j = jsched.make_ddim_schedule(steps)
+    np.testing.assert_array_equal(t.timesteps, j.timesteps)
+    for name in ("alphas_cumprod", "alpha_t", "alpha_prev"):
+        np.testing.assert_array_equal(getattr(t, name), getattr(j, name))
+    assert t.final_alpha_cumprod == j.final_alpha_cumprod
+
+
+def test_step_functions_exact_fp32():
+    steps = 50
+    t = tsched.make_ddim_schedule(steps)
+    j = jsched.make_ddim_schedule(steps)
+    rng = np.random.RandomState(0)
+    sample = rng.randn(1, 4, 8, 8).astype(np.float32)
+    eps = rng.randn(1, 4, 8, 8).astype(np.float32)
+    for s in (0, 17, steps - 1):
+        for tf, jf in [(tsched.ddim_step, jsched.ddim_step),
+                       (tsched.ddim_next_step, jsched.ddim_next_step)]:
+            got = tf(t, torch.from_numpy(eps), s, torch.from_numpy(sample))
+            want = jf(j, jnp.asarray(eps), s, jnp.asarray(sample))
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=2e-7, atol=2e-7)
+    got = tsched.add_noise(t, torch.from_numpy(sample), torch.from_numpy(eps),
+                           int(t.timesteps[0]))
+    want = jsched.add_noise(j, jnp.asarray(sample), jnp.asarray(eps),
+                            int(j.timesteps[0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-7,
+                               atol=2e-7)
