@@ -4,14 +4,25 @@
 
 Phases, each reported on its own line:
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the hand-written CUDA kernels from csrc/;
+  2. build: compiles the hand-written CUDA kernels from csrc/ (one nvcc per
+     source, all started together);
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the shapes the U-Net gives it, with errors and median times;
-  4. edit: one full 512x512 DiffusionHandles(variant="sd2") edit through
-     the four public steps (seeded random weights), with per-step seconds,
-     the kernels' launch counts, output checks and peak device memory;
-     then the U-Net once with the kernels and once with dense attention on
-     the same input, which must agree.
+     at every shape the 512x512 U-Net gives it, with errors, device times
+     (CUDA events), the plain version's and, where one PyTorch call
+     computes the same function, that call's time, and the card's bound;
+  4. edit: one 512x512 DiffusionHandles(variant="sd2") edit through the four
+     public steps with the default U-Net (seeded random weights),
+     EDIT_TIMESTEPS timesteps, with per-step seconds, the kernels' launch
+     counts, output checks and peak device memory;
+  5. unet_reference: that U-Net once with the flash kernels and once with
+     dense attention on the same input, which must agree;
+  6. edit_fused: the same edit, FUSED_EDIT_TIMESTEPS timesteps, through the
+     U-Net with the fused GroupNorm kernels (UNetConfig.fused_gn_conv and
+     fused_gn) on the same seeded weights; all six kernels must launch;
+  7. unet_fused_reference: the fused U-Net and a default one with the same
+     weights on one input: eps and the gradient to the latents must agree.
+Each edit runs with only its own models on the card, so that its peak
+memory is its own.
 The next-to-last line is a JSON object with one entry per kernel, the last
 line the JSON result. Exits non-zero, with no result line, on any failure
 or when no CUDA device is present. Imports nothing of JAX.
@@ -19,11 +30,18 @@ or when no CUDA device is present. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
+import gc
 import json
-import statistics
 import subprocess
 import sys
 import time
+
+# Timesteps of the two edits: the default U-Net's edit is cut to keep the
+# run short; the fused edit runs the configuration's full 50.
+EDIT_TIMESTEPS = 10
+FUSED_EDIT_TIMESTEPS = 50
 
 # Tolerances of kernel vs plain version, bf16 inputs. The forward rounds p
 # to bf16 relative to a running row max where the plain version uses the
@@ -37,19 +55,49 @@ import time
 FWD_O_RTOL = 2.0 ** -7
 FWD_LSE_ATOL = 2.0 ** -8
 BWD_RTOL = 2.0 ** -6
-# U-Net eps with the kernels vs with dense attention, bf16 end to end.
+# The GroupNorm kernels follow their plain versions' recipe step for step:
+# the same fp32 values, summed in another order, with SiLU through another
+# exp, are rounded once to bf16, so an element may land one bf16 ulp
+# (2**-8 relative) away; 2**-7 of the largest value bounds that. The fused
+# conv adds fp32 tap sums in another order before its one rounding.
+GN_RTOL = 2.0 ** -7
+# U-Net eps (and its gradient) with the kernels vs without, bf16 end to
+# end: the two differ in rounding points at every layer.
 UNET_RTOL = 5e-2
+
+# The card's published peaks (H100 SXM, dense): bf16 tensor cores, fp32
+# outside them, device memory.
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 FWD_SHAPES = [(1, 4096, 5, 64), (2, 4096, 5, 64), (1, 1024, 10, 64),
               (2, 1024, 10, 64)]
 BWD_SHAPES = [(1, 4096, 5, 64), (1, 1024, 10, 64)]
-REPLACES = {
-    "flash_fwd": "diffusionhandles_tpu/ops/attention.py:115",
-    "flash_bwd": "diffusionhandles_tpu/ops/attention.py:333",
-}
-SOURCES = {
-    "flash_fwd": "diffusionhandles_tpu_torch/csrc/flash_fwd.cu",
-    "flash_bwd": "diffusionhandles_tpu_torch/csrc/flash_bwd.cu",
+# GroupNorm sites at 512x512: (channels, side, SiLU, eps) of the 16
+# transformer norms, then conv_norm_out
+GN_SHAPES = [(320, 64, False, 1e-6), (640, 32, False, 1e-6),
+             (1280, 16, False, 1e-6), (1280, 8, False, 1e-6),
+             (320, 64, True, 1e-5)]
+# resnet halves that take the fused kernel at 512x512: (side, Ci, Co)
+CONV_SHAPES = [(64, 320, 320), (32, 320, 640), (32, 640, 640),
+               (32, 960, 640), (32, 1280, 640), (16, 640, 1280),
+               (16, 1280, 1280), (8, 1280, 1280)]
+BATCHES = (1, 2)
+
+KERNELS = {
+    "flash_fwd": ("diffusionhandles_tpu_torch/csrc/flash_fwd.cu",
+                  "diffusionhandles_tpu/ops/attention.py:115"),
+    "flash_bwd": ("diffusionhandles_tpu_torch/csrc/flash_bwd.cu",
+                  "diffusionhandles_tpu/ops/attention.py:333"),
+    "gn_silu_fwd": ("diffusionhandles_tpu_torch/csrc/gn.cu",
+                    "diffusionhandles_tpu/ops/groupnorm.py:64"),
+    "gn_silu_bwd": ("diffusionhandles_tpu_torch/csrc/gn.cu",
+                    "diffusionhandles_tpu/ops/groupnorm.py:117"),
+    "gn_silu_conv3x3_fwd": ("diffusionhandles_tpu_torch/csrc/gn_conv.cu",
+                            "diffusionhandles_tpu/ops/gn_conv.py:94"),
+    "gn_silu_conv3x3_dx": ("diffusionhandles_tpu_torch/csrc/gn_conv.cu",
+                           "diffusionhandles_tpu/ops/gn_conv.py:121"),
 }
 
 
@@ -57,17 +105,45 @@ def _line(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def _median_ms(fn, repeats: int = 10) -> float:
+def _device_ms(fn, repeats: int = 20) -> float:
+    """Mean device ms of one call: CUDA events around `repeats` calls after
+    a warm-up call."""
     import torch
-    fn()  # warm-up
-    times = []
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(repeats):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - start) * 1e3)
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def _bound(flops: float, nbytes: float, peak: float):
+    """(ms, "operations" | "bytes"): the least time for the work on this
+    card, the larger of flops over the peak rate and bytes over the memory
+    rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _kernel_modules():
+    from diffusionhandles_tpu_torch.ops import attention, gn_conv, groupnorm
+    return attention, groupnorm, gn_conv
+
+
+def reset_launch_counts() -> None:
+    for mod in _kernel_modules():
+        mod.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    counts = {}
+    for mod in _kernel_modules():
+        counts.update(mod.LAUNCHES)
+    return counts
 
 
 def phase_device():
@@ -87,76 +163,253 @@ def phase_device():
 
 
 def phase_build():
-    from diffusionhandles_tpu_torch.ops import attention
     from diffusionhandles_tpu_torch.utils.cuda_build import build_log
+    attention, groupnorm, _ = _kernel_modules()
     start = time.perf_counter()
-    attention.kernel_library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(attention.kernel_library),
+                    pool.submit(groupnorm.kernel_library)]:
+            fut.result()
     seconds = time.perf_counter() - start
-    report = [ln.strip() for ln in build_log(
-        "flash_attention", attention.KERNEL_SOURCES).splitlines()
-        if "registers" in ln or "spill" in ln]
+    report = []
+    for name, mod in (("flash_attention", attention),
+                      ("groupnorm", groupnorm)):
+        report += [ln.strip() for ln in build_log(
+            name, mod.KERNEL_SOURCES).splitlines()
+            if "registers" in ln or "spill" in ln]
     _line("build", seconds=seconds, ptxas=report)
 
 
-def phase_kernels():
-    """Each kernel vs its plain version at the main path's shapes; returns
-    {name: {"max_abs_err", "ms", "plain_ms"}} (worst error over shapes,
-    times at the first, largest-token shape)."""
+class _Results:
+    """Per kernel: the worst error over its shapes, and the times and bound
+    at its first (largest) shape."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, err, ms, plain_ms, bound, library_ms=None):
+        row = self.rows.get(name)
+        if row is None:
+            self.rows[name] = {"max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound[0],
+                               "bound_by": bound[1],
+                               "library_ms": library_ms}
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+
+
+def _check(name, shape, errs, tols, **fields):
+    ok = all(e <= t for e, t in zip(errs, tols))
+    _line("kernel", name=name, shape=list(shape), max_abs_err=errs, tol=tols,
+          ok=ok, **fields)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{shape}")
+
+
+def _rel_err(got, want, rtol):
+    err = (got.float() - want.float()).abs().max().item()
+    return err, rtol * want.float().abs().max().item()
+
+
+def _kernels_flash(res, rand):
     import torch
-
-    from diffusionhandles_tpu_torch.ops import attention as att
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    results = {}
-
-    def rand(shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(
-            "cuda", torch.bfloat16)
-
+    import torch.nn.functional as F
+    att = _kernel_modules()[0]
     for shape in FWD_SHAPES:
+        b, s, h, d = shape
         q, k, v = rand(shape, 1.5), rand(shape, 1.5), rand(shape)
         o, lse = att.flash_fwd_cuda(q, k, v)
         o_ref, lse_ref = att.flash_fwd_ref(q, k, v)
         torch.cuda.synchronize()
-        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_o, tol_o = _rel_err(o, o_ref, FWD_O_RTOL)
         err_l = (lse - lse_ref).abs().max().item()
-        tol_o = FWD_O_RTOL * o_ref.float().abs().max().item()
-        ms = _median_ms(lambda: att.flash_fwd_cuda(q, k, v))
-        plain_ms = _median_ms(lambda: att.flash_fwd_ref(q, k, v))
-        ok = err_o <= tol_o and err_l <= FWD_LSE_ATOL
-        _line("kernel", name="flash_fwd", shape=list(shape),
-              max_abs_err_o=err_o, tol_o=tol_o, max_abs_err_lse=err_l,
-              tol_lse=FWD_LSE_ATOL, ms=ms, plain_ms=plain_ms, ok=ok)
-        if not ok:
-            raise AssertionError(f"flash_fwd disagrees at {shape}")
-        entry = results.setdefault("flash_fwd", {"max_abs_err": 0.0,
-                                                 "ms": ms,
-                                                 "plain_ms": plain_ms})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err_o, err_l)
+        ms = _device_ms(lambda: att.flash_fwd_cuda(q, k, v))
+        plain_ms = _device_ms(lambda: att.flash_fwd_ref(q, k, v))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = _device_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bound = _bound(4.0 * b * h * s * s * d,
+                       4 * b * s * h * d * 2 + b * h * s * 4, PEAK_BF16)
+        _check("flash_fwd", shape, [err_o, err_l], [tol_o, FWD_LSE_ATOL],
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound[0])
+        res.add("flash_fwd", max(err_o, err_l), ms, plain_ms, bound, lib_ms)
 
     for shape in BWD_SHAPES:
+        b, s, h, d = shape
         q, k, v = rand(shape, 1.5), rand(shape, 1.5), rand(shape)
         do = rand(shape)
         o, lse = att.flash_fwd_ref(q, k, v)
         got = att.flash_bwd_cuda(q, k, v, o, lse, do)
         want = att.flash_bwd_ref(q, k, v, o, lse, do)
         torch.cuda.synchronize()
-        errs, tols = [], []
-        for g_, w_ in zip(got, want):
-            errs.append((g_.float() - w_.float()).abs().max().item())
-            tols.append(BWD_RTOL * w_.float().abs().max().item())
-        ms = _median_ms(lambda: att.flash_bwd_cuda(q, k, v, o, lse, do))
-        plain_ms = _median_ms(lambda: att.flash_bwd_ref(q, k, v, o, lse, do))
-        ok = all(e <= t for e, t in zip(errs, tols))
-        _line("kernel", name="flash_bwd", shape=list(shape),
-              max_abs_err_dq_dk_dv=errs, tol=tols, ms=ms, plain_ms=plain_ms,
-              ok=ok)
-        if not ok:
-            raise AssertionError(f"flash_bwd disagrees at {shape}")
-        entry = results.setdefault("flash_bwd", {"max_abs_err": 0.0,
-                                                 "ms": ms,
-                                                 "plain_ms": plain_ms})
-        entry["max_abs_err"] = max(entry["max_abs_err"], *errs)
-    return results
+        errs, tols = zip(*(_rel_err(g_, w_, BWD_RTOL)
+                           for g_, w_ in zip(got, want)))
+        ms = _device_ms(lambda: att.flash_bwd_cuda(q, k, v, o, lse, do))
+        plain_ms = _device_ms(lambda: att.flash_bwd_ref(q, k, v, o, lse, do))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        lib_ms = _device_ms(sdpa_fwd_bwd)
+        # the function's five products (the kernels recompute two more)
+        bound = _bound(10.0 * b * h * s * s * d,
+                       8 * b * s * h * d * 2 + b * h * s * 4, PEAK_BF16)
+        _check("flash_bwd", shape, list(errs), list(tols), ms=ms,
+               plain_ms=plain_ms, library_ms_fwd_bwd=lib_ms,
+               bound_ms=bound[0])
+        res.add("flash_bwd", max(errs), ms, plain_ms, bound, lib_ms)
+
+
+def _kernels_gn(res, rand):
+    import torch
+    import torch.nn.functional as F
+    gn = _kernel_modules()[1]
+    bf16 = torch.bfloat16
+    for c, side, act, eps in GN_SHAPES:
+        for b in BATCHES:
+            shape = (b, c, side, side)
+            n = b * c * side * side
+            x = rand(shape, 1.5, 0.5)
+            dy = rand(shape)
+            g = 1.0 + 0.1 * rand((c,), dtype=torch.float32)
+            beta = 0.1 * rand((c,), dtype=torch.float32)
+            y, mean, rsig = gn.gn_silu_fwd_cuda(x, g, beta, 32, eps, act, bf16)
+            y_ref, mean_ref, rsig_ref = gn.gn_silu_fwd_ref(x, g, beta, 32,
+                                                           eps, act, bf16)
+            got = gn.gn_silu_bwd_cuda(x, dy, g, beta, mean_ref, rsig_ref, 32,
+                                      act)
+            want = gn.gn_silu_bwd_ref(x, dy, g, beta, mean_ref, rsig_ref, 32,
+                                      act)
+            torch.cuda.synchronize()
+            errs, tols = zip(_rel_err(y, y_ref, GN_RTOL),
+                             _rel_err(rsig, rsig_ref, GN_RTOL))
+            ms = _device_ms(lambda: gn.gn_silu_fwd_cuda(x, g, beta, 32, eps,
+                                                        act, bf16))
+            plain_ms = _device_ms(lambda: gn.gn_silu_fwd_ref(
+                x, g, beta, 32, eps, act, bf16))
+            gb, bb = g.to(bf16), beta.to(bf16)
+            # one PyTorch call computes the same function where there is
+            # no SiLU: F.group_norm (its CUDA kernel reduces in fp32)
+            lib_ms = (None if act else _device_ms(
+                lambda: F.group_norm(x, 32, gb, bb, eps)))
+            default_ms = _device_ms(lambda: F.silu(F.group_norm(
+                x.float(), 32, g, beta, eps)).to(bf16))
+            # read x, write y; ~9 fp32 operations an element
+            bound = _bound(9.0 * n, 4 * n + 8 * c, PEAK_FP32)
+            _check("gn_silu_fwd", shape + (act,), list(errs), list(tols),
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   default_ms=default_ms, bound_ms=bound[0])
+            res.add("gn_silu_fwd", max(errs), ms, plain_ms, bound, lib_ms)
+
+            errs, tols = zip(*(_rel_err(g_, w_, GN_RTOL)
+                               for g_, w_ in zip(got, want)))
+            ms = _device_ms(lambda: gn.gn_silu_bwd_cuda(
+                x, dy, g, beta, mean_ref, rsig_ref, 32, act))
+            plain_ms = _device_ms(lambda: gn.gn_silu_bwd_ref(
+                x, dy, g, beta, mean_ref, rsig_ref, 32, act))
+            lib_ms = None
+            if not act:
+                _, m_, r_ = torch.ops.aten.native_group_norm(
+                    x, gb, bb, b, c, side * side, 32, eps)
+                lib_ms = _device_ms(
+                    lambda: torch.ops.aten.native_group_norm_backward(
+                        dy, x, m_, r_, gb, b, c, side * side, 32,
+                        [True, True, True]))
+            # read x and dy, write dx; ~17 fp32 operations an element
+            bound = _bound(17.0 * n, 6 * n + 8 * c, PEAK_FP32)
+            _check("gn_silu_bwd", shape + (act,), list(errs), list(tols),
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound[0])
+            res.add("gn_silu_bwd", max(errs), ms, plain_ms, bound, lib_ms)
+
+
+def _kernels_gn_conv(res, rand):
+    import torch
+    import torch.nn.functional as F
+    gc = _kernel_modules()[2]
+    bf16 = torch.bfloat16
+    for side, ci, co in CONV_SHAPES:
+        for b in BATCHES:
+            shape = (b, ci, side, side)
+            x = rand(shape, 1.5, 0.5)
+            w = rand((co, ci, 3, 3), (9 * ci) ** -0.5)
+            dy = rand((b, co, side, side))
+            g = 1.0 + 0.1 * rand((ci,), dtype=torch.float32)
+            beta = 0.1 * rand((ci,), dtype=torch.float32)
+            y, mean, rsig = gc.gn_silu_conv3x3_fwd_cuda(x, g, beta, w, 32,
+                                                        1e-5)
+            y_ref, mean_ref, rsig_ref = gc.gn_silu_conv3x3_fwd_ref(
+                x, g, beta, w, 32, 1e-5)
+            dx = gc.gn_silu_conv3x3_dx_cuda(x, g, beta, w, mean_ref, rsig_ref,
+                                            dy, 32)
+            dx_ref = gc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean_ref,
+                                               rsig_ref, dy, 32)
+            torch.cuda.synchronize()
+            flops = 2.0 * b * side * side * 9 * ci * co
+            act_bytes = 2 * b * side * side * (ci + co)
+            w_bytes = 2 * 9 * ci * co
+
+            def default_fwd():
+                z = F.silu(F.group_norm(x.float(), 32, g, beta, 1e-5))
+                return F.conv2d(z.to(bf16), w, padding=1)
+
+            xg = x.detach().requires_grad_(True)
+
+            def default_dx():
+                z = F.silu(F.group_norm(xg.float(), 32, g, beta, 1e-5))
+                out = F.conv2d(z.to(bf16), w, padding=1)
+                torch.autograd.grad(out, xg, dy)
+
+            errs, tols = zip(_rel_err(y, y_ref, GN_RTOL),
+                             _rel_err(rsig, rsig_ref, GN_RTOL))
+            ms = _device_ms(lambda: gc.gn_silu_conv3x3_fwd_cuda(
+                x, g, beta, w, 32, 1e-5))
+            plain_ms = _device_ms(lambda: gc.gn_silu_conv3x3_fwd_ref(
+                x, g, beta, w, 32, 1e-5))
+            bound = _bound(flops, act_bytes + w_bytes, PEAK_BF16)
+            _check("gn_silu_conv3x3_fwd", shape + (co,), list(errs),
+                   list(tols), ms=ms, plain_ms=plain_ms,
+                   default_ms=_device_ms(default_fwd), bound_ms=bound[0],
+                   bound_by=bound[1])
+            res.add("gn_silu_conv3x3_fwd", max(errs), ms, plain_ms, bound)
+
+            err, tol = _rel_err(dx, dx_ref, GN_RTOL)
+            ms = _device_ms(lambda: gc.gn_silu_conv3x3_dx_cuda(
+                x, g, beta, w, mean_ref, rsig_ref, dy, 32))
+            plain_ms = _device_ms(lambda: gc.gn_silu_conv3x3_dx_ref(
+                x, g, beta, w, mean_ref, rsig_ref, dy, 32))
+            # read x, dy and w, write dx
+            bound = _bound(flops, act_bytes + 2 * b * side * side * ci
+                           + w_bytes, PEAK_BF16)
+            _check("gn_silu_conv3x3_dx", shape + (co,), [err], [tol], ms=ms,
+                   plain_ms=plain_ms, default_ms=_device_ms(default_dx),
+                   bound_ms=bound[0], bound_by=bound[1])
+            res.add("gn_silu_conv3x3_dx", err, ms, plain_ms, bound)
+
+
+def phase_kernels() -> dict:
+    """Each kernel vs its plain version at the main path's shapes; returns
+    {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    "library_ms"}} (worst error over shapes, the rest at the first,
+    largest shape)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale + shift
+        return x.to(dtype)
+
+    res = _Results()
+    _kernels_flash(res, rand)
+    _kernels_gn(res, rand)
+    _kernels_gn_conv(res, rand)
+    return res.rows
 
 
 def _sample(res: int = 512, seed: int = 0):
@@ -175,36 +428,65 @@ def _sample(res: int = 512, seed: int = 0):
                 fg_mask=fg.astype(np.float32)[None, None])
 
 
-def phase_edit(num_timesteps: int = 50):
-    """One full edit through the four public steps; returns the kernels'
-    launch counts of that run."""
-    import numpy as np
+def _fused_models(conf):
+    """The seeded sd2 models with the U-Net swapped for one built on the
+    fused GroupNorm config, holding the same weight tensors."""
     import torch
 
+    from diffusionhandles_tpu_torch.diffuser import create_sd_models
+    from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
+
+    models = create_sd_models(conf=conf, device="cuda")
+    cfg = dataclasses.replace(models.unet_config, fused_gn_conv=True,
+                              fused_gn=True)
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(cfg)
+    unet.load_state_dict(models.unet.state_dict(), strict=True, assign=True)
+    unet.eval().requires_grad_(False)
+    return dataclasses.replace(models, unet=unet, unet_config=cfg)
+
+
+def _handles(num_timesteps: int, fused: bool = False):
+    """A 512x512 sd2 DiffusionHandles on the card with seeded random
+    weights; with `fused`, its U-Net is the fused GroupNorm one."""
     from diffusionhandles_tpu_torch.config import DiffusionHandlesConfig
-    from diffusionhandles_tpu_torch.ops import attention
     from diffusionhandles_tpu_torch.pipeline import DiffusionHandles
 
     conf = DiffusionHandlesConfig()
     conf.guided_diffuser.num_timesteps = num_timesteps
+    models = _fused_models(conf.guided_diffuser) if fused else None
+    return DiffusionHandles(conf, variant="sd2", device="cuda", models=models)
+
+
+def phase_edit(name: str, num_timesteps: int, kernels: tuple,
+               fused: bool = False):
+    """One edit through the four public steps; returns the handles and the
+    kernels' launch counts of that run, each of `kernels` must be > 0."""
+    import numpy as np
+    import torch
+
     start = time.perf_counter()
-    handles = DiffusionHandles(conf, variant="sd2", device="cuda")
+    handles = _handles(num_timesteps, fused)
     torch.cuda.synchronize()
-    _line("edit_setup", seconds=time.perf_counter() - start,
-          num_timesteps=num_timesteps, image_res=handles.img_res)
+    _line(f"{name}_setup", seconds=time.perf_counter() - start,
+          num_timesteps=num_timesteps, image_res=handles.img_res,
+          unet_config={k: getattr(handles.diffuser.models.unet_config, k)
+                       for k in ("fused_gn_conv", "fused_gn",
+                                 "flash_attention")})
     sample = _sample(handles.img_res)
     prompt = "a toy cube on a table"
 
     torch.cuda.reset_peak_memory_stats()
-    attention.reset_launch_counts()
+    resident = torch.cuda.memory_allocated()
+    reset_launch_counts()
     steps = {}
 
-    def timed(name, fn):
+    def timed(step, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        steps[name] = time.perf_counter() - t0
+        steps[step] = time.perf_counter() - t0
         return out
 
     null, noise = timed(
@@ -221,7 +503,7 @@ def phase_edit(num_timesteps: int = 50):
             bg_depth=bg, null_text_emb=null, init_noise=noise,
             activations=acts, rot_angle=20.0, rot_axis=[0.0, 1.0, 0.0],
             translation=[0.0, 0.0, 0.1]))
-    launches = dict(attention.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     res = handles.img_res
@@ -235,13 +517,24 @@ def phase_edit(num_timesteps: int = 50):
         "edited_in_0_1": bool(edited.min() >= 0.0 and edited.max() <= 1.0),
         "activations_finite": all(bool(torch.isfinite(torch.as_tensor(
             a)).all()) for a in acts),
-        "kernels_launched": all(n > 0 for n in launches.values()),
+        "kernels_launched": all(launches[k] > 0 for k in kernels),
     }
-    _line("edit", seconds=steps, total_seconds=sum(steps.values()),
-          launches=launches, peak_bytes=peak, checks=checks)
+    _line(name, seconds=steps, total_seconds=sum(steps.values()),
+          launches=launches, peak_bytes=peak, resident_bytes=resident,
+          checks=checks)
     if not all(checks.values()):
-        raise AssertionError(f"edit checks failed: {checks}")
+        raise AssertionError(f"{name} checks failed: {checks}")
     return handles, launches
+
+
+def _unet_input(unet, res: int, seed: int):
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((1, unet.config.in_channels, res, res),
+                    generator=gen).to("cuda")
+    ctx = torch.randn((1, 77, unet.config.cross_attention_dim),
+                      generator=gen).to("cuda")
+    return x, torch.tensor([500], device="cuda"), ctx
 
 
 def phase_unet_reference(handles):
@@ -252,13 +545,7 @@ def phase_unet_reference(handles):
     from diffusionhandles_tpu_torch.models.unet import Attention
     unet = handles.diffuser.models.unet
     attns = [m for m in unet.modules() if isinstance(m, Attention)]
-    gen = torch.Generator(device="cpu").manual_seed(1)
-    res = handles.diffuser.latent_res
-    x = torch.randn((1, unet.config.in_channels, res, res),
-                    generator=gen).to("cuda")
-    ctx = torch.randn((1, 77, unet.config.cross_attention_dim),
-                      generator=gen).to("cuda")
-    t = torch.tensor([500], device="cuda")
+    x, t, ctx = _unet_input(unet, handles.diffuser.latent_res, 1)
     with torch.no_grad():
         eps_k = unet(x, t, ctx)[0].float()
         for m in attns:
@@ -266,12 +553,46 @@ def phase_unet_reference(handles):
         eps_d = unet(x, t, ctx)[0].float()
         for m in attns:
             m.use_flash = True
-    err = (eps_k - eps_d).abs().max().item()
-    tol = UNET_RTOL * eps_d.abs().max().item()
+    err, tol = _rel_err(eps_k, eps_d, UNET_RTOL)
     ok = bool(torch.isfinite(eps_k).all()) and err <= tol
     _line("unet_reference", max_abs_err=err, tol=tol, ok=ok)
     if not ok:
         raise AssertionError("U-Net with kernels disagrees with dense")
+
+
+def phase_unet_fused_reference(fused, default_config):
+    """The fused U-Net and a default-config U-Net given its weights, on one
+    input: eps and the gradient of an activation energy w.r.t. the latents
+    must agree (bf16 end to end)."""
+    import torch
+
+    from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
+    unet_f = fused.diffuser.models.unet
+    with torch.device("cuda"):
+        unet_d = UNet2DConditionModel(default_config)
+    unet_d.load_state_dict(unet_f.state_dict(), strict=True)
+    unet_d.eval().requires_grad_(False)
+    x, t, ctx = _unet_input(unet_f, fused.diffuser.latent_res, 2)
+
+    def run(unet):
+        lat = x.clone().requires_grad_(True)
+        eps, acts, _ = unet(lat, t, ctx)
+        energy = sum(a.float().square().mean() for a in acts)
+        (grad,) = torch.autograd.grad(energy + eps.float().square().mean(),
+                                      lat)
+        return eps.detach().float(), grad.float()
+
+    eps_d, grad_d = run(unet_d)
+    eps_f, grad_f = run(unet_f)
+    err_e, tol_e = _rel_err(eps_f, eps_d, UNET_RTOL)
+    err_g, tol_g = _rel_err(grad_f, grad_d, UNET_RTOL)
+    ok = (bool(torch.isfinite(eps_f).all())
+          and bool(torch.isfinite(grad_f).all())
+          and err_e <= tol_e and err_g <= tol_g)
+    _line("unet_fused_reference", max_abs_err_eps=err_e, tol_eps=tol_e,
+          max_abs_err_grad=err_g, tol_grad=tol_g, ok=ok)
+    if not ok:
+        raise AssertionError("fused U-Net disagrees with the default one")
 
 
 def main() -> int:
@@ -284,19 +605,25 @@ def main() -> int:
         phase_device()
         phase_build()
         kernels = phase_kernels()
-        handles, launches = phase_edit()
-        phase_unet_reference(handles)
+        default, _ = phase_edit("edit", EDIT_TIMESTEPS,
+                                ("flash_fwd", "flash_bwd"))
+        phase_unet_reference(default)
+        default_config = default.diffuser.models.unet_config
+        del default
+        gc.collect()
+        torch.cuda.empty_cache()
+        fused, launches = phase_edit(
+            "edit_fused", FUSED_EDIT_TIMESTEPS, tuple(KERNELS), fused=True)
+        phase_unet_fused_reference(fused, default_config)
     except Exception as exc:  # report and fail, with no result line
         import traceback
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {exc!r}", file=sys.stderr, flush=True)
         return 1
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
-        for name in ("flash_fwd", "flash_bwd")]}), flush=True)
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name], **kernels[name]}
+        for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,8 +2,10 @@
 
 The PyTorch/CUDA port of the JAX package: the same four-step editing
 API (`DiffusionHandles`), module layout and numerics, with the JAX
-package's Pallas flash-attention kernels rewritten as CUDA kernels for the
-H100 (`csrc/`). Imports torch only; never jax.
+package's Pallas kernels (flash attention; GroupNorm and the fused
+GroupNorm+SiLU+conv3x3 of the fused U-Net config) rewritten as CUDA kernels
+for the H100 (`csrc/`). Imports torch only; never jax. Entry points run on
+the GPU unless given another device.
 """
 
 from diffusionhandles_tpu_torch.config import (DiffusionHandlesConfig,

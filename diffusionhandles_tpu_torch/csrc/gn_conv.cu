@@ -1,0 +1,370 @@
+// Fused GroupNorm + SiLU + 3x3 conv (SAME, stride 1) forward and input
+// gradient for Hopper (sm_90a): NCHW bf16 activations, PyTorch's
+// [Co, Ci, 3, 3] bf16 weight, fp32 statistics and accumulation.
+//
+// Replaces the JAX package's ops/gn_conv.py:_gn_conv_fwd_kernel and
+// _gn_conv_bwd_kernel (launched by _fwd_impl / _bwd_dx_impl). Each TPU
+// kernel holds one whole padded image (up to 72 MB of VMEM) in one grid
+// cell: it reduces the GroupNorm statistics in place, then runs the nine
+// shifted tap matmuls over it. No CTA can hold an image (227 KB of shared
+// memory), so the statistics become passes of their own (gn_common.cuh),
+// and the conv is an implicit GEMM over tiles:
+//   M = H*W output pixels, N = output channels, K = 9 * input channels,
+//   ordered (channel, tap) with the tap fastest: PyTorch's own weight
+//   order, so the forward reads w as the [Co, 9*Ci] matrix it already is.
+// The A-tile loader normalizes each value it loads, (x - mean)*rsig*gamma
+// + beta in fp32, applies SiLU and the zero halo (SAME padding), and rounds
+// to bf16 into shared memory: the normalized activation never goes to
+// device memory. mma.sync m16n8k16 (bf16 in, fp32 accumulate).
+//   forward: y = bf16(sum of the nine taps); the bias is added outside.
+//   dx:      the same GEMM of dy against the flipped, transposed kernel
+//            (B[(co, tap)][ci] = w[co][ci][8 - tap]). The epilogue forms
+//            dxh = dz * silu'(xh*gamma + beta) * gamma, writes it in fp32
+//            and, per CTA, the per-channel sums of dxh and dxh*xh over its
+//            64 pixels (fixed order, no atomics). dx_groups reduces those
+//            to the group means t1, t2; dx_apply writes
+//            dx = rsig * (dxh - t1 - xh*t2).
+//
+// Bound: 2*H*W*9*Ci*Co operations against (H*W*(Ci + Co) + 9*Ci*Co) * 2
+// bytes: at 64x64x320 -> 320, 7.5 GFLOP over 7 MB, above the card's
+// flop:byte balance, so the kernel should be bound by its matrix
+// throughput. This first version is far from it: the loader recomputes the
+// normalization once per tap (9x), tiles are 64x64 with no copy/compute
+// overlap, and the 8x8 and 16x16 levels fill only 20-40 CTAs. wgmma, TMA,
+// a channels-last layout and a normalized-activation stage are the known
+// next steps.
+//
+// Grid: (ceil(H*W / 64) pixel tiles, ceil(N / 64) channel tiles, B).
+// Block: 4 warps, 2 x 2 over the 64 x 64 tile, 32 x 32 each.
+#include "flash_common.cuh"
+#include "gn_common.cuh"
+
+namespace gnconv {
+
+constexpr int BM = 64;          // output pixels of a CTA
+constexpr int BN = 64;          // output channels of a CTA
+constexpr int KC = 16;          // input channels per K step
+constexpr int BK = KC * 9;      // K per step: (channel, tap), tap fastest
+constexpr int LDK = BK + 8;     // smem row stride in bf16 (304 B: the 8 rows
+                                // of a fragment read start on distinct banks)
+constexpr int NTHREADS = 128;
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* s, int row,
+                                            int col) {
+  return *reinterpret_cast<const uint32_t*>(s + row * LDK + col);
+}
+
+// DX = false: src = x [B, Ci, hw], y = conv(silu(gn(x))) [B, Co, hw].
+// DX = true:  src = dy [B, Co, hw], x is read in the epilogue, dxh
+//             [B, Ci, hw] and part1/part2 [B, pixel tiles, Ci] are written.
+template <bool DX>
+__global__ void __launch_bounds__(NTHREADS)
+    conv3x3_kernel(const __nv_bfloat16* __restrict__ src,
+                   const __nv_bfloat16* __restrict__ w,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta,
+                   const float* __restrict__ mean,
+                   const float* __restrict__ rsig,
+                   const __nv_bfloat16* __restrict__ x,
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ dxh,
+                   float* __restrict__ part1, float* __restrict__ part2,
+                   int ci, int co, int h, int wd, int cg, int groups) {
+  __shared__ __align__(16) __nv_bfloat16 as[BM * LDK];
+  __shared__ __align__(16) __nv_bfloat16 bs[BN * LDK];
+  __shared__ float red[2][2][BN];  // dx: [sum][warp row][channel]
+
+  const int hw = h * wd;
+  const int kch = DX ? co : ci;  // channels along K
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 2, wn = warp % 2;
+
+  // The A loader: each thread fills one pixel row of the tile (128 threads
+  // over 64 pixels, two threads a row), so its pixel and the taps that stay
+  // inside the image are fixed for the whole K loop.
+  const int am = threadIdx.x % BM;
+  const int apix = m0 + am;
+  int tap_ok = 0;
+  if (apix < hw) {
+    const int oh = apix / wd, ow = apix % wd;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ih = oh + tap / 3 - 1, iw = ow + tap % 3 - 1;
+      if (ih >= 0 && ih < h && iw >= 0 && iw < wd) tap_ok |= 1 << tap;
+    }
+  }
+  const __nv_bfloat16* asrc = src + (size_t)b * kch * hw + apix;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+
+  for (int kc0 = 0; kc0 < kch; kc0 += KC) {
+    // A[m][k] for channel kc0 + kcl and tap tp: the (normalized, SiLU'd)
+    // source value at the tap's shifted pixel, 0 in the halo
+    auto a_val = [&](int kcl, int tp) -> float {
+      if (!((tap_ok >> tp) & 1)) return 0.f;
+      const int c = kc0 + kcl;
+      const float raw = __bfloat162float(
+          asrc[(long long)c * hw + (tp / 3 - 1) * wd + (tp % 3 - 1)]);
+      if (DX) return raw;
+      const int bg = b * groups + c / cg;
+      return gn::silu((raw - mean[bg]) * rsig[bg] * gamma[c] + beta[c]);
+    };
+
+    __syncthreads();  // the previous tiles are consumed
+    // this thread's pairs (k, k+1) of its pixel row: k = 2*(tid / 64) + 4j
+    int k = 2 * (threadIdx.x / BM);
+    int kcl = 0, tp = k;
+    for (int j = 0; j < BK / 4; ++j) {
+      const float v0 = a_val(kcl, tp);
+      const float v1 = tp == 8 ? a_val(kcl + 1, 0) : a_val(kcl, tp + 1);
+      *reinterpret_cast<uint32_t*>(as + am * LDK + k) =
+          flash::pack_f32(v0, v1);
+      k += 4;
+      tp += 4;
+      if (tp >= 9) {
+        tp -= 9;
+        ++kcl;
+      }
+    }
+    if (!DX) {
+      // B[n][k] = w[n0 + n][kc0 .. kc0 + KC)[taps]: one contiguous run of
+      // BK values per output channel, 16 bytes per load
+      for (int e = threadIdx.x; e < BN * (BK / 8); e += NTHREADS) {
+        const int n = e / (BK / 8), chunk = e % (BK / 8);
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (n0 + n < co)
+          val = *reinterpret_cast<const uint4*>(
+              w + ((size_t)(n0 + n) * ci + kc0) * 9 + chunk * 8);
+        *reinterpret_cast<uint4*>(bs + n * LDK + chunk * 8) = val;
+      }
+    } else {
+      // B[n][(col, tap)] = w[kc0 + col][n0 + n][8 - tap]: for each output
+      // channel col, the 9-value kernels of input channels n0.. are one
+      // contiguous run, read in order
+      for (int e = threadIdx.x; e < KC * BN * 9; e += NTHREADS) {
+        const int col = e / (BN * 9), j = e % (BN * 9);
+        const int n = j / 9, tr = j % 9;
+        __nv_bfloat16 val = __float2bfloat16_rn(0.f);
+        if (n0 + n < ci) val = w[((size_t)(kc0 + col) * ci + n0 + n) * 9 + tr];
+        bs[n * LDK + col * 9 + (8 - tr)] = val;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = wm * 32 + mt * 16;
+        a[mt][0] = ld_pair(as, r + g, kk * 16 + 2 * t);
+        a[mt][1] = ld_pair(as, r + g + 8, kk * 16 + 2 * t);
+        a[mt][2] = ld_pair(as, r + g, kk * 16 + 2 * t + 8);
+        a[mt][3] = ld_pair(as, r + g + 8, kk * 16 + 2 * t + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = wn * 32 + nt * 8 + g;
+        const uint32_t b0 = ld_pair(bs, n, kk * 16 + 2 * t);
+        const uint32_t b1 = ld_pair(bs, n, kk * 16 + 2 * t + 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) flash::mma_bf16(acc[mt][nt], a[mt], b0, b1);
+      }
+    }
+  }
+
+  // accumulator element (mt, nt, 2*half + e) is pixel
+  // m0 + wm*32 + mt*16 + g + 8*half, channel n0 + wn*32 + nt*8 + 2t + e
+  if (!DX) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int m = m0 + wm * 32 + mt * 16 + g + 8 * (c >> 1);
+          const int n = n0 + wn * 32 + nt * 8 + 2 * t + (c & 1);
+          if (m < hw && n < co)
+            y[((size_t)b * co + n) * hw + m] = __float2bfloat16_rn(acc[mt][nt][c]);
+        }
+    return;
+  }
+
+  float s1[4][2], s2[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) s1[nt][0] = s1[nt][1] = s2[nt][0] = s2[nt][1] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = m0 + wm * 32 + mt * 16 + g + 8 * (c >> 1);
+        const int n = n0 + wn * 32 + nt * 8 + 2 * t + (c & 1);
+        if (m < hw && n < ci) {
+          const size_t idx = ((size_t)b * ci + n) * hw + m;
+          const int bg = b * groups + n / cg;
+          const float xh = (__bfloat162float(x[idx]) - mean[bg]) * rsig[bg];
+          const float ga = gamma[n];
+          const float d = acc[mt][nt][c] * gn::silu_grad(xh * ga + beta[n]) * ga;
+          dxh[idx] = d;
+          s1[nt][c & 1] += d;
+          s2[nt][c & 1] += d * xh;
+        }
+      }
+  // sum over the 8 pixel rows g of the warp (lane bits 2..4)
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s1[nt][e] += __shfl_xor_sync(0xffffffffu, s1[nt][e], off);
+        s2[nt][e] += __shfl_xor_sync(0xffffffffu, s2[nt][e], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[0][wm][wn * 32 + nt * 8 + 2 * t + e] = s1[nt][e];
+        red[1][wm][wn * 32 + nt * 8 + 2 * t + e] = s2[nt][e];
+      }
+  }
+  __syncthreads();
+  const int n = threadIdx.x;
+  if (n < BN && n0 + n < ci) {
+    const size_t o = ((size_t)b * gridDim.x + blockIdx.x) * ci + n0 + n;
+    part1[o] = red[0][0][n] + red[0][1][n];
+    part2[o] = red[1][0][n] + red[1][1][n];
+  }
+}
+
+// t1[bg] = mean over group bg of dxh, t2[bg] = of dxh*xh: the per-CTA
+// channel sums, in (pixel tile, channel) order, over n = cg*hw
+__global__ void dx_groups_kernel(const float* __restrict__ part1,
+                                 const float* __restrict__ part2,
+                                 float* __restrict__ t1,
+                                 float* __restrict__ t2, int groups_total,
+                                 int groups, int ci, int cg, int mtiles,
+                                 float n) {
+  const int bg = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bg >= groups_total) return;
+  const int b = bg / groups, gi = bg % groups;
+  float a = 0.f, q = 0.f;
+  for (int mt = 0; mt < mtiles; ++mt)
+    for (int c = 0; c < cg; ++c) {
+      const size_t idx = ((size_t)b * mtiles + mt) * ci + gi * cg + c;
+      a += part1[idx];
+      q += part2[idx];
+    }
+  t1[bg] = a / n;
+  t2[bg] = q / n;
+}
+
+constexpr int APPLY_THREADS = 256;
+
+// dx = rsig * (dxh - t1 - xh*t2), 8 values per thread
+__global__ void __launch_bounds__(APPLY_THREADS)
+    dx_apply_kernel(const __nv_bfloat16* __restrict__ x,
+                    const float* __restrict__ dxh,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ rsig,
+                    const float* __restrict__ t1,
+                    const float* __restrict__ t2,
+                    __nv_bfloat16* __restrict__ dx, int hw, int cg,
+                    long long vecs) {
+  const long long i = (long long)blockIdx.x * APPLY_THREADS + threadIdx.x;
+  if (i >= vecs) return;
+  const long long e = i * gn::VEC;
+  const int bg = (int)(e / hw) / cg;
+  const float m = mean[bg], rs = rsig[bg], a1 = t1[bg], a2 = t2[bg];
+  float xf[gn::VEC];
+  gn::load8(x + e, xf);
+  const float4 d0 = reinterpret_cast<const float4*>(dxh + e)[0];
+  const float4 d1 = reinterpret_cast<const float4*>(dxh + e)[1];
+  const float d[gn::VEC] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+  for (int j = 0; j < gn::VEC; ++j) {
+    const float xh = (xf[j] - m) * rs;
+    xf[j] = rs * (d[j] - a1 - xh * a2);
+  }
+  gn::store8(dx + e, xf);
+}
+
+}  // namespace gnconv
+
+// x: [b, ci, h, wd] bf16, w: [co, ci, 3, 3] bf16, both contiguous and
+// 16-byte aligned, ci and co multiples of 16, h*wd of 8; gamma, beta: [ci]
+// fp32; y: [b, co, h, wd] bf16 out; mean, rsig: [b*groups] fp32 out; sums:
+// fp32 scratch of 2*b*ci. Returns the launches' cudaError_t.
+extern "C" int gn_conv_fwd_bf16(const void* x, const void* gamma,
+                                const void* beta, const void* w, void* y,
+                                void* mean, void* rsig, void* sums, int b,
+                                int ci, int co, int h, int wd, int groups,
+                                float eps, void* stream) {
+  using namespace gnconv;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  float* m = static_cast<float*>(mean);
+  float* rs = static_cast<float*>(rsig);
+  cudaError_t err = gn::launch_group_stats(xb, static_cast<float*>(sums), m,
+                                           rs, b, ci, h * wd, groups, eps,
+                                           false, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((h * wd + BM - 1) / BM, (co + BN - 1) / BN, b);
+  conv3x3_kernel<false><<<grid, NTHREADS, 0, st>>>(
+      xb, static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), m,
+      rs, nullptr, static_cast<__nv_bfloat16*>(y), nullptr, nullptr, nullptr,
+      ci, co, h, wd, ci / groups, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, w, gamma, beta as gn_conv_fwd_bf16; mean, rsig: its statistics; dy:
+// [b, co, h, wd] bf16; dx: [b, ci, h, wd] bf16 out; dxh: fp32 scratch like
+// x; part: fp32 scratch of 2*b*ceil(h*wd/64)*ci; t12: of 2*b*groups.
+// Returns the launches' cudaError_t.
+extern "C" int gn_conv_dx_bf16(const void* x, const void* gamma,
+                               const void* beta, const void* w,
+                               const void* mean, const void* rsig,
+                               const void* dy, void* dx, void* dxh,
+                               void* part, void* t12, int b, int ci, int co,
+                               int h, int wd, int groups, void* stream) {
+  using namespace gnconv;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hw = h * wd, mtiles = (hw + BM - 1) / BM, cg = ci / groups;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const float* m = static_cast<const float*>(mean);
+  const float* rs = static_cast<const float*>(rsig);
+  float* dxhf = static_cast<float*>(dxh);
+  float* part1 = static_cast<float*>(part);
+  float* part2 = part1 + (size_t)b * mtiles * ci;
+  float* t1 = static_cast<float*>(t12);
+  float* t2 = t1 + b * groups;
+  const dim3 grid(mtiles, (ci + BN - 1) / BN, b);
+  conv3x3_kernel<true><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), m, rs, xb, nullptr, dxhf, part1,
+      part2, ci, co, h, wd, cg, groups);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bg = b * groups;
+  dx_groups_kernel<<<(bg + 127) / 128, 128, 0, st>>>(
+      part1, part2, t1, t2, bg, groups, ci, cg, mtiles,
+      (float)cg * (float)hw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vecs = (long long)b * ci * hw / gn::VEC;
+  dx_apply_kernel<<<(unsigned)((vecs + APPLY_THREADS - 1) / APPLY_THREADS),
+                    APPLY_THREADS, 0, st>>>(
+      xb, dxhf, m, rs, t1, t2, static_cast<__nv_bfloat16*>(dx), hw, cg, vecs);
+  return static_cast<int>(cudaGetLastError());
+}

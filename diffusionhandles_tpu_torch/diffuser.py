@@ -43,6 +43,7 @@ from diffusionhandles_tpu_torch.models.vae import (AutoencoderKL, VAEConfig,
 from diffusionhandles_tpu_torch.ops.resize import resize_hw
 from diffusionhandles_tpu_torch.scheduler import (add_noise, ddim_step,
                                                   make_ddim_schedule)
+from diffusionhandles_tpu_torch.utils.device import resolve_device
 from diffusionhandles_tpu_torch.utils.rng import seeded_randn
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -92,12 +93,13 @@ def create_sd_models(model_paths: Optional[ModelPathsConfig] = None,
                      conf: Optional[GuidedDiffuserConfig] = None,
                      variant: str = "sd2", seed: int = 0,
                      device=None) -> SDModels:
-    """The SD stack on `device` with seeded random weights.
+    """The SD stack on `device` (default: the GPU) with seeded random
+    weights.
 
     variant='sd2': the real SD-2-depth architecture; 'tiny': the miniature
     test architecture. Loading a checkpoint directory is not ported."""
     conf = conf or GuidedDiffuserConfig()
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     if model_paths is not None and model_paths.checkpoint_dir is not None:
         raise NotImplementedError("checkpoint_dir loading is not ported yet")
     dtype = DTYPES[conf.dtype]
@@ -146,7 +148,7 @@ class GuidedStableDiffuser:
                  model_paths: Optional[ModelPathsConfig] = None,
                  variant: str = "sd2", device=None):
         self.conf = conf
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.models = models or create_sd_models(model_paths, conf, variant,
                                                  device=self.device)
         self.schedule = make_ddim_schedule(conf.num_timesteps)

@@ -22,6 +22,7 @@ from diffusionhandles_tpu_torch.geometry.depth import (depth_to_world_coords,
 from diffusionhandles_tpu_torch.ops.morphology import (close, ellipse_kernel,
                                                        open_)
 from diffusionhandles_tpu_torch.ops.poisson import poisson_solve
+from diffusionhandles_tpu_torch.utils.device import resolve_device
 
 
 def rodrigues_rotate(points, rot_axis, rot_angle_deg: float):
@@ -96,17 +97,15 @@ def transform_depth_pc_processed(depth, bg_depth, fg_mask, intrinsics,
                                  use_input_depth_normalization=False,
                                  bg_erosion: int = 0, max_corr: int = 16384,
                                  latent_res: int = 64, device=None):
-    """Point-cloud depth transform with the correspondence binning on the
-    device.
+    """Point-cloud depth transform with the correspondence binning on
+    `device` (default: the GPU).
 
     depth, bg_depth, fg_mask: [1, 1, H, W] (numpy or tensors). Returns
     (edited disparity [1, 1, H, W] fp32 tensor, ProcessedCorrespondences)."""
     from diffusionhandles_tpu_torch.guidance import \
         process_correspondences_device
 
-    if device is None:
-        device = (depth.device if isinstance(depth, torch.Tensor)
-                  else torch.device("cpu"))
+    device = resolve_device(device)
     hw = (np.shape(depth)[-2], np.shape(depth)[-1])
     depth, bg_depth, fg = (
         torch.as_tensor(a, dtype=torch.float32, device=device)

@@ -13,7 +13,11 @@ Numerics follow the JAX module: parameters are stored in `param_dtype`,
 matmuls and convs run in the compute `dtype`, GroupNorm and LayerNorm run in
 fp32 (then SiLU, then a cast), attention logits and softmax in fp32, and
 eps and the activations come out fp32. Long self-attentions take the flash
-kernels where the JAX package's gate sends them (`ops/attention.py`).
+kernels where the JAX package's gate sends them (`ops/attention.py`). With
+the fused GroupNorm switches on (`UNetConfig.fused_gn_conv`, `fused_gn`),
+the resnet halves and the GroupNorm sites take the kernels of
+`ops/gn_conv.py` and `ops/groupnorm.py` where the JAX package's gates send
+them; the parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -26,13 +30,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffusionhandles_tpu_torch.ops import groupnorm
 from diffusionhandles_tpu_torch.ops.attention import dot_product_attention
+from diffusionhandles_tpu_torch.ops.gn_conv import (gn_silu_conv3x3,
+                                                    gn_silu_conv3x3_ok,
+                                                    gn_silu_conv3x3_ref)
 
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
     """SD-2-depth defaults (stabilityai/stable-diffusion-2-depth unet);
-    in_channels = 4 latent channels + 1 depth channel."""
+    in_channels = 4 latent channels + 1 depth channel.
+
+    fused_gn_conv mirrors the JAX UNetConfig's pallas_conv='fused': each
+    resnet half GroupNorm -> SiLU -> conv3x3 is one op (ops/gn_conv.py).
+    fused_gn mirrors its pallas_gn=True: the transformer norms,
+    conv_norm_out and, without fused_gn_conv, the resnet norms take the
+    GroupNorm op (ops/groupnorm.py)."""
 
     sample_size: int = 64
     in_channels: int = 5
@@ -54,6 +68,8 @@ class UNetConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     flash_attention: bool = False
+    fused_gn_conv: bool = False
+    fused_gn: bool = False
 
 
 def tiny_unet_config(**overrides) -> UNetConfig:
@@ -128,17 +144,26 @@ def timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
     return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
 
 
-def gn_silu(norm: GroupNorm, x, dtype):
-    """GroupNorm in fp32, SiLU, then a cast to the compute dtype (the JAX
-    package's GNSiLU reference composition)."""
-    return F.silu(norm(x)).to(dtype)
+def gn_silu(norm: GroupNorm, x, dtype, act: bool = True,
+            fused: bool = False):
+    """GroupNorm in fp32, SiLU (with `act`), then a cast to the compute
+    dtype (the JAX package's GNSiLU). With `fused`, shapes that pass the
+    JAX package's gate take the GroupNorm op (ops/groupnorm.py)."""
+    jax_shape = (x.shape[0], *x.shape[2:], x.shape[1])
+    if fused and groupnorm.gn_ok(jax_shape, norm.num_groups):
+        return groupnorm.gn_silu(x, norm.weight, norm.bias, norm.num_groups,
+                                 norm.eps, act, dtype)
+    y = norm(x)
+    return (F.silu(y) if act else y).to(dtype)
 
 
 class ResnetBlock2D(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, temb_ch: Optional[int],
-                 groups: int, eps: float, dtype, param_dtype):
+                 groups: int, eps: float, dtype, param_dtype,
+                 fused_gn_conv: bool = False, fused_gn: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.fused_gn_conv, self.fused_gn = fused_gn_conv, fused_gn
         self.norm1 = GroupNorm(groups, in_ch, eps=eps, dtype=param_dtype)
         self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, dtype=dtype,
                             param_dtype=param_dtype)
@@ -154,12 +179,26 @@ class ResnetBlock2D(nn.Module):
                                      param_dtype=param_dtype)
                               if in_ch != out_ch else None)
 
+    def _half(self, x, norm: GroupNorm, conv: Conv2d):
+        """conv(silu(norm(x))) + bias. Fused: the GN+SiLU+conv op where the
+        JAX package's gate passes, else its unfused composition (the JAX
+        ResnetBlock._fused)."""
+        if not self.fused_gn_conv:
+            return conv(gn_silu(norm, x, self.dtype, fused=self.fused_gn))
+        b, ci, h, w = x.shape
+        ok = gn_silu_conv3x3_ok((b, h, w, ci), (3, 3, ci, conv.out_channels),
+                                norm.num_groups)
+        fn = gn_silu_conv3x3 if ok else gn_silu_conv3x3_ref
+        y = fn(x.to(self.dtype), norm.weight, norm.bias, conv.weight,
+               norm.num_groups, norm.eps)
+        return y + conv.bias.to(self.dtype)[:, None, None]
+
     def forward(self, x, temb=None):
-        h = self.conv1(gn_silu(self.norm1, x, self.dtype))
+        h = self._half(x, self.norm1, self.conv1)
         if self.time_emb_proj is not None:
             t = self.time_emb_proj(F.silu(temb).to(self.dtype))
             h = h + t[:, :, None, None]
-        h = self.conv2(gn_silu(self.norm2, h, self.dtype))
+        h = self._half(h, self.norm2, self.conv2)
         residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return h + residual
 
@@ -251,9 +290,11 @@ class Transformer2DModel(nn.Module):
     """Spatial transformer with linear projections (SD-2)."""
 
     def __init__(self, channels: int, heads: int, context_dim: int,
-                 groups: int, dtype, param_dtype, use_flash: bool):
+                 groups: int, dtype, param_dtype, use_flash: bool,
+                 fused_gn: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.fused_gn = fused_gn
         self.norm = GroupNorm(groups, channels, eps=1e-6, dtype=param_dtype)
         self.proj_in = Linear(channels, channels, dtype=dtype,
                               param_dtype=param_dtype)
@@ -264,8 +305,9 @@ class Transformer2DModel(nn.Module):
 
     def forward(self, x, context, capture_probs: bool = False):
         b, c, h, w = x.shape
-        hid = self.norm(x).to(self.dtype).permute(0, 2, 3, 1).reshape(
-            b, h * w, c)
+        hid = gn_silu(self.norm, x, self.dtype, act=False,
+                      fused=self.fused_gn)
+        hid = hid.permute(0, 2, 3, 1).reshape(b, h * w, c)
         hid = self.proj_in(hid)
         hid, probs = self.transformer_blocks[0](hid, context, capture_probs)
         hid = self.proj_out(hid)
@@ -297,15 +339,16 @@ class DownBlock(nn.Module):
 
     def __init__(self, in_ch, out_ch, temb_ch, num_layers, heads,
                  context_dim, add_downsample, groups, dtype, param_dtype,
-                 use_flash):
+                 use_flash, fused_gn_conv=False, fused_gn=False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_ch,
-                          groups, 1e-5, dtype, param_dtype)
+                          groups, 1e-5, dtype, param_dtype, fused_gn_conv,
+                          fused_gn)
             for i in range(num_layers)])
         self.attentions = (nn.ModuleList([
             Transformer2DModel(out_ch, heads, context_dim, groups, dtype,
-                               param_dtype, use_flash)
+                               param_dtype, use_flash, fused_gn)
             for _ in range(num_layers)]) if heads else None)
         self.downsamplers = (nn.ModuleList([Downsample2D(out_ch, dtype,
                                                          param_dtype)])
@@ -330,18 +373,19 @@ class UpBlock(nn.Module):
 
     def __init__(self, prev_ch, skip_chs: Sequence[int], out_ch, temb_ch,
                  heads, context_dim, add_upsample, groups, dtype,
-                 param_dtype, use_flash):
+                 param_dtype, use_flash, fused_gn_conv=False, fused_gn=False):
         super().__init__()
         resnets = []
         ch = prev_ch
         for skip_ch in skip_chs:
             resnets.append(ResnetBlock2D(ch + skip_ch, out_ch, temb_ch,
-                                         groups, 1e-5, dtype, param_dtype))
+                                         groups, 1e-5, dtype, param_dtype,
+                                         fused_gn_conv, fused_gn))
             ch = out_ch
         self.resnets = nn.ModuleList(resnets)
         self.attentions = (nn.ModuleList([
             Transformer2DModel(out_ch, heads, context_dim, groups, dtype,
-                               param_dtype, use_flash)
+                               param_dtype, use_flash, fused_gn)
             for _ in skip_chs]) if heads else None)
         self.upsamplers = (nn.ModuleList([Upsample2D(out_ch, dtype,
                                                      param_dtype)])
@@ -362,14 +406,15 @@ class UpBlock(nn.Module):
 
 class MidBlock(nn.Module):
     def __init__(self, channels, temb_ch, heads, context_dim, groups, dtype,
-                 param_dtype, use_flash):
+                 param_dtype, use_flash, fused_gn_conv=False, fused_gn=False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_ch, groups, 1e-5, dtype,
-                          param_dtype) for _ in range(2)])
+                          param_dtype, fused_gn_conv, fused_gn)
+            for _ in range(2)])
         self.attentions = nn.ModuleList([Transformer2DModel(
             channels, heads, context_dim, groups, dtype, param_dtype,
-            use_flash)])
+            use_flash, fused_gn)])
 
     def forward(self, x, temb, context, capture_probs: bool = False):
         x = self.resnets[0](x, temb)
@@ -388,6 +433,7 @@ class UNet2DConditionModel(nn.Module):
         ch0 = cfg.block_out_channels[0]
         temb_ch = ch0 * 4
         flash = cfg.flash_attention
+        fused = (cfg.fused_gn_conv, cfg.fused_gn)
         self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1, dtype=dt,
                               param_dtype=pdt)
         self.time_embedding = nn.Module()
@@ -403,14 +449,15 @@ class UNet2DConditionModel(nn.Module):
             heads = cfg.num_heads[i] if btype == "CrossAttnDownBlock2D" else 0
             down.append(DownBlock(ch, out_ch, temb_ch, cfg.layers_per_block,
                                   heads, cfg.cross_attention_dim, i < n - 1,
-                                  g, dt, pdt, flash))
+                                  g, dt, pdt, flash, *fused))
             skip_chs.extend([out_ch] * cfg.layers_per_block)
             if i < n - 1:
                 skip_chs.append(out_ch)
             ch = out_ch
         self.down_blocks = nn.ModuleList(down)
         self.mid_block = MidBlock(ch, temb_ch, cfg.num_heads[-1],
-                                  cfg.cross_attention_dim, g, dt, pdt, flash)
+                                  cfg.cross_attention_dim, g, dt, pdt, flash,
+                                  *fused)
 
         up, prev = [], ch
         rev_channels = list(reversed(cfg.block_out_channels))
@@ -422,7 +469,7 @@ class UNet2DConditionModel(nn.Module):
                            for _ in range(cfg.layers_per_block + 1)]
             up.append(UpBlock(prev, block_skips, out_ch, temb_ch, heads,
                               cfg.cross_attention_dim, i < n - 1, g, dt, pdt,
-                              flash))
+                              flash, *fused))
             prev = out_ch
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(g, prev, eps=1e-5, dtype=pdt)
@@ -469,7 +516,8 @@ class UNet2DConditionModel(nn.Module):
                 activations.append(x.float())
                 attn_up.append(probs)
 
-        eps = self.conv_out(gn_silu(self.conv_norm_out, x, dt))
+        eps = self.conv_out(gn_silu(self.conv_norm_out, x, dt,
+                                    fused=cfg.fused_gn))
         attn = ({"down": attn_down, "mid": attn_mid, "up": attn_up}
                 if capture_attention else None)
         return eps.float(), tuple(activations), attn

@@ -20,6 +20,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from diffusionhandles_tpu_torch.utils.cuda_build import (check_cuda_bf16,
+                                                         load_library,
+                                                         raise_on, stream_of)
+
 # Launches of each kernel wrapper since the last reset_launch_counts().
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0}
 
@@ -142,7 +146,6 @@ def kernel_library() -> ctypes.CDLL:
     """Build (first call) and load the flash-attention kernels."""
     global _LIB
     if _LIB is None:
-        from diffusionhandles_tpu_torch.utils.cuda_build import load_library
         lib = load_library("flash_attention", KERNEL_SOURCES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_fwd_bf16.argtypes = [ptr] * 5 + [i32, i32, ptr]
@@ -155,13 +158,7 @@ def kernel_library() -> ctypes.CDLL:
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError("flash kernels: all tensors must be on one "
-                             f"CUDA device, got {[x.device for x in tensors]}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernels take bfloat16, got {t.dtype}")
+    check_cuda_bf16("flash kernels", *tensors)
     b, s, h, d = tensors[0].shape
     if d != HEAD_DIM:
         raise ValueError(f"flash kernels are built for head dim {HEAD_DIM}, "
@@ -170,15 +167,6 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
         if tuple(t.shape) != (b, s, h, d):
             raise ValueError(f"flash kernels: shape {tuple(t.shape)} != "
                              f"{(b, s, h, d)} (self-attention only)")
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
 def flash_fwd_cuda(q, k, v):
@@ -194,8 +182,8 @@ def flash_fwd_cuda(q, k, v):
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_bf16(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
                                  o.data_ptr(), lse.data_ptr(), b * h, s,
-                                 _stream(q.device))
-    _raise_on(err, "flash_fwd")
+                                 stream_of(q))
+    raise_on(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return _heads_last(o, b, h), lse
 
@@ -220,8 +208,8 @@ def flash_bwd_cuda(q, k, v, o, lse, do):
                                  dot.data_ptr(), lse.data_ptr(),
                                  delta.data_ptr(), dq.data_ptr(),
                                  dk.data_ptr(), dv.data_ptr(), b * h, s,
-                                 1.0 / math.sqrt(d), _stream(q.device))
-    _raise_on(err, "flash_bwd")
+                                 1.0 / math.sqrt(d), stream_of(q))
+    raise_on(err, "flash_bwd")
     LAUNCHES["flash_bwd"] += 1
     return _heads_last(dq, b, h), _heads_last(dk, b, h), _heads_last(dv, b, h)
 

@@ -28,12 +28,13 @@ import torch
 
 from diffusionhandles_tpu_torch.config import (DiffusionHandlesConfig,
                                                config_from_dict, load_config)
-from diffusionhandles_tpu_torch.diffuser import GuidedStableDiffuser
+from diffusionhandles_tpu_torch.diffuser import GuidedStableDiffuser, SDModels
 from diffusionhandles_tpu_torch.geometry.depth import normalize_depth
 from diffusionhandles_tpu_torch.geometry.transform import \
     transform_depth_pc_processed
 from diffusionhandles_tpu_torch.inverter import StableNullInverter
 from diffusionhandles_tpu_torch.ops.poisson import harmonize_depth
+from diffusionhandles_tpu_torch.utils.device import resolve_device
 
 
 def _same(a, b) -> bool:
@@ -45,11 +46,16 @@ def _same(a, b) -> bool:
 
 
 class DiffusionHandles:
-    """Training-free 3D-aware image editing (PyTorch)."""
+    """Training-free 3D-aware image editing (PyTorch).
+
+    Runs on the GPU unless `device` says otherwise. `models` (from
+    `diffuser.create_sd_models`) replaces the seeded SD stack, e.g. with
+    one built on the fused GroupNorm U-Net config."""
 
     def __init__(self, conf: Optional[Union[DiffusionHandlesConfig, str,
                                             dict]] = None,
-                 variant: str = "sd2", device=None):
+                 variant: str = "sd2", device=None,
+                 models: Optional[SDModels] = None):
         if conf is None or isinstance(conf, (str, pathlib.Path)):
             conf = load_config(conf)
         elif isinstance(conf, dict):
@@ -59,10 +65,11 @@ class DiffusionHandles:
                 f"depth_transform_mode={conf.depth_transform_mode!r}: only "
                 f"'pc' is ported")
         self.conf = conf
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.diffuser = GuidedStableDiffuser(
-            conf.guided_diffuser, model_paths=conf.model_paths,
-            variant=variant, device=self.device)
+            conf.guided_diffuser, models=models,
+            model_paths=conf.model_paths, variant=variant,
+            device=self.device)
         # the inversion rolls forward at the CFG scale the guided pass
         # replays with
         self.inverter = StableNullInverter(

@@ -1,11 +1,13 @@
 """Build the package's CUDA sources into shared libraries at first use.
 
-Each library is compiled by `nvcc` for Hopper (`sm_90a`) from the sources
-under `diffusionhandles_tpu_torch/csrc/` into `build/kernels/` at the root
-of the checkout (listed in `.gitignore`), and loaded with `ctypes`: the
-sources expose a plain C interface, so no PyTorch header is compiled. The
-file name carries a hash of the sources and flags, so an edited source is
-rebuilt and a stale library is never loaded. A failed build raises.
+Each library is compiled by `nvcc` for Hopper (`sm_90a`), one process per
+source, from the sources under `diffusionhandles_tpu_torch/csrc/` into
+`build/kernels/` at the root of the checkout (listed in `.gitignore`), and
+loaded with `ctypes`: the sources expose a plain C interface, so no PyTorch
+header is compiled. The file name carries a hash of the sources and flags,
+so an edited source is rebuilt and a stale library is never loaded. A
+failed build raises. The launch helpers at the end are shared by the
+kernel wrappers of `ops/`.
 """
 
 from __future__ import annotations
@@ -20,12 +22,15 @@ import tempfile
 import threading
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+_LIB_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -42,7 +47,7 @@ def _nvcc() -> str:
 def library_path(name: str, sources: Sequence[str]) -> pathlib.Path:
     """Where the library built from `sources` (file names under csrc/,
     plus every header there) lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     files = sorted(set(sources) | {p.name for p in CSRC.glob("*.cuh")})
     for fname in files:
         digest.update(fname.encode())
@@ -50,32 +55,50 @@ def library_path(name: str, sources: Sequence[str]) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _build(name: str, sources: Sequence[str], path: pathlib.Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmpdir = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        objs = [tmpdir / f"{pathlib.Path(s).stem}.o" for s in sources]
+        procs = [subprocess.Popen(
+            [_nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = tmpdir / "lib.so"
+        ok = not any(proc.returncode for proc in procs)
+        if ok:
+            link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                   *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            ok = link.returncode == 0
+        if not ok:
+            raise RuntimeError(f"nvcc failed building {name}:\n"
+                               + "\n".join(logs))
+        path.with_suffix(".so.log").write_text("\n".join(logs))
+        os.replace(tmp, path)  # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Return the loaded library for `sources`, building it if needed.
 
-    The compiler's resource report (`-Xptxas -v`) is kept beside the
-    library as `<library>.log`."""
+    Libraries build concurrently from different threads; the compiler's
+    resource report (`-Xptxas -v`) is kept beside each library as
+    `<library>.log`."""
     path = library_path(name, sources)
     with _LOCK:
+        lock = _LIB_LOCKS.setdefault(str(path), threading.Lock())
+    with lock:
         lib = _LOADED.get(str(path))
-        if lib is not None:
-            return lib
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[str(CSRC / s) for s in sources]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed building {name} ({proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            path.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, path)  # atomic: concurrent builders agree
-        lib = ctypes.CDLL(str(path))
-        _LOADED[str(path)] = lib
+        if lib is None:
+            if not path.exists():
+                _build(name, sources, path)
+            lib = ctypes.CDLL(str(path))
+            _LOADED[str(path)] = lib
         return lib
 
 
@@ -84,3 +107,30 @@ def build_log(name: str, sources: Sequence[str]) -> str:
     ("" when it was built elsewhere)."""
     log = library_path(name, sources).with_suffix(".so.log")
     return log.read_text() if log.exists() else ""
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    """The current CUDA stream of `t`'s device, as a launch argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raise_on(err: int, what: str) -> None:
+    """Raise if a library entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def check_cuda_bf16(what: str, *tensors: torch.Tensor,
+                    aligned: bool = False) -> None:
+    """Raise unless all `tensors` are bfloat16 on one CUDA device and, with
+    `aligned`, contiguous and 16-byte aligned (for vector loads)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{what}: all tensors must be on one CUDA "
+                             f"device, got {[x.device for x in tensors]}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what} takes bfloat16, got {t.dtype}")
+        if aligned and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{what} takes contiguous, 16-byte aligned "
+                             "tensors")

@@ -1,0 +1,20 @@
+"""Where the port's entry points run: the GPU unless the caller asks for
+another device."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; with None, the CUDA device.
+
+    Raises RuntimeError when no device is given and CUDA is not available:
+    an entry point never falls back to the CPU on its own. Pass
+    device="cpu" to run there."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return torch.device("cuda")

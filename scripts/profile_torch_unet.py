@@ -1,6 +1,6 @@
 """Per-call cost of the PyTorch port's SD-2-depth U-Net on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_unet.py
+    python3 scripts/profile_torch_unet.py [--fused]
 
 Times the three U-Net call shapes of the main path at 64x64 latents with
 seeded random weights (median of repeats, synchronized): the batch-1
@@ -9,11 +9,15 @@ forward + backward to the latents (guidance; null-text differentiates to
 the embedding instead), and the batch-2 CFG forward. Then one batch-1
 forward + backward under torch.profiler: device time by kernel, the flash
 kernels' share, and the device's busy share of the wall time (profiled, and
-against the unprofiled call). Prints JSON lines; needs CUDA.
+against the unprofiled call). With --fused, the U-Net with the fused
+GroupNorm kernels (UNetConfig.fused_gn_conv, fused_gn; same weights) is
+timed in turns with the default one and profiled after it. Prints JSON
+lines; needs CUDA.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -41,24 +45,7 @@ def _median_ms(calls, repeats: int = 9) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def main() -> None:
-    from diffusionhandles_tpu_torch.config import GuidedDiffuserConfig
-    from diffusionhandles_tpu_torch.diffuser import create_sd_models
-
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip())
-    unet = create_sd_models(conf=GuidedDiffuserConfig(),
-                            device="cuda").unet
-    gen = torch.Generator().manual_seed(0)
-    x = torch.randn((1, 5, 64, 64), generator=gen).cuda()
-    ctx = torch.randn((2, 77, 1024), generator=gen).cuda()
-    t = torch.tensor(500, device="cuda")
-
+def _calls(unet, x, t, ctx, tag: str) -> dict:
     def fwd_b1():
         with torch.no_grad():
             unet(x, t, ctx[:1])
@@ -73,17 +60,20 @@ def main() -> None:
         torch.autograd.grad(sum(a.float().square().mean() for a in acts),
                             lat)
 
-    calls = {"fwd_b1": fwd_b1, "fwd_bwd_b1": fwd_bwd_b1, "fwd_b2": fwd_b2}
-    call_ms = _median_ms(calls)
-    print(json.dumps({"unet_call_ms": call_ms}))
+    return {f"{tag}fwd_b1": fwd_b1, f"{tag}fwd_bwd_b1": fwd_bwd_b1,
+            f"{tag}fwd_b2": fwd_b2}
 
+
+def _profile(fwd_bwd, call_ms: float, label: str) -> None:
+    """One fwd+bwd under torch.profiler: device time by kernel, and the
+    device's busy share."""
     from torch.profiler import ProfilerActivity, profile
-    fwd_bwd_b1()
+    fwd_bwd()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fwd_bwd_b1()
+        fwd_bwd()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -100,16 +90,53 @@ def main() -> None:
     total_us = sum(r[0] for r in rows)
     flash_us = sum(r[0] for r in rows if "flash" in r[1])
     print(json.dumps({
-        "fwd_bwd_b1_profiled": {
+        label: {
             "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / (wall * 1e3),
             # the profiler slows the host; against the unprofiled call:
-            "device_busy_share_unprofiled": total_us / 1e3
-            / call_ms["fwd_bwd_b1"],
+            "device_busy_share_unprofiled": total_us / 1e3 / call_ms,
             "flash_kernels_ms": flash_us / 1e3,
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for us, k, n in rows[:15]]}}))
+
+
+def main() -> None:
+    from diffusionhandles_tpu_torch.config import GuidedDiffuserConfig
+    from diffusionhandles_tpu_torch.diffuser import create_sd_models
+    from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    unet = create_sd_models(conf=GuidedDiffuserConfig(),
+                            device="cuda").unet
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 5, 64, 64), generator=gen).cuda()
+    ctx = torch.randn((2, 77, 1024), generator=gen).cuda()
+    t = torch.tensor(500, device="cuda")
+
+    calls = _calls(unet, x, t, ctx, "")
+    fused = None
+    if "--fused" in sys.argv[1:]:
+        cfg = dataclasses.replace(unet.config, fused_gn_conv=True,
+                                  fused_gn=True)
+        with torch.device("cuda"):
+            fused = UNet2DConditionModel(cfg)
+        fused.load_state_dict(unet.state_dict(), strict=True)
+        fused.eval().requires_grad_(False)
+        calls.update(_calls(fused, x, t, ctx, "fused_"))
+    call_ms = _median_ms(calls)
+    print(json.dumps({"unet_call_ms": call_ms}))
+    _profile(calls["fwd_bwd_b1"], call_ms["fwd_bwd_b1"],
+             "fwd_bwd_b1_profiled")
+    if fused is not None:
+        _profile(calls["fused_fwd_bwd_b1"], call_ms["fused_fwd_bwd_b1"],
+                 "fused_fwd_bwd_b1_profiled")
 
 
 if __name__ == "__main__":

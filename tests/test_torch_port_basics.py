@@ -107,3 +107,46 @@ def test_step_functions_exact_fp32():
                             int(j.timesteps[0]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-7,
                                atol=2e-7)
+
+
+# ---------------------------------------------------------------------------
+# Where the port's entry points run: the GPU unless the caller asks
+# ---------------------------------------------------------------------------
+
+def _entry_points():
+    from diffusionhandles_tpu_torch import diffuser as tdiffuser
+    from diffusionhandles_tpu_torch import pipeline as tpipeline
+    from diffusionhandles_tpu_torch.geometry import transform as ttrans
+    depth = np.full((1, 1, 16, 16), 2.0, np.float32)
+    return {
+        "DiffusionHandles": lambda **kw: tpipeline.DiffusionHandles(
+            variant="tiny", **kw),
+        "GuidedStableDiffuser": lambda **kw: tdiffuser.GuidedStableDiffuser(
+            tconfig.GuidedDiffuserConfig(), variant="tiny", **kw),
+        "create_sd_models": lambda **kw: tdiffuser.create_sd_models(
+            variant="tiny", **kw),
+        "transform_depth_pc_processed":
+            lambda **kw: ttrans.transform_depth_pc_processed(
+                depth, depth, np.zeros_like(depth), np.eye(3), max_corr=16,
+                latent_res=8, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["DiffusionHandles", "GuidedStableDiffuser",
+                                  "create_sd_models",
+                                  "transform_depth_pc_processed"])
+def test_entry_points_without_device_raise_without_cuda(name, monkeypatch):
+    """With no device and no CUDA, an entry point raises instead of running
+    on the CPU; with device="cpu" it runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    entry = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+    assert entry(device="cpu") is not None
+
+
+def test_default_device_is_cuda(monkeypatch):
+    from diffusionhandles_tpu_torch.utils.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

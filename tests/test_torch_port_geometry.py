@@ -149,7 +149,7 @@ def test_transform_depth_pc_processed_matches_jax(res, angle, axis, trans,
               translation=np.array(trans), bg_erosion=erosion,
               max_corr=512, latent_res=16)
     got_d, got_pc = ttrans.transform_depth_pc_processed(
-        depth, bg, fg, INTR, **kw)
+        depth, bg, fg, INTR, device="cpu", **kw)
     want_d, want_pc = jtrans.transform_depth_pc_processed(
         depth, bg, fg, INTR, **kw)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=0,
@@ -162,7 +162,7 @@ def test_transform_empty_foreground_matches_jax():
     depth, bg, fg = _scene()
     kw = dict(rot_angle=10.0, bg_erosion=1, max_corr=64, latent_res=16)
     got_d, got_pc = ttrans.transform_depth_pc_processed(
-        depth, bg, fg * 0, INTR, **kw)
+        depth, bg, fg * 0, INTR, device="cpu", **kw)
     want_d, want_pc = jtrans.transform_depth_pc_processed(
         depth, bg, fg * 0, INTR, **kw)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-6,
@@ -176,7 +176,8 @@ def guidance_case():
     kw = dict(rot_angle=15.0, rot_axis=np.array([0.0, 1.0, 0.0]),
               translation=np.array([0.0, 0.0, 0.1]), max_corr=1024,
               latent_res=32)
-    _, tpc = ttrans.transform_depth_pc_processed(depth, bg, fg, INTR, **kw)
+    _, tpc = ttrans.transform_depth_pc_processed(depth, bg, fg, INTR,
+                                                 device="cpu", **kw)
     _, jpc = jtrans.transform_depth_pc_processed(depth, bg, fg, INTR, **kw)
     rng = np.random.RandomState(3)
     orig = rng.randn(8, 16, 16).astype(np.float32)  # [C, H, W]

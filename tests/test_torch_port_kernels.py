@@ -1,4 +1,5 @@
-"""The port's flash-attention kernels and their wrappers (no JAX).
+"""The port's hand-written kernels and their wrappers (no JAX): flash
+attention (K1, K2), GroupNorm(+SiLU) (K8) and GroupNorm+SiLU+conv3x3 (K9).
 
 On the CPU: the plain versions against straightforward dense attention
 and autograd, the wrappers' dispatch and the build helper's naming. On a
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from diffusionhandles_tpu_torch.ops import attention as tatt
+from diffusionhandles_tpu_torch.ops import gn_conv as tgc
+from diffusionhandles_tpu_torch.ops import groupnorm as tgn
 from diffusionhandles_tpu_torch.utils import cuda_build
 
 
@@ -22,7 +25,11 @@ from diffusionhandles_tpu_torch.utils import cuda_build
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
-    return torch.device("cuda")
+    # the plain versions' fp32 convolutions in full fp32, not TF32
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = allow
 
 
 def _rand(shape, seed, scale=1.0, device="cpu", dtype=torch.float32):
@@ -119,3 +126,143 @@ def test_cuda_kernels_refuse_other_inputs(cuda):
     q = torch.zeros((1, 512, 2, 64), device=cuda)
     with pytest.raises(TypeError):
         tatt.flash_fwd(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# K8 and K9. Tolerance of a kernel against its plain version, bf16: both
+# round the same fp32 recipe once to bf16, with sums in another order and
+# SiLU through another exp, so an element may land one bf16 ulp (2**-8
+# relative) away; 2**-7 of the largest value bounds that.
+# ---------------------------------------------------------------------------
+
+GN_RTOL = 2.0 ** -7
+
+
+def _assert_close(got, want, what):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = GN_RTOL * want.float().abs().max().item()
+    assert err <= tol, f"{what}: max abs err {err:.3e} > {tol:.3e}"
+
+
+def _gn_params(c, device, seed):
+    gamma = 1.0 + 0.1 * _rand((c,), seed, device=device)
+    return gamma, 0.1 * _rand((c,), seed + 1, device=device)
+
+
+def test_gn_cpu_path_launches_no_kernel():
+    tgn.reset_launch_counts()
+    tgc.reset_launch_counts()
+    x = _rand((1, 64, 4, 4), 0).requires_grad_(True)
+    g, b = _gn_params(64, "cpu", 1)
+    w = _rand((64, 64, 3, 3), 2, 0.05)
+    y = tgn.gn_silu(x, g, b, 32, 1e-5, True, torch.float32)
+    tgc.gn_silu_conv3x3(y, g, b, w, 32, 1e-5).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert tgn.LAUNCHES == {"gn_silu_fwd": 0, "gn_silu_bwd": 0}
+    assert tgc.LAUNCHES == {"gn_silu_conv3x3_fwd": 0,
+                            "gn_silu_conv3x3_dx": 0}
+
+
+def test_gn_library_name_tracks_sources():
+    a = cuda_build.library_path("groupnorm", tgn.KERNEL_SOURCES)
+    assert a != cuda_build.library_path("flash_attention",
+                                        tatt.KERNEL_SOURCES)
+    assert a == cuda_build.library_path("groupnorm", tgn.KERNEL_SOURCES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("hw,c,act", [(8, 1280, False), (64, 320, True)])
+def test_cuda_gn_matches_plain(cuda, b, hw, c, act):
+    """K8 forward and backward against the plain versions at the U-Net's
+    smallest (8x8x1280, a transformer norm) and largest (64x64x320,
+    conv_norm_out) sites."""
+    x = _rand((b, c, hw, hw), 0, 1.5, cuda, torch.bfloat16)
+    dy = _rand((b, c, hw, hw), 1, 1.0, cuda, torch.bfloat16)
+    g, beta = _gn_params(c, cuda, 2)
+    eps = 1e-5 if act else 1e-6
+    tgn.reset_launch_counts()
+    y, mean, rsig = tgn.gn_silu_fwd(x, g, beta, 32, eps, act, torch.bfloat16)
+    y_ref, mean_ref, rsig_ref = tgn.gn_silu_fwd_ref(x, g, beta, 32, eps, act,
+                                                    torch.bfloat16)
+    _assert_close(y, y_ref, "y")
+    _assert_close(rsig, rsig_ref, "rsig")
+    got = tgn.gn_silu_bwd(x, dy, g, beta, mean_ref, rsig_ref, 32, act)
+    want = tgn.gn_silu_bwd_ref(x, dy, g, beta, mean_ref, rsig_ref, 32, act)
+    for gt, wt, what in zip(got, want, ("dx", "u", "v")):
+        _assert_close(gt, wt, what)
+    assert tgn.LAUNCHES == {"gn_silu_fwd": 1, "gn_silu_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("hw,ci,co", [(8, 1280, 1280), (64, 320, 320)])
+def test_cuda_gn_conv_matches_plain(cuda, b, hw, ci, co):
+    """K9 forward and dx against the plain versions at the U-Net's
+    smallest (8x8, 1280 -> 1280) and largest (64x64, 320 -> 320) resnet
+    halves."""
+    x = _rand((b, ci, hw, hw), 0, 1.5, cuda, torch.bfloat16)
+    w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5, cuda, torch.bfloat16)
+    dy = _rand((b, co, hw, hw), 2, 1.0, cuda, torch.bfloat16)
+    g, beta = _gn_params(ci, cuda, 3)
+    tgc.reset_launch_counts()
+    y, mean, rsig = tgc.gn_silu_conv3x3_fwd(x, g, beta, w, 32, 1e-5)
+    y_ref, mean_ref, rsig_ref = tgc.gn_silu_conv3x3_fwd_ref(x, g, beta, w,
+                                                            32, 1e-5)
+    _assert_close(y, y_ref, "y")
+    _assert_close(rsig, rsig_ref, "rsig")
+    dx = tgc.gn_silu_conv3x3_dx(x, g, beta, w, mean_ref, rsig_ref, dy, 32)
+    dx_ref = tgc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean_ref, rsig_ref,
+                                        dy, 32)
+    _assert_close(dx, dx_ref, "dx")
+    assert tgc.LAUNCHES == {"gn_silu_conv3x3_fwd": 1,
+                            "gn_silu_conv3x3_dx": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_gn_kernels_ragged_tiles(cuda):
+    """Shapes off the U-Net's grid: 12x12 pixels (a partial 64-pixel
+    tile), 48 -> 80 channels (partial 64-channel tiles), group width 6."""
+    x = _rand((2, 48, 12, 12), 0, 1.5, cuda, torch.bfloat16)
+    w = _rand((80, 48, 3, 3), 1, (9 * 48) ** -0.5, cuda, torch.bfloat16)
+    dy = _rand((2, 80, 12, 12), 2, 1.0, cuda, torch.bfloat16)
+    g, beta = _gn_params(48, cuda, 3)
+    y, mean, rsig = tgc.gn_silu_conv3x3_fwd(x, g, beta, w, 8, 1e-5)
+    y_ref, mean_ref, rsig_ref = tgc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, 8,
+                                                            1e-5)
+    _assert_close(y, y_ref, "y")
+    dx = tgc.gn_silu_conv3x3_dx(x, g, beta, w, mean_ref, rsig_ref, dy, 8)
+    _assert_close(dx, tgc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean_ref,
+                                                 rsig_ref, dy, 8), "dx")
+    z = tgn.gn_silu_fwd(x, g, beta, 8, 1e-5, True, torch.bfloat16)[0]
+    _assert_close(z, tgn.gn_silu_fwd_ref(x, g, beta, 8, 1e-5, True,
+                                         torch.bfloat16)[0], "gn y")
+
+
+@pytest.mark.cuda
+def test_cuda_gn_autograd_runs_the_kernels(cuda):
+    x = _rand((1, 320, 16, 16), 0, 1.0, cuda, torch.bfloat16)
+    x.requires_grad_(True)
+    g, beta = _gn_params(320, cuda, 1)
+    w = _rand((320, 320, 3, 3), 2, 0.02, cuda, torch.bfloat16)
+    tgn.reset_launch_counts()
+    tgc.reset_launch_counts()
+    y = tgn.gn_silu(x, g, beta, 32, 1e-6, False, torch.bfloat16)
+    tgc.gn_silu_conv3x3(y, g, beta, w, 32, 1e-5).float().sum().backward()
+    assert torch.isfinite(x.grad.float()).all()
+    assert tgn.LAUNCHES == {"gn_silu_fwd": 1, "gn_silu_bwd": 1}
+    assert tgc.LAUNCHES == {"gn_silu_conv3x3_fwd": 1,
+                            "gn_silu_conv3x3_dx": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_gn_kernels_refuse_other_inputs(cuda):
+    x = torch.zeros((1, 64, 8, 8), device=cuda)
+    g, beta = _gn_params(64, cuda, 0)
+    with pytest.raises(TypeError):
+        tgn.gn_silu_fwd(x, g, beta, 32, 1e-5, True, torch.float32)
+    xb = x.to(torch.bfloat16)
+    w = torch.zeros((64, 64, 3, 3), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tgc.gn_silu_conv3x3_fwd(xb[:, :40].contiguous(), g[:40], beta[:40],
+                                w[:, :40].contiguous(), 8, 1e-5)

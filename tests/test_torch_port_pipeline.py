@@ -51,7 +51,8 @@ def rig():
               activation_store_dtype="float32", flash_attention=False,
               pallas_conv=False, remat_guidance=False)
     jh = JHandles(JConfig(guided_diffuser=JGConfig(**kw)), variant="tiny")
-    th = THandles(TConfig(guided_diffuser=TGConfig(**kw)), variant="tiny")
+    th = THandles(TConfig(guided_diffuser=TGConfig(**kw)), variant="tiny",
+                  device="cpu")
     m = jh.diffuser.models
     rng = np.random.RandomState(42)
     small = lambda tree: jax.tree.map(
