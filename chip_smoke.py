@@ -6,8 +6,9 @@ Phases, each reported on its own line:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the hand-written CUDA kernels from csrc/ (one nvcc per
      source, all started together);
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     at every shape the 512x512 U-Net gives it, with errors, device times
+  3. kernels: each kernel route against its plain PyTorch version on the
+     card, at every shape the 512x512 U-Net gives it (the attention routes
+     also at one query length != key length), with errors, device times
      (CUDA events), the plain version's and, where one PyTorch call
      computes the same function, that call's time, and the card's bound;
   4. edit: one 512x512 DiffusionHandles(variant="sd2") edit through the four
@@ -16,13 +17,26 @@ Phases, each reported on its own line:
      counts, output checks and peak device memory;
   5. unet_reference: that U-Net once with the flash kernels and once with
      dense attention on the same input, which must agree;
-  6. edit_fused: the same edit, FUSED_EDIT_TIMESTEPS timesteps, through the
+  6. unet_flash_bwd_modes: that U-Net forward + backward to the latents with
+     DIFFHANDLES_FLASH_BWD unset, "twopass" and "fold": each launches its
+     own backward route (K2, K3, K6), and the gradients agree;
+  7. attention_forward_entries: the forward-only entries at the U-Net's
+     attention shapes, flash_attention (K1), flash_attention with a short
+     block_k (K4) and flash_fwd_impl(fold=False) (K5), against dense
+     attention;
+  8. edit_fused: the same edit, FUSED_EDIT_TIMESTEPS timesteps, through the
      U-Net with the fused GroupNorm kernels (UNetConfig.fused_gn_conv and
      fused_gn) on the same seeded weights; all six kernels must launch;
-  7. unet_fused_reference: the fused U-Net and a default one with the same
-     weights on one input: eps and the gradient to the latents must agree.
+  9. unet_fused_reference: the fused U-Net and a default one with the same
+     weights on one input: eps and the gradient to the latents must agree;
+ 10. edit_conv: the EDIT_TIMESTEPS edit through the U-Net whose resnet and
+     upsampler convs take the conv kernel (UNetConfig.conv3x3_kernel), on
+     the same seeded weights: K7 launches once per eligible conv per U-Net
+     call;
+ 11. unet_conv_reference: that U-Net against a default one, as in 9.
 Each edit runs with only its own models on the card, so that its peak
-memory is its own.
+memory is its own. Each path's launch counts are set to 0 just before it
+and read just after.
 The next-to-last line is a JSON object with one entry per kernel, the last
 line the JSON result. Exits non-zero, with no result line, on any failure
 or when no CUDA device is present. Imports nothing of JAX.
@@ -45,21 +59,31 @@ FUSED_EDIT_TIMESTEPS = 50
 
 # Tolerances of kernel vs plain version, bf16 inputs. The forward rounds p
 # to bf16 relative to a running row max where the plain version uses the
-# global max, and both round O to bf16: O may differ by ~2 bf16 ulps of its
-# largest value. Each side's row sum l is a sum of terms each rounded by at
-# most 2**-9 relative, so each l is within 2**-9 of the exact sum and the
-# two lse = m + log(l) differ by at most 2 * 2**-9 = 2**-8. The
-# backward kernels sum in another order and round ds to bf16 from p
-# computed with a fast exp, so an occasional ds differs by one bf16 ulp;
-# with the bf16 rounding of the outputs, 2**-6 of the largest gradient.
+# global max (K1, K5) or the max of block_k chunks (K4), and both round O
+# to bf16: O may differ by ~2 bf16 ulps of its largest value. For K1 each
+# side's row sum l is a sum of terms each rounded by at most 2**-9
+# relative, so each l is within 2**-9 of the exact sum and the two
+# lse = m + log(l) differ by at most 2 * 2**-9 = 2**-8. For K4 and K5 both
+# sides sum fp32 p: they differ by fp32 summation order, the fast exp and
+# the online rescale, ~1e-6 relative, so lse to 2**-12 (which K1's bf16 sum,
+# 6e-4-1e-3 away, would fail). The backward kernels sum in another order
+# and round ds to bf16 from p computed with a fast exp, so an occasional ds
+# differs by one bf16 ulp; with the bf16 rounding of the outputs, 2**-6 of
+# the largest gradient (K2, K3, K6 alike).
 FWD_O_RTOL = 2.0 ** -7
 FWD_LSE_ATOL = 2.0 ** -8
+FWD_F32_LSE_ATOL = 2.0 ** -12
 BWD_RTOL = 2.0 ** -6
+# The forward-only entries against dense attention, which rounds the
+# normalized probabilities to bf16 where the kernels round the unnormalized
+# p: O may differ by a few bf16 ulps (2**-8) of its largest value.
+ENTRY_RTOL = 2.0 ** -6
 # The GroupNorm kernels follow their plain versions' recipe step for step:
 # the same fp32 values, summed in another order, with SiLU through another
 # exp, are rounded once to bf16, so an element may land one bf16 ulp
 # (2**-8 relative) away; 2**-7 of the largest value bounds that. The fused
-# conv adds fp32 tap sums in another order before its one rounding.
+# conv adds fp32 tap sums in another order before its one rounding, as
+# does the plain conv (K7).
 GN_RTOL = 2.0 ** -7
 # U-Net eps (and its gradient) with the kernels vs without, bf16 end to
 # end: the two differ in rounding points at every layer.
@@ -74,6 +98,10 @@ PEAK_BYTES = 3.35e12
 FWD_SHAPES = [(1, 4096, 5, 64), (2, 4096, 5, 64), (1, 1024, 10, 64),
               (2, 1024, 10, 64)]
 BWD_SHAPES = [(1, 4096, 5, 64), (1, 1024, 10, 64)]
+# one query length != key length (ragged 64-row tiles): (B, Sq, Sk, H, D)
+CROSS_SHAPE = (2, 1000, 4096, 5, 64)
+# K4's chunk of keys in the kernels phase and the forward-entries path
+STREAM_BLOCK_K = 512
 # GroupNorm sites at 512x512: (channels, side, SiLU, eps) of the 16
 # transformer norms, then conv_norm_out
 GN_SHAPES = [(320, 64, False, 1e-6), (640, 32, False, 1e-6),
@@ -83,6 +111,14 @@ GN_SHAPES = [(320, 64, False, 1e-6), (640, 32, False, 1e-6),
 CONV_SHAPES = [(64, 320, 320), (32, 320, 640), (32, 640, 640),
                (32, 960, 640), (32, 1280, 640), (16, 640, 1280),
                (16, 1280, 1280), (8, 1280, 1280)]
+# the 16 distinct 3x3 convs of the conv3x3_kernel U-Net at 512x512 (44
+# resnet halves and 3 upsamplers, all eligible): (side, Ci, Co)
+CONV3_SHAPES = [(64, 320, 320), (64, 640, 320), (64, 640, 640),
+                (64, 960, 320), (32, 320, 640), (32, 640, 640),
+                (32, 960, 640), (32, 1280, 640), (32, 1280, 1280),
+                (32, 1920, 640), (16, 640, 1280), (16, 1280, 1280),
+                (16, 1920, 1280), (16, 2560, 1280), (8, 1280, 1280),
+                (8, 2560, 1280)]
 BATCHES = (1, 2)
 
 KERNELS = {
@@ -98,7 +134,21 @@ KERNELS = {
                             "diffusionhandles_tpu/ops/gn_conv.py:94"),
     "gn_silu_conv3x3_dx": ("diffusionhandles_tpu_torch/csrc/gn_conv.cu",
                            "diffusionhandles_tpu/ops/gn_conv.py:121"),
+    "flash_fwd_unfolded": ("diffusionhandles_tpu_torch/csrc/flash_fwd.cu",
+                           "diffusionhandles_tpu/ops/attention.py:136"),
+    "flash_fwd_stream": ("diffusionhandles_tpu_torch/csrc/flash_fwd.cu",
+                         "diffusionhandles_tpu/ops/attention.py:80"),
+    "flash_bwd_twopass": ("diffusionhandles_tpu_torch/csrc/flash_bwd.cu",
+                          "diffusionhandles_tpu/ops/attention.py:282"),
+    "flash_bwd_fold": ("diffusionhandles_tpu_torch/csrc/flash_bwd.cu",
+                       "diffusionhandles_tpu/ops/attention.py:375"),
+    "conv3x3_fwd": ("diffusionhandles_tpu_torch/csrc/conv.cu",
+                    "diffusionhandles_tpu/ops/conv.py:35"),
+    "conv3x3_dx": ("diffusionhandles_tpu_torch/csrc/conv.cu",
+                   "diffusionhandles_tpu/ops/conv.py:35"),
 }
+BWD_MODES = {None: "flash_bwd", "twopass": "flash_bwd_twopass",
+             "fold": "flash_bwd_fold"}
 
 
 def _line(phase: str, **fields) -> None:
@@ -130,8 +180,9 @@ def _bound(flops: float, nbytes: float, peak: float):
 
 
 def _kernel_modules():
-    from diffusionhandles_tpu_torch.ops import attention, gn_conv, groupnorm
-    return attention, groupnorm, gn_conv
+    from diffusionhandles_tpu_torch.ops import (attention, conv, gn_conv,
+                                                groupnorm)
+    return attention, groupnorm, gn_conv, conv
 
 
 def reset_launch_counts() -> None:
@@ -164,16 +215,16 @@ def phase_device():
 
 def phase_build():
     from diffusionhandles_tpu_torch.utils.cuda_build import build_log
-    attention, groupnorm, _ = _kernel_modules()
+    attention, groupnorm, _, conv = _kernel_modules()
+    libs = (("flash_attention", attention), ("groupnorm", groupnorm),
+            ("conv3x3", conv))
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(attention.kernel_library),
-                    pool.submit(groupnorm.kernel_library)]:
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(mod.kernel_library) for _, mod in libs]:
             fut.result()
     seconds = time.perf_counter() - start
     report = []
-    for name, mod in (("flash_attention", attention),
-                      ("groupnorm", groupnorm)):
+    for name, mod in libs:
         report += [ln.strip() for ln in build_log(
             name, mod.KERNEL_SOURCES).splitlines()
             if "registers" in ln or "spill" in ln]
@@ -212,42 +263,64 @@ def _rel_err(got, want, rtol):
     return err, rtol * want.float().abs().max().item()
 
 
-def _kernels_flash(res, rand):
+def _qkv(rand, b, sq, sk, h, d):
+    return (rand((b, sq, h, d), 1.5), rand((b, sk, h, d), 1.5),
+            rand((b, sk, h, d)))
+
+
+def _kernels_flash_fwd(res, rand):
+    """K1, K5 and K4 against their plain versions; SDPA is the library
+    call of all three."""
     import torch
     import torch.nn.functional as F
     att = _kernel_modules()[0]
-    for shape in FWD_SHAPES:
-        b, s, h, d = shape
-        q, k, v = rand(shape, 1.5), rand(shape, 1.5), rand(shape)
-        o, lse = att.flash_fwd_cuda(q, k, v)
-        o_ref, lse_ref = att.flash_fwd_ref(q, k, v)
-        torch.cuda.synchronize()
-        err_o, tol_o = _rel_err(o, o_ref, FWD_O_RTOL)
-        err_l = (lse - lse_ref).abs().max().item()
-        ms = _device_ms(lambda: att.flash_fwd_cuda(q, k, v))
-        plain_ms = _device_ms(lambda: att.flash_fwd_ref(q, k, v))
+    routes = [
+        ("flash_fwd", att.flash_fwd_cuda, att.flash_fwd_ref, FWD_LSE_ATOL),
+        ("flash_fwd_unfolded", att.flash_fwd_unfolded_cuda,
+         att.flash_fwd_unfolded_ref, FWD_F32_LSE_ATOL),
+        ("flash_fwd_stream",
+         att.flash_fwd_stream_cuda,
+         lambda q, k, v: att.flash_fwd_stream_ref(q, k, v, STREAM_BLOCK_K),
+         FWD_F32_LSE_ATOL)]
+    shapes = [(b, s, s, h, d) for b, s, h, d in FWD_SHAPES] + [CROSS_SHAPE]
+    for b, sq, sk, h, d in shapes:
+        q, k, v = _qkv(rand, b, sq, sk, h, d)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = _device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        bound = _bound(4.0 * b * h * s * s * d,
-                       4 * b * s * h * d * 2 + b * h * s * 4, PEAK_BF16)
-        _check("flash_fwd", shape, [err_o, err_l], [tol_o, FWD_LSE_ATOL],
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bound[0])
-        res.add("flash_fwd", max(err_o, err_l), ms, plain_ms, bound, lib_ms)
+        bound = _bound(4.0 * b * h * sq * sk * d,
+                       (2 * sq + 2 * sk) * b * h * d * 2 + b * h * sq * 4,
+                       PEAK_BF16)
+        for name, kernel, plain, lse_tol in routes:
+            o, lse = kernel(q, k, v)
+            o_ref, lse_ref = plain(q, k, v)
+            torch.cuda.synchronize()
+            err_o, tol_o = _rel_err(o, o_ref, FWD_O_RTOL)
+            err_l = (lse - lse_ref).abs().max().item()
+            ms = _device_ms(lambda: kernel(q, k, v))
+            plain_ms = _device_ms(lambda: plain(q, k, v))
+            _check(name, (b, sq, sk, h, d), [err_o, err_l], [tol_o, lse_tol],
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound[0])
+            res.add(name, max(err_o, err_l), ms, plain_ms, bound, lib_ms)
 
-    for shape in BWD_SHAPES:
-        b, s, h, d = shape
-        q, k, v = rand(shape, 1.5), rand(shape, 1.5), rand(shape)
-        do = rand(shape)
+
+def _kernels_flash_bwd(res, rand):
+    """K2, K3 and K6 against their plain versions; SDPA forward + backward
+    is the library call of all three."""
+    import torch
+    import torch.nn.functional as F
+    att = _kernel_modules()[0]
+    routes = [("flash_bwd", att.flash_bwd_cuda, att.flash_bwd_ref),
+              ("flash_bwd_twopass", att.flash_bwd_twopass_cuda,
+               att.flash_bwd_twopass_ref),
+              ("flash_bwd_fold", att.flash_bwd_fold_cuda,
+               att.flash_bwd_fold_ref)]
+    shapes = [(b, s, s, h, d) for b, s, h, d in BWD_SHAPES] + [CROSS_SHAPE]
+    for b, sq, sk, h, d in shapes:
+        q, k, v = _qkv(rand, b, sq, sk, h, d)
+        do = rand(q.shape)
         o, lse = att.flash_fwd_ref(q, k, v)
-        got = att.flash_bwd_cuda(q, k, v, o, lse, do)
-        want = att.flash_bwd_ref(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-        errs, tols = zip(*(_rel_err(g_, w_, BWD_RTOL)
-                           for g_, w_ in zip(got, want)))
-        ms = _device_ms(lambda: att.flash_bwd_cuda(q, k, v, o, lse, do))
-        plain_ms = _device_ms(lambda: att.flash_bwd_ref(q, k, v, o, lse, do))
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         dot = do.transpose(1, 2)
@@ -258,12 +331,21 @@ def _kernels_flash(res, rand):
 
         lib_ms = _device_ms(sdpa_fwd_bwd)
         # the function's five products (the kernels recompute two more)
-        bound = _bound(10.0 * b * h * s * s * d,
-                       8 * b * s * h * d * 2 + b * h * s * 4, PEAK_BF16)
-        _check("flash_bwd", shape, list(errs), list(tols), ms=ms,
-               plain_ms=plain_ms, library_ms_fwd_bwd=lib_ms,
-               bound_ms=bound[0])
-        res.add("flash_bwd", max(errs), ms, plain_ms, bound, lib_ms)
+        bound = _bound(10.0 * b * h * sq * sk * d,
+                       (4 * sq + 4 * sk) * b * h * d * 2 + b * h * sq * 4,
+                       PEAK_BF16)
+        for name, kernel, plain in routes:
+            got = kernel(q, k, v, o, lse, do)
+            want = plain(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            errs, tols = zip(*(_rel_err(g_, w_, BWD_RTOL)
+                               for g_, w_ in zip(got, want)))
+            ms = _device_ms(lambda: kernel(q, k, v, o, lse, do))
+            plain_ms = _device_ms(lambda: plain(q, k, v, o, lse, do))
+            _check(name, (b, sq, sk, h, d), list(errs), list(tols), ms=ms,
+                   plain_ms=plain_ms, library_ms_fwd_bwd=lib_ms,
+                   bound_ms=bound[0])
+            res.add(name, max(errs), ms, plain_ms, bound, lib_ms)
 
 
 def _kernels_gn(res, rand):
@@ -393,6 +475,48 @@ def _kernels_gn_conv(res, rand):
             res.add("gn_silu_conv3x3_dx", err, ms, plain_ms, bound)
 
 
+def _kernels_conv(res, rand):
+    """K7 forward and dx at every distinct conv of the conv3x3_kernel U-Net;
+    the library calls are cuDNN's bf16 conv and its input gradient."""
+    import torch
+    import torch.nn.functional as F
+    conv = _kernel_modules()[3]
+    bf16 = torch.bfloat16
+    for side, ci, co in CONV3_SHAPES:
+        for b in BATCHES:
+            x = rand((b, ci, side, side))
+            w = rand((co, ci, 3, 3), (9 * ci) ** -0.5)
+            dy = rand((b, co, side, side))
+            y = conv.conv3x3_fwd_cuda(x, w)
+            y_ref = conv.conv3x3_fwd_ref(x, w)
+            dx = conv.conv3x3_dx_cuda(dy, w, bf16)
+            dx_ref = conv.conv3x3_dx_ref(dy, w, bf16)
+            torch.cuda.synchronize()
+            flops = 2.0 * b * side * side * 9 * ci * co
+            # read the activation and w, write the output
+            bound = _bound(flops, 2 * b * side * side * (ci + co)
+                           + 2 * 9 * ci * co, PEAK_BF16)
+            shape = (b, ci, side, side, co)
+            err, tol = _rel_err(y, y_ref, GN_RTOL)
+            ms = _device_ms(lambda: conv.conv3x3_fwd_cuda(x, w))
+            plain_ms = _device_ms(lambda: conv.conv3x3_fwd_ref(x, w))
+            lib_ms = _device_ms(lambda: F.conv2d(x, w, padding=1))
+            _check("conv3x3_fwd", shape, [err], [tol], ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
+                   bound_by=bound[1])
+            res.add("conv3x3_fwd", err, ms, plain_ms, bound, lib_ms)
+
+            err, tol = _rel_err(dx, dx_ref, GN_RTOL)
+            ms = _device_ms(lambda: conv.conv3x3_dx_cuda(dy, w, bf16))
+            plain_ms = _device_ms(lambda: conv.conv3x3_dx_ref(dy, w, bf16))
+            lib_ms = _device_ms(lambda: torch.nn.grad.conv2d_input(
+                x.shape, w, dy, padding=1))
+            _check("conv3x3_dx", shape, [err], [tol], ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
+                   bound_by=bound[1])
+            res.add("conv3x3_dx", err, ms, plain_ms, bound, lib_ms)
+
+
 def phase_kernels() -> dict:
     """Each kernel vs its plain version at the main path's shapes; returns
     {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -406,9 +530,11 @@ def phase_kernels() -> dict:
         return x.to(dtype)
 
     res = _Results()
-    _kernels_flash(res, rand)
+    _kernels_flash_fwd(res, rand)
+    _kernels_flash_bwd(res, rand)
     _kernels_gn(res, rand)
     _kernels_gn_conv(res, rand)
+    _kernels_conv(res, rand)
     return res.rows
 
 
@@ -428,17 +554,16 @@ def _sample(res: int = 512, seed: int = 0):
                 fg_mask=fg.astype(np.float32)[None, None])
 
 
-def _fused_models(conf):
+def _swapped_models(conf, **switches):
     """The seeded sd2 models with the U-Net swapped for one built on the
-    fused GroupNorm config, holding the same weight tensors."""
+    config with `switches` set, holding the same weight tensors."""
     import torch
 
     from diffusionhandles_tpu_torch.diffuser import create_sd_models
     from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
 
     models = create_sd_models(conf=conf, device="cuda")
-    cfg = dataclasses.replace(models.unet_config, fused_gn_conv=True,
-                              fused_gn=True)
+    cfg = dataclasses.replace(models.unet_config, **switches)
     with torch.device("meta"):
         unet = UNet2DConditionModel(cfg)
     unet.load_state_dict(models.unet.state_dict(), strict=True, assign=True)
@@ -446,35 +571,69 @@ def _fused_models(conf):
     return dataclasses.replace(models, unet=unet, unet_config=cfg)
 
 
-def _handles(num_timesteps: int, fused: bool = False):
+def _handles(num_timesteps: int, **switches):
     """A 512x512 sd2 DiffusionHandles on the card with seeded random
-    weights; with `fused`, its U-Net is the fused GroupNorm one."""
+    weights; with `switches`, its U-Net is built on the config with them
+    set (UNetConfig fields)."""
     from diffusionhandles_tpu_torch.config import DiffusionHandlesConfig
     from diffusionhandles_tpu_torch.pipeline import DiffusionHandles
 
     conf = DiffusionHandlesConfig()
     conf.guided_diffuser.num_timesteps = num_timesteps
-    models = _fused_models(conf.guided_diffuser) if fused else None
+    models = (_swapped_models(conf.guided_diffuser, **switches)
+              if switches else None)
     return DiffusionHandles(conf, variant="sd2", device="cuda", models=models)
 
 
-def phase_edit(name: str, num_timesteps: int, kernels: tuple,
-               fused: bool = False):
-    """One edit through the four public steps; returns the handles and the
-    kernels' launch counts of that run, each of `kernels` must be > 0."""
+def _count_unet_calls(unet) -> dict:
+    """Count the U-Net's calls, those that record a graph for a backward
+    (grad mode on and an input that requires grad), and the calls of its
+    conv-kernel 3x3 convs whose input passes the conv gate."""
+    import torch
+
+    from diffusionhandles_tpu_torch.models.unet import Conv3x3
+    from diffusionhandles_tpu_torch.ops.conv import conv3x3_ok
+    calls = {"forward": 0, "with_grad": 0, "conv3x3_eligible": 0}
+
+    def unet_hook(_module, args, kwargs):
+        calls["forward"] += 1
+        inputs = list(args) + list(kwargs.values())
+        if torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in inputs):
+            calls["with_grad"] += 1
+
+    def conv_hook(mod, args):
+        b, ci, h, w = args[0].shape
+        calls["conv3x3_eligible"] += conv3x3_ok(
+            (b, h, w, ci), (3, 3, ci, mod.out_channels),
+            dtype_bytes=torch.finfo(mod.compute_dtype).bits // 8)
+
+    unet.register_forward_pre_hook(unet_hook, with_kwargs=True)
+    for mod in unet.modules():
+        if isinstance(mod, Conv3x3) and mod.kernel:
+            mod.register_forward_pre_hook(conv_hook)
+    return calls
+
+
+def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
+    """One edit through the four public steps; returns the handles, the
+    kernels' launch counts of that run (each of `kernels` must be > 0) and
+    the U-Net's call counts."""
     import numpy as np
     import torch
 
     start = time.perf_counter()
-    handles = _handles(num_timesteps, fused)
+    handles = _handles(num_timesteps, **switches)
     torch.cuda.synchronize()
     _line(f"{name}_setup", seconds=time.perf_counter() - start,
           num_timesteps=num_timesteps, image_res=handles.img_res,
           unet_config={k: getattr(handles.diffuser.models.unet_config, k)
                        for k in ("fused_gn_conv", "fused_gn",
-                                 "flash_attention")})
+                                 "conv3x3_kernel", "flash_attention")})
     sample = _sample(handles.img_res)
     prompt = "a toy cube on a table"
+    calls = _count_unet_calls(handles.diffuser.models.unet)
 
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -520,11 +679,39 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple,
         "kernels_launched": all(launches[k] > 0 for k in kernels),
     }
     _line(name, seconds=steps, total_seconds=sum(steps.values()),
-          launches=launches, peak_bytes=peak, resident_bytes=resident,
-          checks=checks)
+          launches=launches, unet_calls=calls, peak_bytes=peak,
+          resident_bytes=resident, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"{name} checks failed: {checks}")
-    return handles, launches
+    return handles, launches, calls
+
+
+# 3x3 convs of the conv-kernel U-Net at 512x512 that pass the conv gate: 44
+# resnet halves and 3 upsamplers; 2 of them (the first resnet's) come
+# before the first cross-attention.
+CONV3_SITES = 47
+CONV3_SITES_BEFORE_CONTEXT = 2
+
+
+def check_conv_launches(launches, calls):
+    """K7 launches once per eligible conv call, CONV3_SITES per U-Net
+    forward, and runs dx at each eligible conv a backward reaches: all of
+    them for a gradient to the latents (guidance), all but those before
+    the first cross-attention for one to the text embedding (null-text)."""
+    grads = calls["with_grad"]
+    checks = {
+        "sites_per_call": (calls["conv3x3_eligible"]
+                           == CONV3_SITES * calls["forward"]),
+        "fwd_per_site": launches["conv3x3_fwd"] == calls["conv3x3_eligible"],
+        "dx_per_backward": ((CONV3_SITES - CONV3_SITES_BEFORE_CONTEXT) * grads
+                            <= launches["conv3x3_dx"]
+                            <= CONV3_SITES * grads),
+    }
+    _line("edit_conv_launches", unet_calls=calls,
+          conv3x3_fwd=launches["conv3x3_fwd"],
+          conv3x3_dx=launches["conv3x3_dx"], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"conv launches off: {checks}")
 
 
 def _unet_input(unet, res: int, seed: int):
@@ -560,39 +747,134 @@ def phase_unet_reference(handles):
         raise AssertionError("U-Net with kernels disagrees with dense")
 
 
-def phase_unet_fused_reference(fused, default_config):
-    """The fused U-Net and a default-config U-Net given its weights, on one
-    input: eps and the gradient of an activation energy w.r.t. the latents
-    must agree (bf16 end to end)."""
+def _latents_grad(unet, x, t, ctx):
+    """eps and the gradient of an activation energy (+ eps^2) w.r.t. the
+    latents, fp32."""
+    import torch
+    lat = x.clone().requires_grad_(True)
+    eps, acts, _ = unet(lat, t, ctx)
+    energy = sum(a.float().square().mean() for a in acts)
+    (grad,) = torch.autograd.grad(energy + eps.float().square().mean(), lat)
+    return eps.detach().float(), grad.float()
+
+
+def phase_unet_switch_reference(name, handles, default_config):
+    """A switched U-Net (fused GroupNorm, or the conv kernel) and a
+    default-config U-Net given its weights, on one input: eps and the
+    gradient of an activation energy w.r.t. the latents must agree (bf16
+    end to end)."""
     import torch
 
     from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
-    unet_f = fused.diffuser.models.unet
+    unet_s = handles.diffuser.models.unet
     with torch.device("cuda"):
         unet_d = UNet2DConditionModel(default_config)
-    unet_d.load_state_dict(unet_f.state_dict(), strict=True)
+    unet_d.load_state_dict(unet_s.state_dict(), strict=True)
     unet_d.eval().requires_grad_(False)
-    x, t, ctx = _unet_input(unet_f, fused.diffuser.latent_res, 2)
-
-    def run(unet):
-        lat = x.clone().requires_grad_(True)
-        eps, acts, _ = unet(lat, t, ctx)
-        energy = sum(a.float().square().mean() for a in acts)
-        (grad,) = torch.autograd.grad(energy + eps.float().square().mean(),
-                                      lat)
-        return eps.detach().float(), grad.float()
-
-    eps_d, grad_d = run(unet_d)
-    eps_f, grad_f = run(unet_f)
-    err_e, tol_e = _rel_err(eps_f, eps_d, UNET_RTOL)
-    err_g, tol_g = _rel_err(grad_f, grad_d, UNET_RTOL)
-    ok = (bool(torch.isfinite(eps_f).all())
-          and bool(torch.isfinite(grad_f).all())
+    x, t, ctx = _unet_input(unet_s, handles.diffuser.latent_res, 2)
+    eps_d, grad_d = _latents_grad(unet_d, x, t, ctx)
+    eps_s, grad_s = _latents_grad(unet_s, x, t, ctx)
+    err_e, tol_e = _rel_err(eps_s, eps_d, UNET_RTOL)
+    err_g, tol_g = _rel_err(grad_s, grad_d, UNET_RTOL)
+    ok = (bool(torch.isfinite(eps_s).all())
+          and bool(torch.isfinite(grad_s).all())
           and err_e <= tol_e and err_g <= tol_g)
-    _line("unet_fused_reference", max_abs_err_eps=err_e, tol_eps=tol_e,
+    _line(name, max_abs_err_eps=err_e, tol_eps=tol_e,
           max_abs_err_grad=err_g, tol_grad=tol_g, ok=ok)
     if not ok:
-        raise AssertionError("fused U-Net disagrees with the default one")
+        raise AssertionError(f"{name}: the U-Net disagrees with the default")
+
+
+def phase_unet_flash_bwd_modes(handles) -> dict:
+    """The default U-Net forward + backward to the latents under each
+    DIFFHANDLES_FLASH_BWD value: each launches its own backward route and
+    no other, and its gradient agrees with the unset mode's. Returns the
+    launch counts of each route in its own run."""
+    import os
+
+    import torch
+    env = _kernel_modules()[0].BWD_ENV
+    unet = handles.diffuser.models.unet
+    x, t, ctx = _unet_input(unet, handles.diffuser.latent_res, 3)
+    saved = os.environ.pop(env, None)
+    grads, launches, errs = {}, {}, {}
+    try:
+        for mode, route in BWD_MODES.items():
+            if mode is not None:
+                os.environ[env] = mode
+            reset_launch_counts()
+            grads[route] = _latents_grad(unet, x, t, ctx)[1]
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            launches[route] = {r: counts[r] for r in BWD_MODES.values()}
+            os.environ.pop(env, None)
+    finally:
+        if saved is not None:
+            os.environ[env] = saved
+    checks = {}
+    for route, counts in launches.items():
+        err, tol = _rel_err(grads[route], grads["flash_bwd"], UNET_RTOL)
+        errs[route] = [err, tol]
+        checks[route] = (counts[route] > 0 and err <= tol
+                         and bool(torch.isfinite(grads[route]).all())
+                         and all(n == 0 for r, n in counts.items()
+                                 if r != route))
+    _line("unet_flash_bwd_modes", launches=launches, max_abs_err_tol=errs,
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"backward modes failed: {checks}")
+    return {route: counts[route] for route, counts in launches.items()}
+
+
+def phase_attention_forward_entries() -> dict:
+    """The forward-only entries at the U-Net's self-attention shapes:
+    flash_attention (K1), flash_attention(block_k=STREAM_BLOCK_K) (K4) and
+    flash_fwd_impl(fold=False) (K5), each against dense attention. Returns
+    the launch counts of this run."""
+    import torch
+    att = _kernel_modules()[0]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    entries = {
+        "flash_fwd": lambda q, k, v: att.flash_attention(q, k, v),
+        "flash_fwd_stream": lambda q, k, v: att.flash_attention(
+            q, k, v, block_k=STREAM_BLOCK_K),
+        "flash_fwd_unfolded": lambda q, k, v: att.flash_fwd_impl(
+            q, k, v, fold=False)[0]}
+    reset_launch_counts()
+    errs = {name: 0.0 for name in entries}
+    ok = True
+    for shape in FWD_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        dense = att.dot_product_attention(q, k, v)
+        for name, entry in entries.items():
+            out = entry(q, k, v)
+            err, tol = _rel_err(out, dense, ENTRY_RTOL)
+            errs[name] = max(errs[name], err / tol)
+            ok = ok and bool(torch.isfinite(out.float()).all()) and err <= tol
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    checks = {"within_tol": ok,
+              "launched": all(counts[n] == len(FWD_SHAPES) for n in entries)}
+    _line("attention_forward_entries", launches={n: counts[n]
+                                                 for n in entries},
+          max_err_over_tol=errs, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"forward entries failed: {checks}")
+    return counts
+
+
+FUSED_EDIT_KERNELS = ("flash_fwd", "flash_bwd", "gn_silu_fwd",
+                      "gn_silu_bwd", "gn_silu_conv3x3_fwd",
+                      "gn_silu_conv3x3_dx")
+
+
+def _free_device_memory() -> None:
+    """Drop released models from the card before the next edit, so that
+    each edit's peak memory is its own."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -605,16 +887,33 @@ def main() -> int:
         phase_device()
         phase_build()
         kernels = phase_kernels()
-        default, _ = phase_edit("edit", EDIT_TIMESTEPS,
-                                ("flash_fwd", "flash_bwd"))
+        default, _, _ = phase_edit("edit", EDIT_TIMESTEPS,
+                                   ("flash_fwd", "flash_bwd"))
         phase_unet_reference(default)
+        launches = phase_unet_flash_bwd_modes(default)
         default_config = default.diffuser.models.unet_config
         del default
-        gc.collect()
-        torch.cuda.empty_cache()
-        fused, launches = phase_edit(
-            "edit_fused", FUSED_EDIT_TIMESTEPS, tuple(KERNELS), fused=True)
-        phase_unet_fused_reference(fused, default_config)
+        _free_device_memory()
+        entries = phase_attention_forward_entries()
+        launches.update({n: entries[n] for n in ("flash_fwd_unfolded",
+                                                 "flash_fwd_stream")})
+        fused, fused_launches, _ = phase_edit(
+            "edit_fused", FUSED_EDIT_TIMESTEPS, FUSED_EDIT_KERNELS,
+            fused_gn_conv=True, fused_gn=True)
+        launches.update({n: fused_launches[n] for n in FUSED_EDIT_KERNELS})
+        phase_unet_switch_reference("unet_fused_reference", fused,
+                                    default_config)
+        del fused
+        _free_device_memory()
+        conv, conv_launches, calls = phase_edit(
+            "edit_conv", EDIT_TIMESTEPS,
+            ("flash_fwd", "flash_bwd", "conv3x3_fwd", "conv3x3_dx"),
+            conv3x3_kernel=True)
+        check_conv_launches(conv_launches, calls)
+        launches.update({n: conv_launches[n] for n in ("conv3x3_fwd",
+                                                       "conv3x3_dx")})
+        phase_unet_switch_reference("unet_conv_reference", conv,
+                                    default_config)
     except Exception as exc:  # report and fail, with no result line
         import traceback
         traceback.print_exc()

@@ -35,24 +35,16 @@
 // next steps.
 //
 // Grid: (ceil(H*W / 64) pixel tiles, ceil(N / 64) channel tiles, B).
-// Block: 4 warps, 2 x 2 over the 64 x 64 tile, 32 x 32 each.
-#include "flash_common.cuh"
+// Block: 4 warps, 2 x 2 over the 64 x 64 tile, 32 x 32 each; the GEMM
+// mainloop is conv3x3_gemm.cuh's, shared with the plain conv (conv.cu).
+#include "conv3x3_gemm.cuh"
 #include "gn_common.cuh"
 
 namespace gnconv {
 
-constexpr int BM = 64;          // output pixels of a CTA
-constexpr int BN = 64;          // output channels of a CTA
-constexpr int KC = 16;          // input channels per K step
-constexpr int BK = KC * 9;      // K per step: (channel, tap), tap fastest
-constexpr int LDK = BK + 8;     // smem row stride in bf16 (304 B: the 8 rows
-                                // of a fragment read start on distinct banks)
-constexpr int NTHREADS = 128;
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* s, int row,
-                                            int col) {
-  return *reinterpret_cast<const uint32_t*>(s + row * LDK + col);
-}
+using conv3::BM;
+using conv3::BN;
+using conv3::NTHREADS;
 
 // DX = false: src = x [B, Ci, hw], y = conv(silu(gn(x))) [B, Co, hw].
 // DX = true:  src = dy [B, Co, hw], x is read in the epilogue, dxh
@@ -69,8 +61,8 @@ __global__ void __launch_bounds__(NTHREADS)
                    __nv_bfloat16* __restrict__ y, float* __restrict__ dxh,
                    float* __restrict__ part1, float* __restrict__ part2,
                    int ci, int co, int h, int wd, int cg, int groups) {
-  __shared__ __align__(16) __nv_bfloat16 as[BM * LDK];
-  __shared__ __align__(16) __nv_bfloat16 bs[BN * LDK];
+  __shared__ __align__(16) __nv_bfloat16 as[BM * conv3::LDK];
+  __shared__ __align__(16) __nv_bfloat16 bs[BN * conv3::LDK];
   __shared__ float red[2][2][BN];  // dx: [sum][warp row][channel]
 
   const int hw = h * wd;
@@ -80,119 +72,22 @@ __global__ void __launch_bounds__(NTHREADS)
   const int g = lane / 4, t = lane % 4;
   const int wm = warp / 2, wn = warp % 2;
 
-  // The A loader: each thread fills one pixel row of the tile (128 threads
-  // over 64 pixels, two threads a row), so its pixel and the taps that stay
-  // inside the image are fixed for the whole K loop.
-  const int am = threadIdx.x % BM;
-  const int apix = m0 + am;
-  int tap_ok = 0;
-  if (apix < hw) {
-    const int oh = apix / wd, ow = apix % wd;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ih = oh + tap / 3 - 1, iw = ow + tap % 3 - 1;
-      if (ih >= 0 && ih < h && iw >= 0 && iw < wd) tap_ok |= 1 << tap;
-    }
-  }
-  const __nv_bfloat16* asrc = src + (size_t)b * kch * hw + apix;
-
+  const conv3::APixel px(m0, h, wd);
+  const __nv_bfloat16* asrc = src + (size_t)b * kch * hw;
+  // A[m][(c, tap)]: the (normalized, SiLU'd) source value at the tap's
+  // shifted pixel, 0 in the halo
+  auto a_val = [&](int c, int tp) -> float {
+    if (!px.in(tp)) return 0.f;
+    const float raw = __bfloat162float(asrc[px.at(c, tp, hw, wd)]);
+    if (DX) return raw;
+    const int bg = b * groups + c / cg;
+    return gn::silu((raw - mean[bg]) * rsig[bg] * gamma[c] + beta[c]);
+  };
   float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+  conv3::mainloop<DX>(acc, as, bs, px, w, kch, DX ? ci : co, ci, n0, a_val);
 
-  for (int kc0 = 0; kc0 < kch; kc0 += KC) {
-    // A[m][k] for channel kc0 + kcl and tap tp: the (normalized, SiLU'd)
-    // source value at the tap's shifted pixel, 0 in the halo
-    auto a_val = [&](int kcl, int tp) -> float {
-      if (!((tap_ok >> tp) & 1)) return 0.f;
-      const int c = kc0 + kcl;
-      const float raw = __bfloat162float(
-          asrc[(long long)c * hw + (tp / 3 - 1) * wd + (tp % 3 - 1)]);
-      if (DX) return raw;
-      const int bg = b * groups + c / cg;
-      return gn::silu((raw - mean[bg]) * rsig[bg] * gamma[c] + beta[c]);
-    };
-
-    __syncthreads();  // the previous tiles are consumed
-    // this thread's pairs (k, k+1) of its pixel row: k = 2*(tid / 64) + 4j
-    int k = 2 * (threadIdx.x / BM);
-    int kcl = 0, tp = k;
-    for (int j = 0; j < BK / 4; ++j) {
-      const float v0 = a_val(kcl, tp);
-      const float v1 = tp == 8 ? a_val(kcl + 1, 0) : a_val(kcl, tp + 1);
-      *reinterpret_cast<uint32_t*>(as + am * LDK + k) =
-          flash::pack_f32(v0, v1);
-      k += 4;
-      tp += 4;
-      if (tp >= 9) {
-        tp -= 9;
-        ++kcl;
-      }
-    }
-    if (!DX) {
-      // B[n][k] = w[n0 + n][kc0 .. kc0 + KC)[taps]: one contiguous run of
-      // BK values per output channel, 16 bytes per load
-      for (int e = threadIdx.x; e < BN * (BK / 8); e += NTHREADS) {
-        const int n = e / (BK / 8), chunk = e % (BK / 8);
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (n0 + n < co)
-          val = *reinterpret_cast<const uint4*>(
-              w + ((size_t)(n0 + n) * ci + kc0) * 9 + chunk * 8);
-        *reinterpret_cast<uint4*>(bs + n * LDK + chunk * 8) = val;
-      }
-    } else {
-      // B[n][(col, tap)] = w[kc0 + col][n0 + n][8 - tap]: for each output
-      // channel col, the 9-value kernels of input channels n0.. are one
-      // contiguous run, read in order
-      for (int e = threadIdx.x; e < KC * BN * 9; e += NTHREADS) {
-        const int col = e / (BN * 9), j = e % (BN * 9);
-        const int n = j / 9, tr = j % 9;
-        __nv_bfloat16 val = __float2bfloat16_rn(0.f);
-        if (n0 + n < ci) val = w[((size_t)(kc0 + col) * ci + n0 + n) * 9 + tr];
-        bs[n * LDK + col * 9 + (8 - tr)] = val;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16;
-        a[mt][0] = ld_pair(as, r + g, kk * 16 + 2 * t);
-        a[mt][1] = ld_pair(as, r + g + 8, kk * 16 + 2 * t);
-        a[mt][2] = ld_pair(as, r + g, kk * 16 + 2 * t + 8);
-        a[mt][3] = ld_pair(as, r + g + 8, kk * 16 + 2 * t + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wn * 32 + nt * 8 + g;
-        const uint32_t b0 = ld_pair(bs, n, kk * 16 + 2 * t);
-        const uint32_t b1 = ld_pair(bs, n, kk * 16 + 2 * t + 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) flash::mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-  }
-
-  // accumulator element (mt, nt, 2*half + e) is pixel
-  // m0 + wm*32 + mt*16 + g + 8*half, channel n0 + wn*32 + nt*8 + 2t + e
   if (!DX) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int m = m0 + wm * 32 + mt * 16 + g + 8 * (c >> 1);
-          const int n = n0 + wn * 32 + nt * 8 + 2 * t + (c & 1);
-          if (m < hw && n < co)
-            y[((size_t)b * co + n) * hw + m] = __float2bfloat16_rn(acc[mt][nt][c]);
-        }
+    conv3::store_bf16(acc, y, b, co, hw, m0, n0);
     return;
   }
 

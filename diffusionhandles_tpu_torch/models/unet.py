@@ -17,7 +17,9 @@ kernels where the JAX package's gate sends them (`ops/attention.py`). With
 the fused GroupNorm switches on (`UNetConfig.fused_gn_conv`, `fused_gn`),
 the resnet halves and the GroupNorm sites take the kernels of
 `ops/gn_conv.py` and `ops/groupnorm.py` where the JAX package's gates send
-them; the parameters are the same either way.
+them; with `UNetConfig.conv3x3_kernel`, the resnet and upsampler 3x3 convs
+take the conv kernel of `ops/conv.py` where its gate passes. The parameters
+are the same either way.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch import nn
 
 from diffusionhandles_tpu_torch.ops import groupnorm
 from diffusionhandles_tpu_torch.ops.attention import dot_product_attention
+from diffusionhandles_tpu_torch.ops.conv import conv3x3, conv3x3_ok
 from diffusionhandles_tpu_torch.ops.gn_conv import (gn_silu_conv3x3,
                                                     gn_silu_conv3x3_ok,
                                                     gn_silu_conv3x3_ref)
@@ -46,7 +49,12 @@ class UNetConfig:
     resnet half GroupNorm -> SiLU -> conv3x3 is one op (ops/gn_conv.py).
     fused_gn mirrors its pallas_gn=True: the transformer norms,
     conv_norm_out and, without fused_gn_conv, the resnet norms take the
-    GroupNorm op (ops/groupnorm.py)."""
+    GroupNorm op (ops/groupnorm.py). conv3x3_kernel mirrors its
+    pallas_conv=True: the resnet and upsampler 3x3 convs take the conv op
+    (ops/conv.py) where its gate passes; conv_in, conv_out and the
+    downsamplers stay F.conv2d, as they stay XLA convs there. fused_gn_conv
+    and conv3x3_kernel are two values of that one JAX field, so they
+    exclude each other."""
 
     sample_size: int = 64
     in_channels: int = 5
@@ -70,6 +78,13 @@ class UNetConfig:
     flash_attention: bool = False
     fused_gn_conv: bool = False
     fused_gn: bool = False
+    conv3x3_kernel: bool = False
+
+    def __post_init__(self):
+        if self.fused_gn_conv and self.conv3x3_kernel:
+            raise ValueError("fused_gn_conv and conv3x3_kernel are two "
+                             "values of the JAX package's pallas_conv; "
+                             "set at most one")
 
 
 def tiny_unet_config(**overrides) -> UNetConfig:
@@ -116,6 +131,30 @@ class Conv2d(nn.Conv2d):
                                   self.bias.to(dt))
 
 
+class Conv3x3(Conv2d):
+    """A 3x3 SAME Conv2d (same parameters) that, with `kernel`, runs the
+    conv op of ops/conv.py where its gate passes (the JAX package's
+    Conv3x3 with impl 'pallas'), else F.conv2d."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32,
+                 kernel: bool = False):
+        super().__init__(in_channels, out_channels, 3, padding=1,
+                         dtype=dtype, param_dtype=param_dtype)
+        self.kernel = kernel
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        b, ci, h, w = x.shape
+        if self.kernel and conv3x3_ok(
+                (b, h, w, ci), (3, 3, ci, self.out_channels),
+                dtype_bytes=torch.finfo(dt).bits // 8):
+            return (conv3x3(x.to(dt), self.weight)
+                    + self.bias.to(dt)[:, None, None])
+        return super().forward(x)
+
+
 class GroupNorm(nn.GroupNorm):
     """GroupNorm computed in fp32 (output fp32; callers cast)."""
 
@@ -160,21 +199,22 @@ def gn_silu(norm: GroupNorm, x, dtype, act: bool = True,
 class ResnetBlock2D(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, temb_ch: Optional[int],
                  groups: int, eps: float, dtype, param_dtype,
-                 fused_gn_conv: bool = False, fused_gn: bool = False):
+                 fused_gn_conv: bool = False, fused_gn: bool = False,
+                 conv3x3_kernel: bool = False):
         super().__init__()
         self.dtype = dtype
         self.fused_gn_conv, self.fused_gn = fused_gn_conv, fused_gn
         self.norm1 = GroupNorm(groups, in_ch, eps=eps, dtype=param_dtype)
-        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, dtype=dtype,
-                            param_dtype=param_dtype)
+        self.conv1 = Conv3x3(in_ch, out_ch, dtype=dtype,
+                             param_dtype=param_dtype, kernel=conv3x3_kernel)
         if temb_ch is not None:
             self.time_emb_proj = Linear(temb_ch, out_ch, dtype=dtype,
                                         param_dtype=param_dtype)
         else:
             self.time_emb_proj = None
         self.norm2 = GroupNorm(groups, out_ch, eps=eps, dtype=param_dtype)
-        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, dtype=dtype,
-                            param_dtype=param_dtype)
+        self.conv2 = Conv3x3(out_ch, out_ch, dtype=dtype,
+                             param_dtype=param_dtype, kernel=conv3x3_kernel)
         self.conv_shortcut = (Conv2d(in_ch, out_ch, 1, dtype=dtype,
                                      param_dtype=param_dtype)
                               if in_ch != out_ch else None)
@@ -325,10 +365,11 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
-    def __init__(self, channels: int, dtype, param_dtype):
+    def __init__(self, channels: int, dtype, param_dtype,
+                 conv3x3_kernel: bool = False):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype,
-                           param_dtype=param_dtype)
+        self.conv = Conv3x3(channels, channels, dtype=dtype,
+                            param_dtype=param_dtype, kernel=conv3x3_kernel)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -339,12 +380,13 @@ class DownBlock(nn.Module):
 
     def __init__(self, in_ch, out_ch, temb_ch, num_layers, heads,
                  context_dim, add_downsample, groups, dtype, param_dtype,
-                 use_flash, fused_gn_conv=False, fused_gn=False):
+                 use_flash, fused_gn_conv=False, fused_gn=False,
+                 conv3x3_kernel=False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_ch,
                           groups, 1e-5, dtype, param_dtype, fused_gn_conv,
-                          fused_gn)
+                          fused_gn, conv3x3_kernel)
             for i in range(num_layers)])
         self.attentions = (nn.ModuleList([
             Transformer2DModel(out_ch, heads, context_dim, groups, dtype,
@@ -373,22 +415,26 @@ class UpBlock(nn.Module):
 
     def __init__(self, prev_ch, skip_chs: Sequence[int], out_ch, temb_ch,
                  heads, context_dim, add_upsample, groups, dtype,
-                 param_dtype, use_flash, fused_gn_conv=False, fused_gn=False):
+                 param_dtype, use_flash, fused_gn_conv=False, fused_gn=False,
+                 conv3x3_kernel=False):
         super().__init__()
         resnets = []
         ch = prev_ch
         for skip_ch in skip_chs:
+            # the concat of trunk and skip feeds one conv, as in the JAX
+            # package with any pallas_conv (no SplitInputConv there)
             resnets.append(ResnetBlock2D(ch + skip_ch, out_ch, temb_ch,
                                          groups, 1e-5, dtype, param_dtype,
-                                         fused_gn_conv, fused_gn))
+                                         fused_gn_conv, fused_gn,
+                                         conv3x3_kernel))
             ch = out_ch
         self.resnets = nn.ModuleList(resnets)
         self.attentions = (nn.ModuleList([
             Transformer2DModel(out_ch, heads, context_dim, groups, dtype,
                                param_dtype, use_flash, fused_gn)
             for _ in skip_chs]) if heads else None)
-        self.upsamplers = (nn.ModuleList([Upsample2D(out_ch, dtype,
-                                                     param_dtype)])
+        self.upsamplers = (nn.ModuleList([Upsample2D(
+            out_ch, dtype, param_dtype, conv3x3_kernel)])
                            if add_upsample else None)
 
     def forward(self, x, skips: List[torch.Tensor], temb, context,
@@ -406,11 +452,13 @@ class UpBlock(nn.Module):
 
 class MidBlock(nn.Module):
     def __init__(self, channels, temb_ch, heads, context_dim, groups, dtype,
-                 param_dtype, use_flash, fused_gn_conv=False, fused_gn=False):
+                 param_dtype, use_flash, fused_gn_conv=False, fused_gn=False,
+                 conv3x3_kernel=False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_ch, groups, 1e-5, dtype,
-                          param_dtype, fused_gn_conv, fused_gn)
+                          param_dtype, fused_gn_conv, fused_gn,
+                          conv3x3_kernel)
             for _ in range(2)])
         self.attentions = nn.ModuleList([Transformer2DModel(
             channels, heads, context_dim, groups, dtype, param_dtype,
@@ -433,7 +481,7 @@ class UNet2DConditionModel(nn.Module):
         ch0 = cfg.block_out_channels[0]
         temb_ch = ch0 * 4
         flash = cfg.flash_attention
-        fused = (cfg.fused_gn_conv, cfg.fused_gn)
+        switches = (cfg.fused_gn_conv, cfg.fused_gn, cfg.conv3x3_kernel)
         self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1, dtype=dt,
                               param_dtype=pdt)
         self.time_embedding = nn.Module()
@@ -449,7 +497,7 @@ class UNet2DConditionModel(nn.Module):
             heads = cfg.num_heads[i] if btype == "CrossAttnDownBlock2D" else 0
             down.append(DownBlock(ch, out_ch, temb_ch, cfg.layers_per_block,
                                   heads, cfg.cross_attention_dim, i < n - 1,
-                                  g, dt, pdt, flash, *fused))
+                                  g, dt, pdt, flash, *switches))
             skip_chs.extend([out_ch] * cfg.layers_per_block)
             if i < n - 1:
                 skip_chs.append(out_ch)
@@ -457,7 +505,7 @@ class UNet2DConditionModel(nn.Module):
         self.down_blocks = nn.ModuleList(down)
         self.mid_block = MidBlock(ch, temb_ch, cfg.num_heads[-1],
                                   cfg.cross_attention_dim, g, dt, pdt, flash,
-                                  *fused)
+                                  *switches)
 
         up, prev = [], ch
         rev_channels = list(reversed(cfg.block_out_channels))
@@ -469,7 +517,7 @@ class UNet2DConditionModel(nn.Module):
                            for _ in range(cfg.layers_per_block + 1)]
             up.append(UpBlock(prev, block_skips, out_ch, temb_ch, heads,
                               cfg.cross_attention_dim, i < n - 1, g, dt, pdt,
-                              flash, *fused))
+                              flash, *switches))
             prev = out_ch
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(g, prev, eps=1e-5, dtype=pdt)

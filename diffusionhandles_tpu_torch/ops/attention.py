@@ -1,21 +1,37 @@
-"""Attention for the diffusion stack: dense attention, the two hand-written
-flash-attention kernels and the gate that picks between them.
+"""Attention for the diffusion stack: dense attention, the hand-written
+flash-attention kernels and the gates that pick between them.
 
 Layouts follow the JAX package's `ops/attention.py`:
-q, k, v are [B, S, H, D]; the kernels work on head-major [B*H, S, D] copies
-and the row log-sum-exp is [B*H, S] fp32.
+q is [B, Sq, H, D], k and v [B, Sk, H, D]; the kernels work on head-major
+[B*H, S, D] copies and the row log-sum-exp is [B*H, Sq] fp32.
+
+The JAX package has three forward kernels and three backward kernels for
+one function, which differ only in where they round. Each has its plain
+PyTorch version here, with the same precision recipe, and a route on the
+card:
+
+| JAX kernel | plain version | route on the card (launch count) |
+| K1 `_flash_onepass_fold_kernel` | `flash_fwd_ref` | `flash_fwd` |
+| K5 `_flash_onepass_kernel` | `flash_fwd_unfolded_ref` | `flash_fwd_unfolded` |
+| K4 `_flash_kernel` | `flash_fwd_stream_ref` | `flash_fwd_stream` |
+| K2 `_flash_bwd_fused_kernel` | `flash_bwd_ref` | `flash_bwd` |
+| K3 `_flash_bwd_dq/dkv_kernel` | `flash_bwd_twopass_ref` | `flash_bwd_twopass` |
+| K6 `_flash_bwd_fused_fold_kernel` | `flash_bwd_fold_ref` | `flash_bwd_fold` |
 
 The kernels are CUDA C++ for Hopper (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`),
-built at first use (`utils/cuda_build.py`). Beside each kernel is its plain
-PyTorch version with the same precision recipe (`flash_fwd_ref`,
-`flash_bwd_ref`). A wrapper runs the plain version only for tensors on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+built at first use (`utils/cuda_build.py`): K1 and K4/K5 are two
+instantiations of one forward kernel (a bf16 or an fp32 row sum), and K2,
+K3 and K6 launch the same two backward kernels (K3 at head dim 64, where
+its extra rounding of dq is exact; K6 with delta formed from its bf16
+hi/lo pair). A wrapper runs the plain version only for tensors on the CPU;
+for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -25,10 +41,15 @@ from diffusionhandles_tpu_torch.utils.cuda_build import (check_cuda_bf16,
                                                          raise_on, stream_of)
 
 # Launches of each kernel wrapper since the last reset_launch_counts().
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_unfolded": 0,
+                            "flash_fwd_stream": 0, "flash_bwd": 0,
+                            "flash_bwd_twopass": 0, "flash_bwd_fold": 0}
 
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 HEAD_DIM = 64  # the kernels' compiled head dim (flash_common.cuh: D)
+# The JAX package's switch of the backward kernel, read when the backward
+# runs: "twopass" (K3), "fold" (K6), anything else K2.
+BWD_ENV = "DIFFHANDLES_FLASH_BWD"
 
 
 def reset_launch_counts() -> None:
@@ -37,8 +58,9 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Routing gate: the JAX package's _flash_ok (attention.py:156-263), so that
-# the same layers take the kernels in both packages.
+# Routing gates: the JAX package's _fwd_blocks, _flash_fwd_supported,
+# _flash_supported and _flash_ok (attention.py:156-263), so that the same
+# calls take the kernels in both packages.
 # ---------------------------------------------------------------------------
 
 _S_STATE_BYTES = 10
@@ -58,17 +80,23 @@ def _fwd_blocks(sq: int, sk: int, block_q: int = 2048,
     return bq, bk
 
 
-def _flash_supported(sq: int, sk: int, head_dim: int = 64) -> bool:
-    bq, bk = _fwd_blocks(sq, sk)
+def _flash_fwd_supported(sq: int, sk: int, block_q: int = 2048,
+                         block_k: int = 1 << 20, head_dim: int = 64) -> bool:
+    bq, bk = _fwd_blocks(sq, sk, block_q, block_k)
     kv_resident = sk * head_dim * 2 <= _KV_RESIDENT_BUDGET
-    return (kv_resident and sk % bk == 0 and sq % bq == 0
+    return kv_resident and sk % bk == 0 and sq % bq == 0
+
+
+def _flash_supported(sq: int, sk: int, block_q: int = 2048,
+                     block_k: int = 1 << 20, head_dim: int = 64) -> bool:
+    return (_flash_fwd_supported(sq, sk, block_q, block_k, head_dim)
             and sq % min(1024, sq) == 0 and sk % min(1024, sk) == 0)
 
 
 def flash_ok(sq: int, sk: int, head_dim: int = 64) -> bool:
     """True where the JAX package routes attention to its flash kernels:
     at least 512 keys, and shapes its kernels tile."""
-    return sk >= 512 and _flash_supported(sq, sk, head_dim)
+    return sk >= 512 and _flash_supported(sq, sk, head_dim=head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -92,47 +120,128 @@ def _prescale(q: torch.Tensor) -> torch.Tensor:
     return (q.float() * scale).to(q.dtype)
 
 
+def _fwd_operands(q, k, v):
+    """Head-major fp32 copies of the pre-scaled q, k and v."""
+    return (_heads_first(_prescale(q)).float(), _heads_first(k).float(),
+            _heads_first(v).float())
+
+
+def _fwd_result(q, acc, m, l):
+    """(o [B,Sq,H,D] in q's dtype, lse [B*H,Sq]) from the value sums, the
+    row max and the row sum."""
+    b, _, h, _ = q.shape
+    lse = (m + torch.log(l)).squeeze(-1)
+    return _heads_last((acc / l).to(q.dtype), b, h), lse
+
+
 def flash_fwd_ref(q, k, v):
-    """Plain version of the forward kernel: (o [B,S,H,D], lse [B*H,S]).
+    """Plain version of K1: (o [B,Sq,H,D], lse [B*H,Sq]).
 
     fp32 logits of the input-dtype operands, one global row max, p rounded
     to v's dtype once and used for both the row sum and the value product
     (the JAX kernel's ones-column fold, attention.py:115-133)."""
-    b, _, h, _ = q.shape
-    qt = _heads_first(_prescale(q)).float()
-    kt = _heads_first(k).float()
-    vt = _heads_first(v).float()
+    qt, kt, vt = _fwd_operands(q, k, v)
     s = qt @ kt.transpose(1, 2)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).to(v.dtype).float()
-    l = p.sum(dim=-1, keepdim=True)
-    o = (p @ vt) / l
-    lse = (m + torch.log(l)).squeeze(-1)
-    return _heads_last(o.to(q.dtype), b, h), lse
+    return _fwd_result(q, p @ vt, m, p.sum(dim=-1, keepdim=True))
 
 
-def flash_bwd_ref(q, k, v, o, lse, do):
-    """Plain version of the backward kernels: (dq, dk, dv) [B,S,H,D].
+def flash_fwd_unfolded_ref(q, k, v):
+    """Plain version of K5 (attention.py:136-153): one global row max, the
+    row sum over the fp32 p, p rounded to v's dtype only for the value
+    product."""
+    qt, kt, vt = _fwd_operands(q, k, v)
+    s = qt @ kt.transpose(1, 2)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    return _fwd_result(q, p.to(v.dtype).float() @ vt, m,
+                       p.sum(dim=-1, keepdim=True))
 
-    The JAX fused backward's recipe (attention.py:333-372, 484-546):
-    p = exp(s - lse) in fp32, dv = bf16(p)^T dO, dp = dO V^T,
-    ds = bf16(p * (dp - delta)), dk = ds^T q_scaled, dq = ds k * 1/sqrt(d)."""
-    b, _, h, d = q.shape
-    scale = 1.0 / math.sqrt(d)
-    qt = _heads_first(_prescale(q)).float()
-    kt = _heads_first(k).float()
-    vt = _heads_first(v).float()
+
+def flash_fwd_stream_ref(q, k, v, block_k: int):
+    """Plain version of K4 (attention.py:80-112): K/V in block_k chunks,
+    a running row max and denominator updated per chunk, the row sum over
+    the fp32 p, p rounded to v's dtype only for the value product."""
+    qt, kt, vt = _fwd_operands(q, k, v)
+    bh, sq, d = qt.shape
+    acc = qt.new_zeros((bh, sq, d))
+    m = qt.new_full((bh, sq, 1), -math.inf)
+    l = qt.new_zeros((bh, sq, 1))
+    for k0 in range(0, kt.shape[1], block_k):
+        kc, vc = kt[:, k0:k0 + block_k], vt[:, k0:k0 + block_k]
+        s = qt @ kc.transpose(1, 2)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ vc
+        m = m_new
+    return _fwd_result(q, acc, m, l)
+
+
+def _delta(ot: torch.Tensor, dot: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in fp32 [B*H, Sq, 1] of head-major O and dO."""
+    return (dot.float() * ot.float()).sum(-1, keepdim=True)
+
+
+def _bwd_common(q, k, v, o, lse, do):
+    """fp32 head-major (q_scaled, k, dO, p, dv, dp) and delta of the
+    backward recipes: p = exp(s - lse), dv = bf16(p)^T dO, dp = dO V^T."""
+    qt, kt, vt = _fwd_operands(q, k, v)
     dot = _heads_first(do).float()
-    delta = (dot * _heads_first(o).float()).sum(-1, keepdim=True)
+    delta = _delta(_heads_first(o), dot)
     p = torch.exp(qt @ kt.transpose(1, 2) - lse.unsqueeze(-1))
     dv = p.to(do.dtype).float().transpose(1, 2) @ dot
-    dp = dot @ vt.transpose(1, 2)
-    ds = (p * (dp - delta)).to(q.dtype).float()
-    dk = ds.transpose(1, 2) @ qt
-    dq = (ds @ kt) * scale
+    return qt, kt, p, dv, dot @ vt.transpose(1, 2), delta
+
+
+def _bwd_result(q, k, v, dq, dk, dv):
+    b, _, h, _ = q.shape
     return (_heads_last(dq.to(q.dtype), b, h),
             _heads_last(dk.to(k.dtype), b, h),
             _heads_last(dv.to(v.dtype), b, h))
+
+
+def flash_bwd_ref(q, k, v, o, lse, do):
+    """Plain version of K2: (dq, dk, dv) [B,S,H,D].
+
+    The JAX fused backward's recipe (attention.py:333-372, 484-546):
+    p = exp(s - lse) in fp32, dv = bf16(p)^T dO, dp = dO V^T,
+    ds = bf16(p * (dp - delta)), dk = ds^T q_scaled, dq = ds k * 1/sqrt(d)
+    summed in fp32 and rounded once."""
+    qt, kt, p, dv, dp, delta = _bwd_common(q, k, v, o, lse, do)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = (ds @ kt) * (1.0 / math.sqrt(q.shape[-1]))
+    return _bwd_result(q, k, v, dq, ds.transpose(1, 2) @ qt, dv)
+
+
+def flash_bwd_twopass_ref(q, k, v, o, lse, do):
+    """Plain version of K3 (attention.py:282-330, 549-625): as K2, but dq
+    is rounded to q's dtype before the 1/sqrt(d) scale, scaled in fp32 and
+    rounded again (a second rounding that is exact at d = 64)."""
+    qt, kt, p, dv, dp, delta = _bwd_common(q, k, v, o, lse, do)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = (ds @ kt).to(q.dtype).float() * (1.0 / math.sqrt(q.shape[-1]))
+    return _bwd_result(q, k, v, dq, ds.transpose(1, 2) @ qt, dv)
+
+
+def _delta_hi_lo(delta: torch.Tensor, dtype):
+    """The bf16 (dtype) hi/lo split of -delta (attention.py:438-439)."""
+    d_hi = (-delta).to(dtype)
+    d_lo = (-delta - d_hi.float()).to(dtype)
+    return d_hi, d_lo
+
+
+def flash_bwd_fold_ref(q, k, v, o, lse, do):
+    """Plain version of K6 (attention.py:375-481): -delta enters the dp
+    product as its hi/lo pair in dO's dtype, ds = bf16(p * (dO V^T + d_hi
+    + d_lo)); dq summed in fp32 and rounded once."""
+    qt, kt, p, dv, dp, delta = _bwd_common(q, k, v, o, lse, do)
+    d_hi, d_lo = _delta_hi_lo(delta, do.dtype)
+    ds = (p * (dp + d_hi.float() + d_lo.float())).to(q.dtype).float()
+    dq = (ds @ kt) * (1.0 / math.sqrt(q.shape[-1]))
+    return _bwd_result(q, k, v, dq, ds.transpose(1, 2) @ qt, dv)
 
 
 # ---------------------------------------------------------------------------
@@ -148,117 +257,240 @@ def kernel_library() -> ctypes.CDLL:
     if _LIB is None:
         lib = load_library("flash_attention", KERNEL_SOURCES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd_bf16.argtypes = [ptr] * 5 + [i32, i32, ptr]
+        lib.flash_fwd_bf16.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
         lib.flash_fwd_bf16.restype = i32
-        lib.flash_bwd_bf16.argtypes = ([ptr] * 9 + [i32, i32, ctypes.c_float,
-                                                    ptr])
+        lib.flash_bwd_bf16.argtypes = ([ptr] * 9 + [i32] * 3
+                                       + [ctypes.c_float, ptr])
         lib.flash_bwd_bf16.restype = i32
         _LIB = lib
     return _LIB
 
 
-def _check_cuda(*tensors: torch.Tensor) -> None:
-    check_cuda_bf16("flash kernels", *tensors)
-    b, s, h, d = tensors[0].shape
+def _check_cuda(q, *rest: torch.Tensor) -> None:
+    """q [B,Sq,H,64] and k, v (and o, dO) [B,Sk,H,64] (o, dO: Sq) bf16 on
+    one CUDA device."""
+    check_cuda_bf16("flash kernels", q, *rest)
+    b, _, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"flash kernels are built for head dim {HEAD_DIM}, "
                          f"got {d}")
-    for t in tensors[1:]:
-        if tuple(t.shape) != (b, s, h, d):
-            raise ValueError(f"flash kernels: shape {tuple(t.shape)} != "
-                             f"{(b, s, h, d)} (self-attention only)")
+    for t in rest:
+        if t.dim() != 4 or (t.shape[0], t.shape[2], t.shape[3]) != (b, h, d):
+            raise ValueError(f"flash kernels: shape {tuple(t.shape)} is not "
+                             f"[{b}, S, {h}, {d}]")
 
 
-def flash_fwd_cuda(q, k, v):
-    """Forward kernel on the card: (o [B,S,H,D] bf16, lse [B*H,S] fp32)."""
+def _fwd_cuda(q, k, v, f32_sum: bool, name: str):
     _check_cuda(q, k, v)
-    b, s, h, d = q.shape
+    if k.shape[1] != v.shape[1]:
+        raise ValueError(f"flash kernels: k and v lengths differ "
+                         f"({k.shape[1]} != {v.shape[1]})")
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
     lib = kernel_library()
     qt = _heads_first(_prescale(q)).contiguous()
     kt = _heads_first(k).contiguous()
     vt = _heads_first(v).contiguous()
     o = torch.empty_like(qt)
-    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_bf16(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(), b * h, s,
-                                 stream_of(q))
-    raise_on(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+                                 o.data_ptr(), lse.data_ptr(), b * h, sq, sk,
+                                 int(f32_sum), stream_of(q))
+    raise_on(err, name)
+    LAUNCHES[name] += 1
     return _heads_last(o, b, h), lse
 
 
-def flash_bwd_cuda(q, k, v, o, lse, do):
-    """Backward kernels on the card: (dq, dk, dv) [B,S,H,D] bf16."""
+def flash_fwd_cuda(q, k, v):
+    """K1 on the card: (o [B,Sq,H,D] bf16, lse [B*H,Sq] fp32)."""
+    return _fwd_cuda(q, k, v, False, "flash_fwd")
+
+
+def flash_fwd_unfolded_cuda(q, k, v):
+    """K5 on the card: the forward kernel with the fp32 row sum."""
+    return _fwd_cuda(q, k, v, True, "flash_fwd_unfolded")
+
+
+def flash_fwd_stream_cuda(q, k, v):
+    """K4 on the card: the same fp32-row-sum kernel, which streams K/V in
+    64-key tiles whatever K4's block_k (block_k only moves where the plain
+    version rounds p)."""
+    return _fwd_cuda(q, k, v, True, "flash_fwd_stream")
+
+
+def _bwd_cuda(q, k, v, o, lse, do, name: str, fold_delta: bool = False):
+    """Launch the backward kernels. delta = rowsum(dO * O) in fp32 or, with
+    `fold_delta`, -(d_hi + d_lo) of K6's bf16 hi/lo pair."""
     _check_cuda(q, k, v, o, do)
-    b, s, h, d = q.shape
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b * h, s):
-        raise ValueError(f"lse must be fp32 [{b * h}, {s}], got "
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if (tuple(do.shape) != tuple(q.shape) or tuple(o.shape) != tuple(q.shape)
+            or tuple(v.shape) != tuple(k.shape)):
+        raise ValueError(f"flash kernels: O {tuple(o.shape)} and dO "
+                         f"{tuple(do.shape)} must be q's shape and v "
+                         f"{tuple(v.shape)} k's")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b * h, sq):
+        raise ValueError(f"lse must be fp32 [{b * h}, {sq}], got "
                          f"{lse.dtype} {tuple(lse.shape)}")
     lib = kernel_library()
     qt = _heads_first(_prescale(q)).contiguous()
     kt = _heads_first(k).contiguous()
     vt = _heads_first(v).contiguous()
     dot = _heads_first(do).contiguous()
-    delta = (dot.float() * _heads_first(o).float()).sum(-1).contiguous()
+    delta = _delta(_heads_first(o), dot)
+    if fold_delta:
+        d_hi, d_lo = _delta_hi_lo(delta, do.dtype)
+        delta = -(d_hi.float() + d_lo.float())
+    delta = delta.reshape(b * h, sq).contiguous()
     lse = lse.contiguous()
-    dq, dk, dv = (torch.empty_like(qt) for _ in range(3))
+    dq = torch.empty_like(qt)
+    dk, dv = torch.empty_like(kt), torch.empty_like(kt)
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_bf16(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
                                  dot.data_ptr(), lse.data_ptr(),
                                  delta.data_ptr(), dq.data_ptr(),
-                                 dk.data_ptr(), dv.data_ptr(), b * h, s,
+                                 dk.data_ptr(), dv.data_ptr(), b * h, sq, sk,
                                  1.0 / math.sqrt(d), stream_of(q))
-    raise_on(err, "flash_bwd")
-    LAUNCHES["flash_bwd"] += 1
+    raise_on(err, name)
+    LAUNCHES[name] += 1
     return _heads_last(dq, b, h), _heads_last(dk, b, h), _heads_last(dv, b, h)
 
 
+def flash_bwd_cuda(q, k, v, o, lse, do):
+    """K2 on the card: (dq, dk, dv) bf16."""
+    return _bwd_cuda(q, k, v, o, lse, do, "flash_bwd")
+
+
+def flash_bwd_twopass_cuda(q, k, v, o, lse, do):
+    """K3 on the card: the backward kernels, which round dq once after the
+    scale; built for d = 64 only, where K3's rounding before the scale
+    (by 1/8, exact in bf16) gives the same dq."""
+    return _bwd_cuda(q, k, v, o, lse, do, "flash_bwd_twopass")
+
+
+def flash_bwd_fold_cuda(q, k, v, o, lse, do):
+    """K6 on the card: the backward kernels fed delta = -(d_hi + d_lo), the
+    fp32 sum of the bf16 hi/lo pair that K6 adds inside its dp product."""
+    return _bwd_cuda(q, k, v, o, lse, do, "flash_bwd_fold", fold_delta=True)
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
+
+
 def flash_fwd(q, k, v):
-    """The forward kernel for CUDA tensors; its plain version for CPU ones."""
-    if q.device.type == "cpu":
-        return flash_fwd_ref(q, k, v)
-    return flash_fwd_cuda(q, k, v)
+    """K1 for CUDA tensors; its plain version for CPU ones."""
+    return flash_fwd_ref(q, k, v) if _on_cpu(q) else flash_fwd_cuda(q, k, v)
+
+
+def flash_fwd_unfolded(q, k, v):
+    """K5 for CUDA tensors; its plain version for CPU ones."""
+    if _on_cpu(q):
+        return flash_fwd_unfolded_ref(q, k, v)
+    return flash_fwd_unfolded_cuda(q, k, v)
+
+
+def flash_fwd_stream(q, k, v, block_k: int):
+    """K4 for CUDA tensors; its plain version for CPU ones."""
+    if _on_cpu(q):
+        return flash_fwd_stream_ref(q, k, v, block_k)
+    return flash_fwd_stream_cuda(q, k, v)
 
 
 def flash_bwd(q, k, v, o, lse, do):
-    """The backward kernels for CUDA tensors; their plain version for CPU
-    ones."""
-    if q.device.type == "cpu":
+    """K2 for CUDA tensors; its plain version for CPU ones."""
+    if _on_cpu(q):
         return flash_bwd_ref(q, k, v, o, lse, do)
     return flash_bwd_cuda(q, k, v, o, lse, do)
 
 
+def flash_bwd_twopass(q, k, v, o, lse, do):
+    """K3 for CUDA tensors; its plain version for CPU ones."""
+    if _on_cpu(q):
+        return flash_bwd_twopass_ref(q, k, v, o, lse, do)
+    return flash_bwd_twopass_cuda(q, k, v, o, lse, do)
+
+
+def flash_bwd_fold(q, k, v, o, lse, do):
+    """K6 for CUDA tensors; its plain version for CPU ones."""
+    if _on_cpu(q):
+        return flash_bwd_fold_ref(q, k, v, o, lse, do)
+    return flash_bwd_fold_cuda(q, k, v, o, lse, do)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's entry points
+# ---------------------------------------------------------------------------
+
+def flash_fwd_impl(q, k, v, block_q: int = 2048, block_k: int = 1 << 20,
+                   fold: bool = True):
+    """(o [B,Sq,H,D], lse [B*H,Sq]) by the route the JAX package's
+    _flash_fwd_impl takes (attention.py:183-231): K1 when `fold` and the
+    effective block_k spans all keys, K5 when it spans them without
+    `fold`, else K4 over block_k chunks. The kernel on the card has no
+    query block, so block_q only enters through _fwd_blocks."""
+    _, bk = _fwd_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    if bk == k.shape[1]:
+        return (flash_fwd if fold else flash_fwd_unfolded)(q, k, v)
+    return flash_fwd_stream(q, k, v, bk)
+
+
+def flash_attention(q, k, v, block_q: int = 2048, block_k: int = 1 << 20):
+    """Forward-only flash attention over [B, S, H, D] (the JAX package's
+    flash_attention, attention.py:266-279): the kernels where at least 512
+    keys and the forward's block constraints hold, else dense attention.
+    Its result carries no gradient on the card; flash_attention_diff is
+    the differentiable entry."""
+    if not (k.shape[1] >= 512
+            and _flash_fwd_supported(q.shape[1], k.shape[1], block_q,
+                                     block_k, head_dim=q.shape[-1])):
+        return dot_product_attention(q, k, v)
+    return flash_fwd_impl(q, k, v, block_q, block_k)[0]
+
+
 class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention over [B, S, H, D]: the forward saves O
-    and the row log-sum-exp, the backward recomputes p from them (the JAX
-    package's flash_attention_diff custom VJP)."""
+    """Differentiable flash attention over [B, S, H, D] (the JAX package's
+    flash_attention_diff custom VJP, attention.py:631-663): the forward
+    saves O and the row log-sum-exp, the backward recomputes p from them
+    with the kernel that DIFFHANDLES_FLASH_BWD names when the backward
+    runs: "twopass" K3, "fold" K6, anything else K2."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        o, lse = flash_fwd(q, k, v)
+        o, lse = flash_fwd_impl(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return flash_bwd(q, k, v, o, lse, do.contiguous())
+        mode = os.environ.get(BWD_ENV)
+        bwd = {"twopass": flash_bwd_twopass,
+               "fold": flash_bwd_fold}.get(mode, flash_bwd)
+        return bwd(q, k, v, o, lse, do.contiguous())
 
 
-def flash_attention(q, k, v):
+def flash_attention_diff(q, k, v):
+    """Differentiable flash attention; the caller gates with flash_ok."""
+    if not _flash_supported(q.shape[1], k.shape[1]):
+        raise ValueError(
+            f"flash_attention_diff: shapes sq={q.shape[1]} sk={k.shape[1]} "
+            "are not block-aligned for the kernels; gate on flash_ok and "
+            "fall back to dense attention")
     return FlashAttention.apply(q, k, v)
 
 
 def dot_product_attention(q, k, v, *, return_probs: bool = False,
                           use_flash: bool = False):
-    """Multi-head attention over [B, S, H, D] (the JAX package's
-    dot_product_attention): explicit fp32 logits and softmax, probabilities
-    rounded to v's dtype for the value product. With `use_flash` and no
-    probability capture, shapes that pass `flash_ok` take the kernels."""
+    """Multi-head attention over q [B, Sq, H, D], k, v [B, Sk, H, D] (the
+    JAX package's dot_product_attention): explicit fp32 logits and softmax,
+    probabilities rounded to v's dtype for the value product. With
+    `use_flash` and no probability capture, shapes that pass `flash_ok`
+    take the kernels."""
     if (use_flash and not return_probs
             and flash_ok(q.shape[1], k.shape[1], head_dim=q.shape[-1])):
-        return flash_attention(q, k, v)
+        return flash_attention_diff(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     probs = torch.softmax(logits * scale, dim=-1)

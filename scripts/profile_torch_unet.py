@@ -1,6 +1,6 @@
 """Per-call cost of the PyTorch port's SD-2-depth U-Net on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_unet.py [--fused]
+    python3 scripts/profile_torch_unet.py [--fused] [--conv]
 
 Times the three U-Net call shapes of the main path at 64x64 latents with
 seeded random weights (median of repeats, synchronized): the batch-1
@@ -10,9 +10,10 @@ the embedding instead), and the batch-2 CFG forward. Then one batch-1
 forward + backward under torch.profiler: device time by kernel, the flash
 kernels' share, and the device's busy share of the wall time (profiled, and
 against the unprofiled call). With --fused, the U-Net with the fused
-GroupNorm kernels (UNetConfig.fused_gn_conv, fused_gn; same weights) is
-timed in turns with the default one and profiled after it. Prints JSON
-lines; needs CUDA.
+GroupNorm kernels (UNetConfig.fused_gn_conv, fused_gn; same weights), and
+with --conv, the U-Net with the conv kernel (UNetConfig.conv3x3_kernel;
+same weights), are timed in turns with the default one and profiled after
+it. Prints JSON lines; needs CUDA.
 """
 
 from __future__ import annotations
@@ -121,22 +122,21 @@ def main() -> None:
     t = torch.tensor(500, device="cuda")
 
     calls = _calls(unet, x, t, ctx, "")
-    fused = None
-    if "--fused" in sys.argv[1:]:
-        cfg = dataclasses.replace(unet.config, fused_gn_conv=True,
-                                  fused_gn=True)
+    variants = {"fused_": dict(fused_gn_conv=True, fused_gn=True),
+                "conv_": dict(conv3x3_kernel=True)}
+    tags = [tag for tag in variants if f"--{tag[:-1]}" in sys.argv[1:]]
+    for tag in tags:
+        cfg = dataclasses.replace(unet.config, **variants[tag])
         with torch.device("cuda"):
-            fused = UNet2DConditionModel(cfg)
-        fused.load_state_dict(unet.state_dict(), strict=True)
-        fused.eval().requires_grad_(False)
-        calls.update(_calls(fused, x, t, ctx, "fused_"))
+            other = UNet2DConditionModel(cfg)
+        other.load_state_dict(unet.state_dict(), strict=True)
+        other.eval().requires_grad_(False)
+        calls.update(_calls(other, x, t, ctx, tag))
     call_ms = _median_ms(calls)
     print(json.dumps({"unet_call_ms": call_ms}))
-    _profile(calls["fwd_bwd_b1"], call_ms["fwd_bwd_b1"],
-             "fwd_bwd_b1_profiled")
-    if fused is not None:
-        _profile(calls["fused_fwd_bwd_b1"], call_ms["fused_fwd_bwd_b1"],
-                 "fused_fwd_bwd_b1_profiled")
+    for tag in [""] + tags:
+        _profile(calls[f"{tag}fwd_bwd_b1"], call_ms[f"{tag}fwd_bwd_b1"],
+                 f"{tag}fwd_bwd_b1_profiled")
 
 
 if __name__ == "__main__":

@@ -69,7 +69,7 @@ def test_flash_autograd_matches_jax_vjp_fp32(s):
         want = jax.grad(jloss, argnums=(0, 1, 2))(
             *map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
-    out = tatt.flash_attention(tq, tk, tv)
+    out = tatt.flash_attention_diff(tq, tk, tv)
     (out * torch.from_numpy(w)).sum().backward()
     for got, exp, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
         exp = np.asarray(exp)

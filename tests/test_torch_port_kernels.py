@@ -1,5 +1,6 @@
 """The port's hand-written kernels and their wrappers (no JAX): flash
-attention (K1, K2), GroupNorm(+SiLU) (K8) and GroupNorm+SiLU+conv3x3 (K9).
+attention (K1, K2 and the alternates K3-K6), the 3x3 conv (K7),
+GroupNorm(+SiLU) (K8) and GroupNorm+SiLU+conv3x3 (K9).
 
 On the CPU: the plain versions against straightforward dense attention
 and autograd, the wrappers' dispatch and the build helper's naming. On a
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from diffusionhandles_tpu_torch.ops import attention as tatt
+from diffusionhandles_tpu_torch.ops import conv as tconv
 from diffusionhandles_tpu_torch.ops import gn_conv as tgc
 from diffusionhandles_tpu_torch.ops import groupnorm as tgn
 from diffusionhandles_tpu_torch.utils import cuda_build
@@ -65,12 +67,24 @@ def test_plain_versions_match_dense_autograd_fp32(shape):
                                    atol=1e-5 * w.abs().max().item())
 
 
-def test_cpu_path_launches_no_kernel():
+NO_FLASH_LAUNCH = dict.fromkeys(
+    ("flash_fwd", "flash_fwd_unfolded", "flash_fwd_stream", "flash_bwd",
+     "flash_bwd_twopass", "flash_bwd_fold"), 0)
+
+
+def test_cpu_path_launches_no_kernel(monkeypatch):
+    """Every route on CPU tensors runs its plain version: each forward
+    entry and each DIFFHANDLES_FLASH_BWD backward."""
     tatt.reset_launch_counts()
     q, k, v = (_rand((1, 512, 2, 64), i) for i in range(3))
-    tatt.flash_attention(q.requires_grad_(True), k, v).sum().backward()
-    assert q.grad is not None and torch.isfinite(q.grad).all()
-    assert tatt.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
+    for mode in ("", "twopass", "fold"):
+        monkeypatch.setenv(tatt.BWD_ENV, mode)
+        qq = q.clone().requires_grad_(True)
+        tatt.flash_attention_diff(qq, k, v).sum().backward()
+        assert qq.grad is not None and torch.isfinite(qq.grad).all()
+    tatt.flash_fwd_impl(q, k, v, fold=False)
+    tatt.flash_attention(q, k, v, block_k=256)
+    assert tatt.LAUNCHES == NO_FLASH_LAUNCH
 
 
 def test_library_name_tracks_sources():
@@ -103,7 +117,8 @@ def test_cuda_kernels_match_plain(cuda, shape):
     for g, w in zip(got, want):
         assert (g.float() - w.float()).abs().max() <= (
             2.0 ** -6 * w.float().abs().max())
-    assert tatt.LAUNCHES == {"flash_fwd": 1, "flash_bwd": 1}
+    assert tatt.LAUNCHES == {**NO_FLASH_LAUNCH, "flash_fwd": 1,
+                             "flash_bwd": 1}
 
 
 @pytest.mark.cuda
@@ -115,7 +130,87 @@ def test_cuda_autograd_runs_the_kernels(cuda):
     tatt.dot_product_attention(q, k, v, use_flash=True).float().sum(
     ).backward()
     assert torch.isfinite(q.grad.float()).all()
-    assert tatt.LAUNCHES == {"flash_fwd": 1, "flash_bwd": 1}
+    assert tatt.LAUNCHES == {**NO_FLASH_LAUNCH, "flash_fwd": 1,
+                             "flash_bwd": 1}
+
+
+def _assert_within(got, want, rtol, what):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = rtol * want.float().abs().max().item()
+    assert err <= tol, f"{what}: max abs err {err:.3e} > {tol:.3e}"
+
+
+# Tolerances of the alternates, as chip_smoke.py derives them: O 2**-7 of
+# max|O| (bf16 p rounded against a running max), lse 2**-12 where both sides
+# sum fp32 p (K4/K5: summation order and the online rescale only), 2**-8
+# where both sum bf16 p (K1), grads 2**-6 of their max.
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(1024, 1024), (1000, 1500), (4096, 1024)])
+def test_cuda_alternates_match_plain(cuda, sq, sk):
+    """K1/K2 at sq != sk, K5, K4 (block_k 256 and one chunk) and the K3/K6
+    routes against their plain versions, each counted on its own route."""
+    q = _rand((2, sq, 2, 64), 0, 1.5, cuda, torch.bfloat16)
+    k, v = (_rand((2, sk, 2, 64), i, 1.5, cuda, torch.bfloat16)
+            for i in (1, 2))
+    do = _rand((2, sq, 2, 64), 3, 1.0, cuda, torch.bfloat16)
+    tatt.reset_launch_counts()
+    fwd = [(tatt.flash_fwd(q, k, v), tatt.flash_fwd_ref(q, k, v), 2.0 ** -8),
+           (tatt.flash_fwd_unfolded(q, k, v),
+            tatt.flash_fwd_unfolded_ref(q, k, v), 2.0 ** -12)]
+    for bk in (256, sk):
+        fwd.append((tatt.flash_fwd_stream(q, k, v, bk),
+                    tatt.flash_fwd_stream_ref(q, k, v, bk), 2.0 ** -12))
+    for (o, lse), (o_ref, lse_ref), lse_tol in fwd:
+        _assert_within(o, o_ref, 2.0 ** -7, "o")
+        assert (lse - lse_ref).abs().max() <= lse_tol
+    o, lse = tatt.flash_fwd_ref(q, k, v)
+    for route, plain in ((tatt.flash_bwd, tatt.flash_bwd_ref),
+                         (tatt.flash_bwd_twopass, tatt.flash_bwd_twopass_ref),
+                         (tatt.flash_bwd_fold, tatt.flash_bwd_fold_ref)):
+        for g, w, name in zip(route(q, k, v, o, lse, do),
+                              plain(q, k, v, o, lse, do), "qkv"):
+            assert g.shape == w.shape
+            _assert_within(g, w, 2.0 ** -6, f"{route.__name__} d{name}")
+    assert tatt.LAUNCHES == {"flash_fwd": 1, "flash_fwd_unfolded": 1,
+                             "flash_fwd_stream": 2, "flash_bwd": 1,
+                             "flash_bwd_twopass": 1, "flash_bwd_fold": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,route", [("", "flash_bwd"),
+                                        ("twopass", "flash_bwd_twopass"),
+                                        ("fold", "flash_bwd_fold")])
+def test_cuda_autograd_backward_switch(cuda, monkeypatch, mode, route):
+    """DIFFHANDLES_FLASH_BWD, set between calls, moves the backward to its
+    route's kernels; the gradients agree with the default route's."""
+    q, k, v = (_rand((1, 1024, 2, 64), i, 1.0, cuda, torch.bfloat16)
+               for i in range(3))
+
+    def grads():
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out = tatt.flash_attention_diff(qq, kk, vv)
+        return torch.autograd.grad(out.float().square().sum(), (qq, kk, vv))
+
+    monkeypatch.delenv(tatt.BWD_ENV, raising=False)
+    want = grads()
+    monkeypatch.setenv(tatt.BWD_ENV, mode)
+    tatt.reset_launch_counts()
+    got = grads()
+    assert tatt.LAUNCHES == {**NO_FLASH_LAUNCH, "flash_fwd": 1, route: 1}
+    for g, w in zip(got, want):
+        _assert_within(g, w, 2.0 ** -6, route)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_entries_count_their_routes(cuda):
+    q, k, v = (_rand((1, 1024, 2, 64), i, 1.0, cuda, torch.bfloat16)
+               for i in range(3))
+    tatt.reset_launch_counts()
+    tatt.flash_attention(q, k, v)
+    tatt.flash_attention(q, k, v, block_k=256)
+    tatt.flash_fwd_impl(q, k, v, fold=False)
+    assert tatt.LAUNCHES == {**NO_FLASH_LAUNCH, "flash_fwd": 1,
+                             "flash_fwd_stream": 1, "flash_fwd_unfolded": 1}
 
 
 @pytest.mark.cuda
@@ -266,3 +361,67 @@ def test_cuda_gn_kernels_refuse_other_inputs(cuda):
     with pytest.raises(ValueError, match="multiples of 16"):
         tgc.gn_silu_conv3x3_fwd(xb[:, :40].contiguous(), g[:40], beta[:40],
                                 w[:, :40].contiguous(), 8, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K7. Tolerance of the kernel against its plain version, bf16: both round
+# the same fp32 tap sums once to bf16, summed in another order, so an
+# element may land one bf16 ulp (2**-8 relative) away; 2**-7 of the largest
+# value bounds that.
+# ---------------------------------------------------------------------------
+
+def test_conv_cpu_path_launches_no_kernel():
+    tconv.reset_launch_counts()
+    x = _rand((1, 64, 6, 6), 0).requires_grad_(True)
+    w = _rand((64, 64, 3, 3), 1, 0.05)
+    tconv.conv3x3(x, w).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert tconv.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_dx": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("hw,ci,co", [(64, 320, 320), (8, 2560, 1280),
+                                      (16, 1920, 1280), (12, 48, 80),
+                                      (5, 64, 96)])
+def test_cuda_conv_matches_plain(cuda, b, hw, ci, co):
+    """K7 forward and dx against the plain versions: the U-Net's largest
+    (64x64, 320 -> 320) and smallest (8x8 decoder concat, 2560 -> 1280)
+    sites, a Ci != Co concat site with 1920 channels, and ragged 64-pixel
+    and 64-channel tiles (12x12, 48 -> 80; 5x5, 64 -> 96)."""
+    x = _rand((b, ci, hw, hw), 0, 1.0, cuda, torch.bfloat16)
+    w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5, cuda, torch.bfloat16)
+    dy = _rand((b, co, hw, hw), 2, 1.0, cuda, torch.bfloat16)
+    tconv.reset_launch_counts()
+    _assert_within(tconv.conv3x3_fwd(x, w), tconv.conv3x3_fwd_ref(x, w),
+                   GN_RTOL, "y")
+    _assert_within(tconv.conv3x3_dx(dy, w, x.dtype),
+                   tconv.conv3x3_dx_ref(dy, w, x.dtype), GN_RTOL, "dx")
+    assert tconv.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_dx": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_conv_autograd_and_channels_last(cuda):
+    """The autograd op runs both kernels; an input with channels-last
+    strides (as the transformer's residual add leaves it) is copied to
+    NCHW, not read through the wrong strides."""
+    x = _rand((1, 320, 16, 16), 0, 1.0, cuda, torch.bfloat16)
+    w = _rand((640, 320, 3, 3), 1, 0.02, cuda, torch.float32)
+    xl = x.to(memory_format=torch.channels_last).requires_grad_(True)
+    tconv.reset_launch_counts()
+    y = tconv.conv3x3(xl, w)
+    _assert_within(y, tconv.conv3x3_fwd_ref(x, w), GN_RTOL, "y")
+    y.float().sum().backward()
+    assert torch.isfinite(xl.grad.float()).all()
+    assert tconv.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_dx": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_conv_refuses_other_inputs(cuda):
+    x = torch.zeros((1, 64, 8, 8), device=cuda)
+    w = torch.zeros((64, 64, 3, 3), device=cuda)
+    with pytest.raises(TypeError):
+        tconv.conv3x3_fwd(x, w)
+    xb = torch.zeros((1, 40, 8, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tconv.conv3x3_fwd(xb, w[:, :40])
