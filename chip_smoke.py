@@ -9,8 +9,12 @@ Phases, each reported on its own line:
   3. kernels: each kernel route against its plain PyTorch version on the
      card, at every shape the 512x512 U-Net gives it (the attention routes
      also at one query length != key length), with errors, device times
-     (CUDA events), the plain version's and, where one PyTorch call
-     computes the same function, that call's time, and the card's bound;
+     (CUDA events, the device kept ahead of the host), the plain version's
+     and, where one PyTorch call computes the same function, that call's
+     time, and the card's bound; for the conv kernel (K7) also each site's
+     plan, its and cuDNN's back-to-back host-clock times per call, those
+     times summed over the 47 convs of one U-Net forward, and a check at
+     two ragged shapes;
   4. edit: one 512x512 DiffusionHandles(variant="sd2") edit through the four
      public steps with the default U-Net (seeded random weights),
      EDIT_TIMESTEPS timesteps, with per-step seconds, the kernels' launch
@@ -89,6 +93,12 @@ GN_RTOL = 2.0 ** -7
 # end: the two differ in rounding points at every layer.
 UNET_RTOL = 5e-2
 
+# Clock cycles of the sleep that _device_ms queues before a timed window
+# (~5 ms at an H100's SM clock), and the longest it stretches that sleep
+# to when the host's enqueue of a window outlasts it.
+DEVICE_AHEAD_CYCLES = 10_000_000
+MAX_AHEAD_CYCLES = 40 * DEVICE_AHEAD_CYCLES
+
 # The card's published peaks (H100 SXM, dense): bf16 tensor cores, fp32
 # outside them, device memory.
 PEAK_BF16 = 989e12
@@ -112,13 +122,18 @@ CONV_SHAPES = [(64, 320, 320), (32, 320, 640), (32, 640, 640),
                (32, 960, 640), (32, 1280, 640), (16, 640, 1280),
                (16, 1280, 1280), (8, 1280, 1280)]
 # the 16 distinct 3x3 convs of the conv3x3_kernel U-Net at 512x512 (44
-# resnet halves and 3 upsamplers, all eligible): (side, Ci, Co)
-CONV3_SHAPES = [(64, 320, 320), (64, 640, 320), (64, 640, 640),
-                (64, 960, 320), (32, 320, 640), (32, 640, 640),
-                (32, 960, 640), (32, 1280, 640), (32, 1280, 1280),
-                (32, 1920, 640), (16, 640, 1280), (16, 1280, 1280),
-                (16, 1920, 1280), (16, 2560, 1280), (8, 1280, 1280),
-                (8, 2560, 1280)]
+# resnet halves and 3 upsamplers, all eligible): (side, Ci, Co) -> how many
+# of the 47 convs of one U-Net forward have that shape
+CONV3_SITE_COUNTS = {
+    (64, 320, 320): 7, (64, 640, 320): 2, (64, 640, 640): 1,
+    (64, 960, 320): 1, (32, 320, 640): 1, (32, 640, 640): 6,
+    (32, 960, 640): 1, (32, 1280, 640): 1, (32, 1280, 1280): 1,
+    (32, 1920, 640): 1, (16, 640, 1280): 1, (16, 1280, 1280): 7,
+    (16, 1920, 1280): 1, (16, 2560, 1280): 2, (8, 1280, 1280): 11,
+    (8, 2560, 1280): 3}
+# K7 at ragged pixel boxes and channel tiles (checked, not part of the
+# U-Net's sums): (side, Ci, Co)
+CONV3_RAGGED_SHAPES = [(12, 48, 80), (5, 64, 96)]
 BATCHES = (1, 2)
 
 KERNELS = {
@@ -152,23 +167,75 @@ BWD_MODES = {None: "flash_bwd", "twopass": "flash_bwd_twopass",
 
 
 def _line(phase: str, **fields) -> None:
+    host_bound = [k for k, v in fields.items()
+                  if getattr(v, "host_bound", False)]
+    if host_bound:
+        fields["host_bound"] = host_bound
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def _device_ms(fn, repeats: int = 20) -> float:
-    """Mean device ms of one call: CUDA events around `repeats` calls after
-    a warm-up call."""
+class _Ms(float):
+    """A device time in ms. `host_bound`: even behind the longest sleep,
+    the host took longer to enqueue the timed calls than the sleep lasted,
+    so the reading includes time the device waited for the host."""
+    host_bound = False
+
+
+def _device_ms(fn, repeats: int = 20, windows: int = 3) -> _Ms:
+    """Device ms of one call: the median over `windows` timed windows, each
+    CUDA events around `repeats` calls, after a warm-up call. A device-side
+    sleep queued before each window keeps the card busy while the host
+    enqueues the calls, so that a call shorter than its host-side launch
+    cost is timed by the device, not by the host. The host's enqueue time
+    (its clock, from before the sleep's launch) is held to the sleep's
+    device time: where it is longer, the device may have waited, and the
+    window is timed again behind a sleep stretched to twice the enqueue
+    time, up to MAX_AHEAD_CYCLES. The median drops a window that a stall
+    of the card inflates."""
     import torch
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / repeats
+    cycles, times, host_bound = DEVICE_AHEAD_CYCLES, [], False
+    for _ in range(windows):
+        while True:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            torch.cuda._sleep(cycles)
+            ev[1].record()
+            for _ in range(repeats):
+                fn()
+            ev[2].record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            ev[2].synchronize()
+            sleep_ms = ev[0].elapsed_time(ev[1])
+            if enqueue_ms < sleep_ms or cycles >= MAX_AHEAD_CYCLES:
+                break
+            cycles = min(MAX_AHEAD_CYCLES,
+                         int(cycles * 2 * enqueue_ms / sleep_ms) + 1)
+        host_bound |= enqueue_ms >= sleep_ms
+        times.append(ev[1].elapsed_time(ev[2]) / repeats)
+    ms = _Ms(sorted(times)[len(times) // 2])
+    ms.host_bound = host_bound
+    return ms
+
+
+def _wall_ms(fn, repeats: int = 20, windows: int = 3) -> float:
+    """Host-clock ms of one call issued back to back with the others, from
+    an idle device to the last call's end: what a caller pays per call
+    when the host's launch cost, not the device, sets the pace. The median
+    over `windows`."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / repeats)
+    return sorted(times)[len(times) // 2]
 
 
 def _bound(flops: float, nbytes: float, peak: float):
@@ -475,18 +542,38 @@ def _kernels_gn_conv(res, rand):
             res.add("gn_silu_conv3x3_dx", err, ms, plain_ms, bound)
 
 
+def _plan_fields(plan) -> dict:
+    return {"warpgroups": plan.warpgroups, "block_n": plan.block_n,
+            "box": list(plan.box), "splits": plan.splits, "grid": plan.grid}
+
+
 def _kernels_conv(res, rand):
-    """K7 forward and dx at every distinct conv of the conv3x3_kernel U-Net;
-    the library calls are cuDNN's bf16 conv and its input gradient."""
+    """K7 forward and dx at every distinct conv of the conv3x3_kernel U-Net,
+    on channels-last activations and a weight held channels-last, as the
+    U-Net gives them. The library calls are cuDNN's bf16 conv and its input
+    gradient on the same tensors (library_ms), and on NCHW copies of them
+    (library_nchw_ms, the layout of earlier measurements). Each direction's
+    times are also summed over the 47 convs of one U-Net forward. Then both
+    directions are checked (not timed) at ragged pixel boxes and channel
+    tiles, from NCHW inputs. Beside the device times, the kernel's and the
+    library call's back-to-back host-clock times per call (wall_ms,
+    library_wall_ms), which include each call's host cost."""
     import torch
     import torch.nn.functional as F
     conv = _kernel_modules()[3]
     bf16 = torch.bfloat16
-    for side, ci, co in CONV3_SHAPES:
+    per_call = {(d, b): {"kernel_ms": 0.0, "library_ms": 0.0,
+                         "library_nchw_ms": 0.0, "bound_ms": 0.0,
+                         "kernel_wall_ms": 0.0, "library_wall_ms": 0.0,
+                         "worst_site_over_library": 0.0,
+                         "host_bound_readings": 0}
+                for d in ("fwd", "dx") for b in BATCHES}
+    for (side, ci, co), count in CONV3_SITE_COUNTS.items():
         for b in BATCHES:
-            x = rand((b, ci, side, side))
-            w = rand((co, ci, 3, 3), (9 * ci) ** -0.5)
-            dy = rand((b, co, side, side))
+            x = conv.to_kernel_layout(rand((b, ci, side, side)))
+            w = conv.to_kernel_layout(rand((co, ci, 3, 3), (9 * ci) ** -0.5))
+            dy = conv.to_kernel_layout(rand((b, co, side, side)))
+            xn, wn, dyn = x.contiguous(), w.contiguous(), dy.contiguous()
             y = conv.conv3x3_fwd_cuda(x, w)
             y_ref = conv.conv3x3_fwd_ref(x, w)
             dx = conv.conv3x3_dx_cuda(dy, w, bf16)
@@ -497,24 +584,69 @@ def _kernels_conv(res, rand):
             bound = _bound(flops, 2 * b * side * side * (ci + co)
                            + 2 * 9 * ci * co, PEAK_BF16)
             shape = (b, ci, side, side, co)
-            err, tol = _rel_err(y, y_ref, GN_RTOL)
-            ms = _device_ms(lambda: conv.conv3x3_fwd_cuda(x, w))
-            plain_ms = _device_ms(lambda: conv.conv3x3_fwd_ref(x, w))
-            lib_ms = _device_ms(lambda: F.conv2d(x, w, padding=1))
-            _check("conv3x3_fwd", shape, [err], [tol], ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
-                   bound_by=bound[1])
-            res.add("conv3x3_fwd", err, ms, plain_ms, bound, lib_ms)
-
-            err, tol = _rel_err(dx, dx_ref, GN_RTOL)
-            ms = _device_ms(lambda: conv.conv3x3_dx_cuda(dy, w, bf16))
-            plain_ms = _device_ms(lambda: conv.conv3x3_dx_ref(dy, w, bf16))
-            lib_ms = _device_ms(lambda: torch.nn.grad.conv2d_input(
-                x.shape, w, dy, padding=1))
-            _check("conv3x3_dx", shape, [err], [tol], ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
-                   bound_by=bound[1])
-            res.add("conv3x3_dx", err, ms, plain_ms, bound, lib_ms)
+            directions = (
+                ("fwd", "conv3x3_fwd", y, y_ref, ci, co,
+                 lambda: conv.conv3x3_fwd_cuda(x, w),
+                 lambda: conv.conv3x3_fwd_ref(x, w),
+                 lambda: F.conv2d(x, w, padding=1),
+                 lambda: F.conv2d(xn, wn, padding=1)),
+                ("dx", "conv3x3_dx", dx, dx_ref, co, ci,
+                 lambda: conv.conv3x3_dx_cuda(dy, w, bf16),
+                 lambda: conv.conv3x3_dx_ref(dy, w, bf16),
+                 lambda: torch.nn.grad.conv2d_input(x.shape, w, dy,
+                                                    padding=1),
+                 lambda: torch.nn.grad.conv2d_input(xn.shape, wn, dyn,
+                                                    padding=1)))
+            for d, name, got, want, kch, nch, kernel, plain, lib, lib_nchw \
+                    in directions:
+                if not conv.in_kernel_layout(got):
+                    raise AssertionError(f"{name} output at {shape} is not "
+                                         "channels-last")
+                err, tol = _rel_err(got, want, GN_RTOL)
+                ms, plain_ms = _device_ms(kernel), _device_ms(plain)
+                lib_ms, nchw_ms = _device_ms(lib), _device_ms(lib_nchw)
+                wall_ms, lib_wall_ms = _wall_ms(kernel), _wall_ms(lib)
+                _check(name, shape, [err], [tol], ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, library_nchw_ms=nchw_ms,
+                       wall_ms=wall_ms, library_wall_ms=lib_wall_ms,
+                       bound_ms=bound[0], bound_by=bound[1],
+                       plan=_plan_fields(conv.plan_conv3x3(
+                           b, side, side, kch, nch)))
+                res.add(name, err, ms, plain_ms, bound, lib_ms)
+                acc = per_call[(d, b)]
+                acc["kernel_ms"] += count * ms
+                acc["library_ms"] += count * lib_ms
+                acc["library_nchw_ms"] += count * nchw_ms
+                acc["bound_ms"] += count * bound[0]
+                acc["kernel_wall_ms"] += count * wall_ms
+                acc["library_wall_ms"] += count * lib_wall_ms
+                acc["host_bound_readings"] += sum(
+                    t.host_bound for t in (ms, lib_ms, nchw_ms))
+                acc["worst_site_over_library"] = max(
+                    acc["worst_site_over_library"], ms / lib_ms)
+    for side, ci, co in CONV3_RAGGED_SHAPES:
+        for b in BATCHES:
+            x = rand((b, ci, side, side))
+            w = rand((co, ci, 3, 3), (9 * ci) ** -0.5)
+            dy = rand((b, co, side, side))
+            for name, got, want in (
+                    ("conv3x3_fwd", conv.conv3x3_fwd_cuda(x, w),
+                     conv.conv3x3_fwd_ref(x, w)),
+                    ("conv3x3_dx", conv.conv3x3_dx_cuda(dy, w, bf16),
+                     conv.conv3x3_dx_ref(dy, w, bf16))):
+                err, tol = _rel_err(got, want, GN_RTOL)
+                _check(name, (b, ci, side, side, co), [err], [tol],
+                       ragged=True)
+                row = res.rows[name]  # the sites above made the row
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+    for (d, b), acc in per_call.items():
+        _line("conv3x3_per_unet_forward", direction=d, batch=b,
+              sites=sum(CONV3_SITE_COUNTS.values()), **acc,
+              kernel_over_library=acc["kernel_ms"] / acc["library_ms"],
+              kernel_over_library_nchw=(acc["kernel_ms"]
+                                        / acc["library_nchw_ms"]),
+              kernel_over_library_wall=(acc["kernel_wall_ms"]
+                                        / acc["library_wall_ms"]))
 
 
 def phase_kernels() -> dict:

@@ -1,91 +1,635 @@
 // 3x3 SAME stride-1 conv forward and input gradient for Hopper (sm_90a):
-// NCHW bf16 activations, PyTorch's [Co, Ci, 3, 3] bf16 weight, fp32
-// accumulation, bf16 output. No bias: the caller adds it outside.
+// channels-last (NHWC) bf16 activations, the weight held channels-last
+// ([Co][3][3][Ci] in memory, PyTorch's torch.channels_last of [Co, Ci, 3, 3]),
+// fp32 accumulation, bf16 output. No bias: the caller adds it outside.
 //
 // Replaces the JAX package's ops/conv.py:_conv3_kernel (launched by
-// _conv3x3_pallas, for the forward of conv3x3 and, with the flipped,
-// in/out-transposed kernel, for its input gradient). That kernel pads the
-// image, flattens its rows and holds the whole padded [(H+3)*(W+2), Ci]
-// activation in VMEM, so each of the nine taps is one contiguous shifted
-// slice fed to an MXU matmul, and it computes and drops two wrap-around
-// columns a row. No CTA holds an image (227 KB of shared memory), so here
-// the conv is the implicit GEMM of conv3x3_gemm.cuh, the mainloop of the
-// fused GroupNorm conv (gn_conv.cu) with a loader that returns the raw bf16
-// value at the tap's shifted pixel (0 in the halo, so no padded copy and
-// no wrap-around columns exist):
-//   forward: y = bf16(sum over (ci, tap) of x * w), M = H*W, N = Co,
-//            K = 9*Ci;
-//   dx:      dx = bf16(sum over (co, tap) of dy * w[co][ci][8 - tap]), the
-//            same GEMM of dy against the flipped, transposed kernel read
-//            straight from w, N = Ci, K = 9*Co.
+// _conv3x3_pallas for the forward of conv3x3 and, with the flipped,
+// in/out-transposed kernel, for its input gradient). That kernel holds a
+// whole padded NHWC image in VMEM so each of the nine taps is one shifted
+// slice fed to the MXU. Here the conv is an implicit GEMM whose operands
+// the Tensor Memory Accelerator (TMA) cuts straight from the tensors:
+//   forward: M = B*H*W output pixels, N = Co, K = 9*Ci;
+//   dx:      M = B*H*W input pixels,  N = Ci, K = 9*Co (dy in place of x,
+//            B[(t, co)][ci] = w[co][8 - t][ci]: the flipped, transposed
+//            kernel as a tensor-map coordinate and wgmma's transpose flag).
+// K is ordered (tap, channel), channel fastest, 64 channels a step: one
+// 128-byte row, the span of the 128-byte swizzle that wgmma reads.
 //
-// Bound: 2*H*W*9*Ci*Co operations against (H*W*(Ci + Co) + 9*Ci*Co) * 2
-// bytes: at 64x64, 320 -> 320, 7.5 GFLOP over 7 MB, above the card's
-// flop:byte balance, so the kernel should be bound by its matrix
-// throughput. This first version is far from it: 64x64 tiles from a scalar
-// A loader, mma.sync with no copy/compute overlap, and the 8x8 and 16x16
-// levels fill only 20-80 CTAs of 132 SMs. wgmma, TMA, a channels-last
-// layout and split-K at the small levels are the known next steps.
+// A CTA's M tile is a BB x BH x BW box of pixels (BW a row segment, BH rows,
+// BB whole images when a tile spans more than one), 64 per consumer
+// warpgroup. For tap (di, dj) and channel chunk c0 its A tile is ONE TMA box
+// of the NHWC activation [B][H][W][C] at (c0, ow0 + dj - 1, oh0 + di - 1,
+// b0): TMA's zero fill of out-of-range coordinates is the halo, so there is
+// no padded copy and no wrap-around column. B is one box of the weight
+// viewed as [Co][9][Ci]: (64 ci, 1, BN co) at (c0, t, n0) forward, K-major;
+// for dx ceil(BN / 64) boxes (64 ci, 1, 64 co) at (n0 + 64 j, 8 - t, c0),
+// MN-major. The same weight tensor serves both directions; nothing copies
+// or transposes it per call.
 //
-// Grid: (ceil(H*W / 64) pixel tiles, ceil(N / 64) channel tiles, B).
-// Block: 4 warps, 2 x 2 over the 64 x 64 output tile.
-#include "conv3x3_gemm.cuh"
+// Bound on this card: 2*B*H*W*9*Ci*Co operations against the weight's
+// 18*Ci*Co bytes plus the activations'. At 64x64 and 32x32 the operations
+// bound it (64x64 320->320: 7.5 GFLOP, 7.6 us at 989 TFLOP/s); at 16x16 and
+// 8x8 the weight stream does (8x8 2560->1280: 59 MB, 17.6 us at 3.35 TB/s
+// against 3.8 us of operations), and a 64-pixel M tile there leaves most
+// SMs idle. The design:
+//   - one producer warp keeps a ring of STAGES (A, B) tiles in flight with
+//     TMA and mbarriers; one or two consumer warpgroups run wgmma
+//     m64nBNk16 from shared memory with one group in flight, so copies
+//     overlap the tensor cores; setmaxnreg moves registers to the consumers;
+//   - split-K where the grid is short: S CTAs each take a contiguous range
+//     of the K steps, write fp32 partials, and a second pass sums them in a
+//     fixed order and rounds once to bf16 (deterministic, no atomics). That
+//     spreads the weight stream over all SMs at 8x8 and 16x16;
+//   - the epilogue stages the bf16 tile in shared memory and writes it with
+//     one TMA store (clipped at the ragged edges).
+// The tile (consumer warpgroups, BN, the pixel box) and S come from the
+// planner in ops/conv.py (plan_conv3x3); this file only checks them.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace conv {
 
-// FLIP = false: src = x [B, Ci, hw], out = y [B, Co, hw].
-// FLIP = true:  src = dy [B, Co, hw], out = dx [B, Ci, hw].
-template <bool FLIP>
-__global__ void __launch_bounds__(conv3::NTHREADS)
-    conv3x3_kernel(const __nv_bfloat16* __restrict__ src,
-                   const __nv_bfloat16* __restrict__ w,
-                   __nv_bfloat16* __restrict__ out, int ci, int co, int h,
-                   int wd) {
-  __shared__ __align__(16) __nv_bfloat16 as[conv3::BM * conv3::LDK];
-  __shared__ __align__(16) __nv_bfloat16 bs[conv3::BN * conv3::LDK];
+constexpr int KC = 64;         // channels of one K step
+constexpr int ROW = KC * 2;    // bytes of one shared-memory row (128B swizzle)
+constexpr int SMEM_BUDGET = 227 * 1024;
+constexpr int MAX_STAGES = 8;
 
-  const int hw = h * wd;
-  const int kch = FLIP ? co : ci;  // channels along K
-  const int nch = FLIP ? ci : co;  // channels along N
-  const int m0 = blockIdx.x * conv3::BM, n0 = blockIdx.y * conv3::BN;
-  const int b = blockIdx.z;
+// Errors this file reports besides cudaError_t values.
+constexpr int ERR_NO_ENCODE = 1001;  // cuTensorMapEncodeTiled not found
+constexpr int ERR_ENCODE = 1002;     // a tensor map was refused
+constexpr int ERR_PLAN = 1003;       // a plan this file has no kernel for
 
-  const conv3::APixel px(m0, h, wd);
-  const __nv_bfloat16* asrc = src + (size_t)b * kch * hw;
-  auto a_val = [&](int c, int tp) -> float {
-    return px.in(tp) ? __bfloat162float(asrc[px.at(c, tp, hw, wd)]) : 0.f;
-  };
-  float acc[2][4][4];
-  conv3::mainloop<FLIP>(acc, as, bs, px, w, kch, nch, ci, n0, a_val);
-  conv3::store_bf16(acc, out, b, nch, hw, m0, n0);
+// ---------------------------------------------------------------------------
+// PTX wrappers: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <bool FLIP>
-int launch(const void* src, const void* w, void* out, int b, int ci, int co,
-           int h, int wd, void* stream) {
-  const dim3 grid((h * wd + conv3::BM - 1) / conv3::BM,
-                  ((FLIP ? ci : co) + conv3::BN - 1) / conv3::BN, b);
-  conv3x3_kernel<FLIP><<<grid, conv3::NTHREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(src),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      ci, co, h, wd);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase with parity `parity` has completed. A
+// wait that outlasts ~2 s of clock (a copy that never lands) traps, so a
+// fault shows as a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128B-swizzled operand tile whose
+// base is 1024-byte aligned: lbo / sbo in bytes (wgmma's "leading" and
+// "stride" byte offsets).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads across a wgmma wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Named barrier over the consumer warpgroups (id 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// d[64 x BN] += A[64 x 16] . B[16 x BN] (bf16 in, fp32 sum), both from
+// shared memory; TRANS_B = 1 reads B MN-major.
+template <int BN>
+struct Mma;
+
+#define ACC8(i)                                                   \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]),           \
+      "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]),       \
+      "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+template <>
+struct Mma<64> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %34;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Mma<128> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %66;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "l"(da), "l"(db), "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Mma<160> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void run(float (&d)[80], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, %82;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56),
+        ACC8(64), ACC8(72)
+      : "l"(da), "l"(db), "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Mma<256> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %130;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56),
+        ACC8(64), ACC8(72), ACC8(80), ACC8(88),
+        ACC8(96), ACC8(104), ACC8(112), ACC8(120)
+      : "l"(da), "l"(db), "n"(TRANS_B));
+  }
+};
+#undef ACC8
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+struct Params {
+  int b, h, w;          // images
+  int kch, nch;         // channels along K and along N
+  int bw, bh, bb;       // the M tile's pixel box (bw * bh * bb = 64 * NWG)
+  int tiles_w, tiles_h; // M tiles across W and across H
+  int c_steps;          // channel chunks of 64 along K (K steps = 9 * this)
+  int splits;           // K ranges (grid z); > 1 writes fp32 partials
+  float* part;          // [splits][B*H*W][nch] fp32 when splits > 1
+};
+
+template <bool DX, int NWG, int BN>
+struct Cfg {
+  static constexpr int BM = 64 * NWG;
+  static constexpr int B_BOXES = DX ? (BN + 63) / 64 : 1;
+  static constexpr int B_ROWS = DX ? 64 * B_BOXES : BN;
+  static constexpr int A_BYTES = BM * ROW;
+  static constexpr int STAGE_BYTES = (BM + B_ROWS) * ROW;
+  static constexpr int FIT = (SMEM_BUDGET - 1024 - 256) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  // 1024 of slack to align the base for the swizzle, then the barriers
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 256;
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static_assert(STAGES >= 3, "too few pipeline stages");
+  static_assert(BM * BN * 2 <= STAGES * STAGE_BYTES, "epilogue tile");
+};
+
+template <bool DX, int NWG, int BN>
+__global__ void __launch_bounds__(Cfg<DX, NWG, BN>::THREADS, 1)
+    conv3x3_kernel(const __grid_constant__ CUtensorMap act_map,
+                   const __grid_constant__ CUtensorMap w_map,
+                   const __grid_constant__ CUtensorMap out_map,
+                   const Params p) {
+  using C = Cfg<DX, NWG, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES *
+                                               C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+
+  const int tile = blockIdx.x;
+  const int ow0 = tile % p.tiles_w * p.bw;
+  const int oh0 = tile / p.tiles_w % p.tiles_h * p.bh;
+  const int b0 = tile / (p.tiles_w * p.tiles_h) * p.bb;
+  const int n0 = blockIdx.y * BN;
+  const int k_steps = 9 * p.c_steps;
+  const int step0 = static_cast<int>(
+      static_cast<long long>(blockIdx.z) * k_steps / p.splits);
+  const int nsteps = static_cast<int>(
+      static_cast<long long>(blockIdx.z + 1) * k_steps / p.splits) - step0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer warpgroup: one thread issues every copy
+    if constexpr (NWG == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    }
+    if (threadIdx.x == NWG * 128) {
+      prefetch_map(&act_map);
+      prefetch_map(&w_map);
+      for (int i = 0; i < nsteps; ++i) {
+        const int s = i % C::STAGES;
+        mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+        uint8_t* a = smem + s * C::STAGE_BYTES;
+        uint8_t* bt = a + C::A_BYTES;
+        mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        const int k = step0 + i;
+        const int tap = k / p.c_steps;
+        const int c0 = (k - tap * p.c_steps) * KC;
+        const int di = tap / 3, dj = tap - 3 * (tap / 3);
+        tma_load_4d(a, &act_map, &full[s], c0, ow0 + dj - 1, oh0 + di - 1,
+                    b0);
+        if constexpr (!DX) {
+          tma_load_3d(bt, &w_map, &full[s], c0, tap, n0);
+        } else {
+#pragma unroll
+          for (int j = 0; j < C::B_BOXES; ++j)
+            tma_load_3d(bt + j * 64 * ROW, &w_map, &full[s], n0 + 64 * j,
+                        8 - tap, c0);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: rows [64 wg, 64 wg + 64) of the tile
+    if constexpr (NWG == 2) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    }
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const int lane = threadIdx.x % 32;
+    const uint32_t base = smem_u32(smem);
+
+    for (int i = 0; i < nsteps; ++i) {
+      const int s = i % C::STAGES;
+      mbar_wait(&full[s], (i / C::STAGES) & 1);
+      const uint32_t a_addr = base + s * C::STAGE_BYTES + wg * 64 * ROW;
+      const uint32_t b_addr = base + s * C::STAGE_BYTES + C::A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        // A, K-major: 8-row groups 1024 B apart, k16 slices 32 B apart
+        const uint64_t da = smem_desc(a_addr + kk * 32, 16, 1024);
+        if constexpr (!DX) {
+          const uint64_t db = smem_desc(b_addr + kk * 32, 16, 1024);
+          Mma<BN>::template run<0>(acc, da, db);
+        } else {
+          // B, MN-major: 64-channel column blocks 64 rows apart (LBO),
+          // 8-row groups of K 1024 B apart (SBO), k16 slices 16 rows apart
+          const uint64_t db =
+              smem_desc(b_addr + kk * 16 * ROW, 64 * ROW, 1024);
+          Mma<BN>::template run<1>(acc, da, db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // Accumulator i of thread t (warp wq of the warpgroup) holds row
+    // 16 wq + t%32/4 + 8 (i%4/2), columns 8 (i/4) + 2 (t%4) + {0, 1}.
+    const int r0 = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    if (p.splits == 1) {
+      // bf16 tile [BM][BN] over the drained stages, then one TMA store
+      consumers_sync(NWG * 128);
+      __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+      for (int i = 0; i < BN / 2; i += 2) {
+        const int r = r0 + 8 * ((i % 4) / 2);
+        const int c = 8 * (i / 4) + c0;
+        *reinterpret_cast<__nv_bfloat162*>(st + r * BN + c) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumers_sync(NWG * 128);
+      if (threadIdx.x == 0) tma_store_4d(&out_map, st, n0, ow0, oh0, b0);
+    } else {
+      float* part = p.part + static_cast<size_t>(blockIdx.z) * p.b * p.h *
+                                 p.w * p.nch;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + 8 * half;
+        const int ww = ow0 + r % p.bw;
+        const int hh = oh0 + r / p.bw % p.bh;
+        const int bi = b0 + r / (p.bw * p.bh);
+        if (ww >= p.w || hh >= p.h || bi >= p.b) continue;
+        float* row = part + ((static_cast<size_t>(bi) * p.h + hh) * p.w +
+                             ww) * p.nch;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = n0 + 8 * j + c0;
+          if (n < p.nch)
+            *reinterpret_cast<float2*>(row + n) =
+                make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
+      }
+    }
+  }
+}
+
+// out[e] = bf16(sum over s of part[s][e]), s in order; 8 elements a thread.
+__global__ void __launch_bounds__(256)
+    splitk_sum_kernel(const float* __restrict__ part,
+                      __nv_bfloat16* __restrict__ out, long long n8,
+                      int splits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= n8) return;
+  float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+  for (int s = 0; s < splits; ++s) {
+    const float4* src =
+        reinterpret_cast<const float4*>(part + s * n8 * 8) + 2 * i;
+    const float4 a = src[0], b = src[1];
+    lo.x += a.x; lo.y += a.y; lo.z += a.z; lo.w += a.w;
+    hi.x += b.x; hi.y += b.y; hi.z += b.z; hi.w += b.w;
+  }
+  __nv_bfloat162 v[4] = {__floats2bfloat162_rn(lo.x, lo.y),
+                         __floats2bfloat162_rn(lo.z, lo.w),
+                         __floats2bfloat162_rn(hi.x, hi.y),
+                         __floats2bfloat162_rn(hi.z, hi.w)};
+  reinterpret_cast<uint4*>(out)[i] = *reinterpret_cast<uint4*>(v);
+}
+
+// ---------------------------------------------------------------------------
+// Host side: tensor maps and launches
+// ---------------------------------------------------------------------------
+
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda entry, found through the runtime (the
+// library links no libcuda).
+EncodeFn encode_fn() {
+  static const EncodeFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeFn>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map over `rank` dims (innermost first) of a dense tensor.
+bool encode(CUtensorMap* map, const void* ptr, int rank,
+            const cuuint64_t* dims, const cuuint32_t* box, bool swizzle) {
+  cuuint64_t strides[4];
+  cuuint64_t bytes = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                     const_cast<void*>(ptr), dims, strides, box, ones,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool DX, int NWG, int BN>
+int launch(const CUtensorMap& act, const CUtensorMap& wmap,
+           const CUtensorMap& out, const Params& p, dim3 grid,
+           cudaStream_t stream) {
+  using C = Cfg<DX, NWG, BN>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_kernel<DX, NWG, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  conv3x3_kernel<DX, NWG, BN>
+      <<<grid, C::THREADS, C::SMEM, stream>>>(act, wmap, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DX>
+int launch_tile(int nwg, int bn, const CUtensorMap& act,
+                const CUtensorMap& wmap, const CUtensorMap& out,
+                const Params& p, dim3 grid, cudaStream_t st) {
+// The tiles of ops/conv.py's TILES: those its planner picks.
+#define CONV_CASE(NWG, BN)                                        \
+  if (nwg == NWG && bn == BN)                                     \
+    return launch<DX, NWG, BN>(act, wmap, out, p, grid, st);
+  CONV_CASE(1, 64) CONV_CASE(1, 160)
+  CONV_CASE(2, 128) CONV_CASE(2, 160) CONV_CASE(2, 256)
+#undef CONV_CASE
+  return ERR_PLAN;
+}
+
+int run(bool dx, const void* src, const void* w, void* out, float* part,
+        int b, int h, int wd, int ci, int co, int nwg, int bn, int bw, int bh,
+        int bb, int splits, cudaStream_t st) {
+  if (encode_fn() == nullptr) return ERR_NO_ENCODE;
+  if (bw * bh * bb != 64 * nwg || splits < 1 || (splits > 1 && !part))
+    return ERR_PLAN;
+  const int kch = dx ? co : ci, nch = dx ? ci : co;
+  CUtensorMap act_map, w_map, out_map;
+  const cuuint64_t act_dims[4] = {cuuint64_t(kch), cuuint64_t(wd),
+                                  cuuint64_t(h), cuuint64_t(b)};
+  const cuuint32_t act_box[4] = {KC, cuuint32_t(bw), cuuint32_t(bh),
+                                 cuuint32_t(bb)};
+  const cuuint64_t w_dims[3] = {cuuint64_t(ci), 9, cuuint64_t(co)};
+  const cuuint32_t w_box[3] = {KC, 1, dx ? cuuint32_t(KC) : cuuint32_t(bn)};
+  const cuuint64_t out_dims[4] = {cuuint64_t(nch), cuuint64_t(wd),
+                                  cuuint64_t(h), cuuint64_t(b)};
+  const cuuint32_t out_box[4] = {cuuint32_t(bn), cuuint32_t(bw),
+                                 cuuint32_t(bh), cuuint32_t(bb)};
+  if (!encode(&act_map, src, 4, act_dims, act_box, true) ||
+      !encode(&w_map, w, 3, w_dims, w_box, true) ||
+      !encode(&out_map, out, 4, out_dims, out_box, false))
+    return ERR_ENCODE;
+
+  Params p;
+  p.b = b; p.h = h; p.w = wd;
+  p.kch = kch; p.nch = nch;
+  p.bw = bw; p.bh = bh; p.bb = bb;
+  p.tiles_w = (wd + bw - 1) / bw;
+  p.tiles_h = (h + bh - 1) / bh;
+  p.c_steps = (kch + KC - 1) / KC;
+  p.splits = splits;
+  p.part = part;
+  const dim3 grid(p.tiles_w * p.tiles_h * ((b + bb - 1) / bb),
+                  (nch + bn - 1) / bn, splits);
+  const int err = dx ? launch_tile<true>(nwg, bn, act_map, w_map, out_map, p,
+                                         grid, st)
+                     : launch_tile<false>(nwg, bn, act_map, w_map, out_map,
+                                          p, grid, st);
+  if (err != 0 || splits == 1) return err;
+  const long long n8 = static_cast<long long>(b) * h * wd * nch / 8;
+  splitk_sum_kernel<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, st>>>(
+      part, static_cast<__nv_bfloat16*>(out), n8, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace conv
 
-// x: [b, ci, h, wd] bf16, w: [co, ci, 3, 3] bf16, both contiguous, w 16-byte
-// aligned; ci and co multiples of 16; y: [b, co, h, wd] bf16 out. Returns the
-// launch's cudaError_t.
-extern "C" int conv3x3_fwd_bf16(const void* x, const void* w, void* y, int b,
-                                int ci, int co, int h, int wd, void* stream) {
-  return conv::launch<false>(x, w, y, b, ci, co, h, wd, stream);
+// x: [b, h, wd, ci] bf16 (NHWC), w: [co, 3, 3, ci] bf16 (PyTorch's
+// channels-last [co, ci, 3, 3]), y: [b, h, wd, co] bf16 out; all dense and
+// 16-byte aligned, ci and co multiples of 8. The plan: nwg consumer
+// warpgroups, N tile bn, pixel box bw x bh x bb (bw * bh * bb = 64 nwg),
+// splits K ranges; part is fp32 scratch of splits * b * h * wd * co values
+// when splits > 1. Returns the launch's cudaError_t, or 1001-1003.
+extern "C" int conv3x3_fwd_bf16(const void* x, const void* w, void* y,
+                                void* part, int b, int h, int wd, int ci,
+                                int co, int nwg, int bn, int bw, int bh,
+                                int bb, int splits, void* stream) {
+  return conv::run(false, x, w, y, static_cast<float*>(part), b, h, wd, ci,
+                   co, nwg, bn, bw, bh, bb, splits,
+                   static_cast<cudaStream_t>(stream));
 }
 
-// dy: [b, co, h, wd] bf16, w as conv3x3_fwd_bf16; dx: [b, ci, h, wd] bf16
-// out. Returns the launch's cudaError_t.
-extern "C" int conv3x3_dx_bf16(const void* dy, const void* w, void* dx, int b,
-                               int ci, int co, int h, int wd, void* stream) {
-  return conv::launch<true>(dy, w, dx, b, ci, co, h, wd, stream);
+// dy: [b, h, wd, co] bf16 (NHWC), w as conv3x3_fwd_bf16, dx: [b, h, wd, ci]
+// bf16 out; part holds splits * b * h * wd * ci fp32 values when splits > 1.
+extern "C" int conv3x3_dx_bf16(const void* dy, const void* w, void* dx,
+                               void* part, int b, int h, int wd, int ci,
+                               int co, int nwg, int bn, int bw, int bh,
+                               int bb, int splits, void* stream) {
+  return conv::run(true, dy, w, dx, static_cast<float*>(part), b, h, wd, ci,
+                   co, nwg, bn, bw, bh, bb, splits,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,8 @@
 // The implicit-GEMM mainloop of a 3x3 SAME stride-1 conv over NCHW bf16
-// activations and PyTorch's [Co, Ci, 3, 3] bf16 weight, shared by the fused
-// GroupNorm+SiLU+conv kernels (gn_conv.cu) and the plain conv (conv.cu):
+// activations and PyTorch's [Co, Ci, 3, 3] bf16 weight, used by the fused
+// GroupNorm+SiLU+conv kernels (gn_conv.cu) alone. The plain conv (conv.cu)
+// no longer includes it: that kernel is a TMA-fed wgmma GEMM over
+// channels-last activations, the design this mainloop is to move onto.
 //   M = H*W output pixels, N = output channels, K = 9 * channels along K,
 //   ordered (channel, tap) with the tap fastest: PyTorch's own weight order,
 //   so the forward reads w as the [Co, 9*Ci] matrix it already is, and the

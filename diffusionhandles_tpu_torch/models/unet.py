@@ -34,7 +34,9 @@ from torch import nn
 
 from diffusionhandles_tpu_torch.ops import groupnorm
 from diffusionhandles_tpu_torch.ops.attention import dot_product_attention
-from diffusionhandles_tpu_torch.ops.conv import conv3x3, conv3x3_ok
+from diffusionhandles_tpu_torch.ops.conv import (conv3x3, conv3x3_ok,
+                                                 in_kernel_layout,
+                                                 to_kernel_layout)
 from diffusionhandles_tpu_torch.ops.gn_conv import (gn_silu_conv3x3,
                                                     gn_silu_conv3x3_ok,
                                                     gn_silu_conv3x3_ref)
@@ -134,7 +136,10 @@ class Conv2d(nn.Conv2d):
 class Conv3x3(Conv2d):
     """A 3x3 SAME Conv2d (same parameters) that, with `kernel`, runs the
     conv op of ops/conv.py where its gate passes (the JAX package's
-    Conv3x3 with impl 'pallas'), else F.conv2d."""
+    Conv3x3 with impl 'pallas'), else F.conv2d. With `kernel` the weight is
+    held in the kernel's layout (channels-last), set at construction and
+    again after every state-dict load: `load_state_dict(assign=True)`
+    replaces the parameter with the source tensor."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: torch.dtype = torch.float32,
@@ -143,6 +148,15 @@ class Conv3x3(Conv2d):
         super().__init__(in_channels, out_channels, 3, padding=1,
                          dtype=dtype, param_dtype=param_dtype)
         self.kernel = kernel
+        self._hold_kernel_layout()
+
+    def _hold_kernel_layout(self):
+        if self.kernel and not in_kernel_layout(self.weight):
+            self.weight.data = to_kernel_layout(self.weight.data)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._hold_kernel_layout()
 
     def forward(self, x):
         dt = self.compute_dtype

@@ -2,12 +2,16 @@
 package's `ops/conv.py` (Pallas `_conv3_kernel`, reached through `conv3x3`
 and `UNetConfig(pallas_conv=True)`).
 
-    y = conv3x3(x, w)        x NCHW [B, Ci, H, W], w [Co, Ci, 3, 3]
+    y = conv3x3(x, w)        x [B, Ci, H, W], w [Co, Ci, 3, 3]
 
 No bias: the caller adds it after the op, in the compute dtype. The kernel
-is CUDA C++ for Hopper (`csrc/conv.cu`, the implicit-GEMM mainloop of
-`csrc/conv3x3_gemm.cuh` that the fused GroupNorm conv shares), built at
-first use (`utils/cuda_build.py`).
+is CUDA C++ for Hopper (`csrc/conv.cu`: a TMA-fed wgmma implicit GEMM over
+channels-last activations, split-K where the grid is short), built at
+first use (`utils/cuda_build.py`). Shapes stay logical NCHW; on the card
+the kernel takes and returns channels-last memory (`torch.channels_last`)
+and reads the weight in that layout too, so a caller holds its weights
+there once (`to_kernel_layout`) instead of paying a copy per call. The tile
+and the K split of each call come from `plan_conv3x3`.
 
 Numerics are the TPU kernel's, reproduced by the plain versions
 (`conv3x3_fwd_ref`, `conv3x3_dx_ref`): w cast to x's dtype, products of
@@ -22,7 +26,10 @@ the CPU; for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+import dataclasses
+import functools
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +42,8 @@ from diffusionhandles_tpu_torch.utils.cuda_build import (check_cuda_bf16,
 LAUNCHES: Dict[str, int] = {"conv3x3_fwd": 0, "conv3x3_dx": 0}
 
 KERNEL_SOURCES = ("conv.cu",)
-CHANNEL_STEP = 16  # channels per K step of the GEMM: Ci and Co divide by it
+# Ci and Co divide by it: TMA takes global strides in 16-byte units
+CHANNEL_MULTIPLE = 8
 
 
 def reset_launch_counts() -> None:
@@ -86,6 +94,135 @@ def conv3x3_ok(x_shape: Sequence[int], w_shape: Sequence[int],
 
 
 # ---------------------------------------------------------------------------
+# The planner: tile and K split of one launch, from the shape alone
+# ---------------------------------------------------------------------------
+
+SMS = 132                        # streaming multiprocessors of an H100 SXM
+# (consumer warpgroups, N tile) of the kernels csrc/conv.cu has: the tiles
+# the planner picks at the SD-2 U-Net's 16 conv shapes, B 1 and 2, forward
+# and dx, out of 1-2 warpgroups x N 64/128/160/256
+TILES = ((1, 64), (1, 160), (2, 128), (2, 160), (2, 256))
+K_STEP = 64                      # channels of one K step
+MIN_SPLIT_STEPS = 4              # K steps a split keeps at least
+
+# The cost model that ranks plans (seconds). A CTA runs its K steps one
+# after another; each moves (BM + BN) rows of 128 bytes into shared memory
+# and does 2 * BM * BN * 64 operations, and takes the longer of the two at
+# one SM's share of the card: the tensor cores at the share of peak its
+# consumer warpgroups reach, the copies at what one SM draws from L2.
+# Whole waves of CTAs run in turn; the call takes at least its unique
+# bytes over device memory, and a split adds its fp32 partials (written
+# and read back) and the second pass's launch. Estimates, set against
+# chip_smoke.py's per-site times.
+_SM_FLOPS = 989e12 / SMS
+_MMA_SHARE = {1: 0.6, 2: 0.8}
+_SM_COPY_BPS = 60e9
+_HBM_BPS = 0.85 * 3.35e12
+_SPLIT_PASS_S = 3e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """One launch: `warpgroups` consumer warpgroups (64 output pixels
+    each), an N tile of `block_n` channels, an M tile that is the pixel box
+    `box` = (columns, rows, images), the K steps cut into `splits` ranges.
+    `note` says why the grid falls short of one wave, where it does."""
+
+    warpgroups: int
+    block_n: int
+    box: Tuple[int, int, int]
+    splits: int
+    m_tiles: int
+    n_tiles: int
+    k_steps: int
+    est_s: float
+    note: str = ""
+
+    @property
+    def grid(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+    def split_ranges(self) -> Tuple[Tuple[int, int], ...]:
+        """[start, end) of each split's K steps, as the kernel cuts them."""
+        k, s = self.k_steps, self.splits
+        return tuple((i * k // s, (i + 1) * k // s) for i in range(s))
+
+    def launch_args(self) -> Tuple[int, ...]:
+        return (self.warpgroups, self.block_n, *self.box, self.splits)
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def pixel_box(b: int, h: int, w: int, warpgroups: int) -> Tuple[int, int,
+                                                                 int]:
+    """The M tile (columns, rows, images) of 64 * warpgroups pixels: a row
+    segment of up to 64 columns, then rows, then whole images."""
+    bw = min(64, _pow2_ceil(w))
+    rest = 64 * warpgroups // bw
+    bh = min(rest, _pow2_ceil(h))
+    return bw, bh, rest // bh
+
+
+def _estimate(b, h, w, kch, nch, nwg, bn, splits, m_tiles, k_steps):
+    bm = 64 * nwg
+    step = max(2.0 * bm * bn * K_STEP / (_SM_FLOPS * _MMA_SHARE[nwg]),
+               (bm + bn) * 2 * K_STEP / _SM_COPY_BPS)
+    ctas = m_tiles * math.ceil(nch / bn) * splits
+    main = math.ceil(ctas / SMS) * math.ceil(k_steps / splits) * step
+    unique = 2.0 * (b * h * w * (kch + nch) + 9 * kch * nch)
+    extra = (0.0 if splits == 1 else
+             8.0 * splits * b * h * w * nch / _HBM_BPS + _SPLIT_PASS_S)
+    return max(main, unique / _HBM_BPS) + extra
+
+
+def fixed_plan(b: int, h: int, w: int, kch: int, nch: int,
+               warpgroups: int, block_n: int, splits: int) -> ConvPlan:
+    """The plan with the given tile and split (the planner's candidates;
+    tests use it to reach every kernel instance)."""
+    box = pixel_box(b, h, w, warpgroups)
+    m_tiles = (math.ceil(b / box[2]) * math.ceil(h / box[1])
+               * math.ceil(w / box[0]))
+    k_steps = 9 * math.ceil(kch / K_STEP)
+    est = _estimate(b, h, w, kch, nch, warpgroups, block_n, splits, m_tiles,
+                    k_steps)
+    return ConvPlan(warpgroups, block_n, box, splits, m_tiles,
+                    math.ceil(nch / block_n), k_steps, est)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_conv3x3(b: int, h: int, w: int, kch: int, nch: int) -> ConvPlan:
+    """The plan of the conv GEMM with `kch` channels along K (Ci forward,
+    Co for dx) and `nch` along N, over B x H x W pixels: the candidate
+    tiles and splits ranked by the cost model above."""
+    k_steps = 9 * math.ceil(kch / K_STEP)
+    best = None
+    for nwg, bn in TILES:
+        tiles = fixed_plan(b, h, w, kch, nch, nwg, bn, 1).grid
+        max_splits = max(1, min(k_steps // MIN_SPLIT_STEPS,
+                                math.ceil(2 * SMS / tiles)))
+        for splits in range(1, max_splits + 1):
+            cand = fixed_plan(b, h, w, kch, nch, nwg, bn, splits)
+            key = (cand.est_s, splits, -nwg, -bn)
+            if best is None or key < best[0]:
+                best = (key, cand)
+    plan = best[1]
+    if plan.grid < SMS:
+        tiles = plan.m_tiles * plan.n_tiles
+        why = (f"{tiles} tiles x {plan.splits} splits = {plan.grid} CTAs: ")
+        if plan.splits * MIN_SPLIT_STEPS > k_steps - MIN_SPLIT_STEPS:
+            why += (f"more splits would leave fewer than {MIN_SPLIT_STEPS} "
+                    f"of the {k_steps} K steps each")
+        else:
+            why += ("the cost model ranks every plan with a full wave "
+                    "slower (smaller tiles move more bytes a flop; more "
+                    "splits add fp32 partials)")
+        plan = dataclasses.replace(plan, note=why)
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and the card's reference)
 # ---------------------------------------------------------------------------
 
@@ -125,63 +262,89 @@ def kernel_library() -> ctypes.CDLL:
         lib = load_library("conv3x3", KERNEL_SOURCES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.conv3x3_fwd_bf16, lib.conv3x3_dx_bf16):
-            fn.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+            fn.argtypes = [ptr] * 4 + [i32] * 11 + [ptr]
             fn.restype = i32
         _LIB = lib
     return _LIB
 
 
+def in_kernel_layout(t: torch.Tensor) -> bool:
+    """True when `t` (an activation [B, C, H, W] or a weight
+    [Co, Ci, 3, 3]) is dense channels-last: the memory the kernel reads."""
+    return t.is_contiguous(memory_format=torch.channels_last)
+
+
+def to_kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """`t` in channels-last memory, the same logical shape; `t` itself
+    when it already is."""
+    return t.contiguous(memory_format=torch.channels_last)
+
+
 def _check(src, w, ci: int, co: int) -> Tuple[int, int, int]:
-    check_cuda_bf16("conv3x3", src, w, aligned=True)
+    check_cuda_bf16("conv3x3", src, w)
     if tuple(w.shape) != (co, ci, 3, 3):
         raise ValueError(f"conv3x3: w {tuple(w.shape)} is not "
                          f"[{co}, {ci}, 3, 3]")
-    if ci % CHANNEL_STEP or co % CHANNEL_STEP:
+    if ci % CHANNEL_MULTIPLE or co % CHANNEL_MULTIPLE:
         raise ValueError(f"conv3x3 kernel: Ci={ci} and Co={co} must be "
-                         f"multiples of {CHANNEL_STEP}")
+                         f"multiples of {CHANNEL_MULTIPLE} (TMA strides "
+                         "are 16-byte units)")
+    for t in (src, w):
+        if not in_kernel_layout(t) or t.data_ptr() % 16:
+            raise ValueError("conv3x3 kernel takes dense channels-last, "
+                             "16-byte aligned tensors")
     b, _, h, wd = src.shape
     return b, h, wd
 
 
-def conv3x3_fwd_cuda(x, w):
-    """The kernel on the card: y [B, Co, H, W] bf16. x in another memory
-    format is copied to NCHW first."""
-    x = x.contiguous()
-    w = w.to(x.dtype).contiguous()
+def _launch(name, src, w, plan: Optional[ConvPlan] = None):
+    """Run K7's `name` kernel ("conv3x3_fwd" or "conv3x3_dx") on the
+    channels-last bf16 `src` (x, or dy for dx) and w [Co, Ci, 3, 3],
+    writing a channels-last bf16 output, with `plan` or the planner's (the
+    CUDA tests force plans through here to reach every kernel instance)."""
     co, ci = w.shape[:2]
+    kch, nch = (co, ci) if name == "conv3x3_dx" else (ci, co)
+    b, h, wd = _check(src, w, ci, co)
+    plan = plan or plan_conv3x3(b, h, wd, kch, nch)
+    out = torch.empty((b, nch, h, wd), dtype=torch.bfloat16,
+                      device=src.device, memory_format=torch.channels_last)
+    part = (torch.empty((plan.splits * b * h * wd * nch,),
+                        dtype=torch.float32, device=src.device)
+            if plan.splits > 1 else None)
+    entry = getattr(kernel_library(), f"{name}_bf16")
+    with torch.cuda.device(src.device):
+        err = entry(src.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    None if part is None else part.data_ptr(), b, h, wd, ci,
+                    co, *plan.launch_args(), stream_of(src))
+    raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def conv3x3_fwd_cuda(x, w):
+    """The kernel on the card: y [B, Co, H, W] bf16 in channels-last
+    memory. x and w in another memory format are copied to channels-last
+    first (the conv U-Net holds its weights there, so its calls copy
+    none)."""
+    ci = w.shape[1]
     if x.dim() != 4 or x.shape[1] != ci:
         raise ValueError(f"conv3x3: x {tuple(x.shape)} is not [B, {ci}, H, W]")
-    b, h, wd = _check(x, w, ci, co)
-    lib = kernel_library()
-    y = torch.empty((b, co, h, wd), dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.conv3x3_fwd_bf16(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                   b, ci, co, h, wd, stream_of(x))
-    raise_on(err, "conv3x3_fwd")
-    LAUNCHES["conv3x3_fwd"] += 1
-    return y
+    x = to_kernel_layout(x)
+    return _launch("conv3x3_fwd", x, to_kernel_layout(w.to(x.dtype)))
 
 
 def conv3x3_dx_cuda(dy, w, dtype):
-    """The dx kernel on the card: dx [B, Ci, H, W] bf16 (`dtype` must be
-    bf16, x's dtype). dy in another memory format is copied to NCHW."""
+    """The dx kernel on the card: dx [B, Ci, H, W] bf16 in channels-last
+    memory (`dtype` must be bf16, x's dtype). dy and w in another memory
+    format are copied to channels-last first."""
     if dtype != torch.bfloat16:
         raise TypeError(f"conv3x3 dx kernel writes bfloat16, asked {dtype}")
-    dy = dy.to(dtype).contiguous()
-    w = w.to(dtype).contiguous()
-    co, ci = w.shape[:2]
+    co = w.shape[0]
     if dy.dim() != 4 or dy.shape[1] != co:
         raise ValueError(f"conv3x3: dy {tuple(dy.shape)} is not "
                          f"[B, {co}, H, W]")
-    b, h, wd = _check(dy, w, ci, co)
-    lib = kernel_library()
-    dx = torch.empty((b, ci, h, wd), dtype=torch.bfloat16, device=dy.device)
-    with torch.cuda.device(dy.device):
-        err = lib.conv3x3_dx_bf16(dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                                  b, ci, co, h, wd, stream_of(dy))
-    raise_on(err, "conv3x3_dx")
-    LAUNCHES["conv3x3_dx"] += 1
-    return dx
+    return _launch("conv3x3_dx", to_kernel_layout(dy.to(dtype)),
+                   to_kernel_layout(w.to(dtype)))
 
 
 def conv3x3_fwd(x, w):
@@ -205,7 +368,8 @@ class Conv3x3Function(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
-        x = x.contiguous()  # saved as the kernel takes it
+        if x.is_cuda:
+            x = to_kernel_layout(x)  # saved as the kernel takes it
         ctx.save_for_backward(x, w)
         return conv3x3_fwd(x, w)
 
@@ -219,6 +383,10 @@ class Conv3x3Function(torch.autograd.Function):
 
 
 def conv3x3(x, w):
-    """3x3 SAME stride-1 conv over NCHW x, no bias. Callers gate with
-    conv3x3_ok."""
-    return Conv3x3Function.apply(x, w)
+    """3x3 SAME stride-1 conv over x [B, Ci, H, W], no bias. Callers gate
+    with conv3x3_ok. Where no gradient is recorded (the pipeline's
+    inference calls) the forward runs without the autograd Function, which
+    costs ~20 us of host time a call."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return Conv3x3Function.apply(x, w)
+    return conv3x3_fwd(x, w)

@@ -210,6 +210,40 @@ def test_tiny_conv_unet_matches_jax_with_grads(monkeypatch):
     _close(gc_t, gc_j, 3e-4, "d energy / d context")
 
 
+def test_tiny_conv_unet_assign_load_holds_kernel_layout():
+    """A conv U-Net built on the meta device and loaded with
+    load_state_dict(assign=True), as chip_smoke.py swaps U-Nets, ends with
+    every kernel conv's weight in the kernel's layout (channels-last,
+    though the loaded tensors are not); its eps and decoder activation still equal the JAX U-Net with
+    pallas_conv=True to 1e-4 (fp32)."""
+    jcfg = _tiny_conv_config(junet, pallas_conv=True)
+    model, params = junet.init_unet_params(jcfg, seed=5)
+    state = tweights.unet_state_dict(jax.tree.map(np.asarray, params))
+    with torch.device("meta"):
+        port = tunet.UNet2DConditionModel(_tiny_conv_config(
+            tunet, conv3x3_kernel=True))
+    port.load_state_dict(state, strict=True, assign=True)
+    port.eval()
+    kernel = [m for m in port.modules()
+              if isinstance(m, tunet.Conv3x3) and m.kernel]
+    assert kernel and all(tconv.in_kernel_layout(m.weight) for m in kernel)
+    assert not any(tconv.in_kernel_layout(state[k]) for k in state
+                   if k.endswith("conv1.weight"))
+
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, 6, 6, 5).astype(np.float32)
+    ctx = rng.randn(2, 77, 32).astype(np.float32)
+    t = np.array([11, 600])
+    with pltpu.force_tpu_interpret_mode():
+        eps_j, acts_j, _ = jax.jit(lambda a, c: model.apply(
+            params, a, jnp.asarray(t), c))(jnp.asarray(x), jnp.asarray(ctx))
+    with torch.no_grad():
+        eps_t, acts_t, _ = port(torch.from_numpy(_nchw(x)),
+                                torch.from_numpy(t), torch.from_numpy(ctx))
+    _close(eps_t, _nchw(_np(eps_j)), 1e-4, "eps")
+    _close(acts_t[-1], _nchw(_np(acts_j[-1])), 1e-4, "activations")
+
+
 def test_conv_switch_excludes_fused_gn_conv():
     """conv3x3_kernel and fused_gn_conv are two values of the JAX
     package's one pallas_conv field."""
@@ -218,3 +252,15 @@ def test_conv_switch_excludes_fused_gn_conv():
     cfg = tunet.UNetConfig(conv3x3_kernel=True, fused_gn=True)
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, fused_gn_conv=True)
+
+
+def test_smoke_site_counts_are_the_unets_convs():
+    """chip_smoke.py weights each K7 site by how many of the U-Net's 47
+    eligible convs have its shape: those counts are the U-Net's."""
+    import collections
+
+    import chip_smoke
+    assert chip_smoke.CONV3_SITE_COUNTS == collections.Counter(
+        _sd2_conv_sites())
+    assert sum(chip_smoke.CONV3_SITE_COUNTS.values()) == \
+        chip_smoke.CONV3_SITES

@@ -12,6 +12,8 @@ JAX, so it also runs on the GPU machine:
 """
 
 import math
+import pathlib
+import re
 
 import pytest
 import torch
@@ -379,6 +381,83 @@ def test_conv_cpu_path_launches_no_kernel():
     assert tconv.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_dx": 0}
 
 
+# (side, Ci, Co) of the 16 distinct 3x3 convs of the SD-2-depth conv U-Net
+# at 64x64 latents (44 resnet halves and 3 upsamplers)
+SD2_CONV_SITES = [(64, 320, 320), (64, 640, 320), (64, 640, 640),
+                  (64, 960, 320), (32, 320, 640), (32, 640, 640),
+                  (32, 960, 640), (32, 1280, 640), (32, 1280, 1280),
+                  (32, 1920, 640), (16, 640, 1280), (16, 1280, 1280),
+                  (16, 1920, 1280), (16, 2560, 1280), (8, 1280, 1280),
+                  (8, 2560, 1280)]
+
+
+def _site_plans(b, side, ci, co):
+    """The planner's forward (K = 9 Ci, N = Co) and dx (K = 9 Co, N = Ci)
+    plans of a site."""
+    return {"fwd": (ci, tconv.plan_conv3x3(b, side, side, ci, co)),
+            "dx": (co, tconv.plan_conv3x3(b, side, side, co, ci))}
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("side,ci,co", SD2_CONV_SITES)
+def test_conv_plan_pixel_boxes_tile_each_image(b, side, ci, co):
+    """The M tiles, decomposed from the grid index as the kernel does
+    (column tile fastest, then row tile, then image tile), cover every
+    pixel of every image exactly once (boxes clipped at the edge)."""
+    for what, (_, plan) in _site_plans(b, side, ci, co).items():
+        bw, bh, bb = plan.box
+        assert bw * bh * bb == 64 * plan.warpgroups, what
+        tiles_w, tiles_h = math.ceil(side / bw), math.ceil(side / bh)
+        assert plan.m_tiles == tiles_w * tiles_h * math.ceil(b / bb), what
+        covered = torch.zeros((b, side, side), dtype=torch.int32)
+        for t in range(plan.m_tiles):
+            w0, h0 = t % tiles_w * bw, t // tiles_w % tiles_h * bh
+            b0 = t // (tiles_w * tiles_h) * bb
+            covered[b0:b0 + bb, h0:h0 + bh, w0:w0 + bw] += 1
+        assert bool((covered == 1).all()), what
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("side,ci,co", SD2_CONV_SITES)
+def test_conv_plan_splits_cover_k_exactly(b, side, ci, co):
+    """K is 9 taps x ceil(channels / 64) steps; the splits' step ranges
+    (as the kernel cuts them) are contiguous, each at least one step, and
+    together exactly K."""
+    for what, (kch, plan) in _site_plans(b, side, ci, co).items():
+        assert plan.k_steps == 9 * math.ceil(kch / tconv.K_STEP), what
+        ranges = plan.split_ranges()
+        assert len(ranges) == plan.splits >= 1, what
+        assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_steps, what
+        assert all(end - start >= 1 for start, end in ranges), what
+        assert all(a[1] == z[0] for a, z in zip(ranges, ranges[1:])), what
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("side,ci,co", SD2_CONV_SITES)
+def test_conv_plan_grid_fills_a_wave_or_says_why(b, side, ci, co):
+    """Each plan's grid (M tiles x N tiles x splits) reaches one wave of
+    the card's 132 SMs, or its note says why not; its tile is one the
+    kernel file has."""
+    for what, (_, plan) in _site_plans(b, side, ci, co).items():
+        assert (plan.warpgroups, plan.block_n) in tconv.TILES, what
+        assert plan.grid >= tconv.SMS or plan.note, (what, plan)
+
+
+def test_conv_tiles_are_the_planners_picks():
+    """Every tile csrc/conv.cu instantiates is the planner's pick at some
+    site of the U-Net (B 1 or 2, forward or dx): no kernel instance is
+    built that the main path never launches; and the file has each one."""
+    picked = {(plan.warpgroups, plan.block_n)
+              for b in (1, 2) for side, ci, co in SD2_CONV_SITES
+              for _, plan in _site_plans(b, side, ci, co).values()}
+    assert picked == set(tconv.TILES)
+    source = (pathlib.Path(tconv.__file__).parents[1] / "csrc"
+              / "conv.cu").read_text()
+    cases = {(int(a), int(b)) for a, b in
+             re.findall(r"CONV_CASE\((\d+), (\d+)\)", source)}
+    assert cases == set(tconv.TILES)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("hw,ci,co", [(64, 320, 320), (8, 2560, 1280),
@@ -387,24 +466,51 @@ def test_conv_cpu_path_launches_no_kernel():
 def test_cuda_conv_matches_plain(cuda, b, hw, ci, co):
     """K7 forward and dx against the plain versions: the U-Net's largest
     (64x64, 320 -> 320) and smallest (8x8 decoder concat, 2560 -> 1280)
-    sites, a Ci != Co concat site with 1920 channels, and ragged 64-pixel
-    and 64-channel tiles (12x12, 48 -> 80; 5x5, 64 -> 96)."""
+    sites, a Ci != Co concat site with 1920 channels, and ragged pixel
+    boxes and channel tiles (12x12, 48 -> 80; 5x5, 64 -> 96), which TMA's
+    zero fill and clipped stores serve. Outputs are channels-last."""
     x = _rand((b, ci, hw, hw), 0, 1.0, cuda, torch.bfloat16)
     w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5, cuda, torch.bfloat16)
     dy = _rand((b, co, hw, hw), 2, 1.0, cuda, torch.bfloat16)
     tconv.reset_launch_counts()
-    _assert_within(tconv.conv3x3_fwd(x, w), tconv.conv3x3_fwd_ref(x, w),
-                   GN_RTOL, "y")
-    _assert_within(tconv.conv3x3_dx(dy, w, x.dtype),
-                   tconv.conv3x3_dx_ref(dy, w, x.dtype), GN_RTOL, "dx")
+    y = tconv.conv3x3_fwd(x, w)
+    dx = tconv.conv3x3_dx(dy, w, x.dtype)
+    _assert_within(y, tconv.conv3x3_fwd_ref(x, w), GN_RTOL, "y")
+    _assert_within(dx, tconv.conv3x3_dx_ref(dy, w, x.dtype), GN_RTOL, "dx")
+    assert tconv.in_kernel_layout(y) and tconv.in_kernel_layout(dx)
     assert tconv.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_dx": 1}
+
+
+def _conv_launch(name, src, w, plan):
+    """One K7 launch with a forced plan, on channels-last copies."""
+    return tconv._launch(name, tconv.to_kernel_layout(src),
+                         tconv.to_kernel_layout(w), plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("warpgroups,block_n", tconv.TILES)
+def test_cuda_conv_every_instance_matches_plain(cuda, warpgroups, block_n,
+                                                splits):
+    """Each kernel instance (consumer warpgroups x N tile), whole and
+    split-K, forced through a fixed plan, against the plain versions; 640
+    output channels leave a ragged N tile at 128 and 256."""
+    b, hw, ci, co = 2, 16, 320, 640
+    x = _rand((b, ci, hw, hw), 0, 1.0, cuda, torch.bfloat16)
+    w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5, cuda, torch.bfloat16)
+    dy = _rand((b, co, hw, hw), 2, 1.0, cuda, torch.bfloat16)
+    fwd = tconv.fixed_plan(b, hw, hw, ci, co, warpgroups, block_n, splits)
+    bwd = tconv.fixed_plan(b, hw, hw, co, ci, warpgroups, block_n, splits)
+    _assert_within(_conv_launch("conv3x3_fwd", x, w, fwd),
+                   tconv.conv3x3_fwd_ref(x, w), GN_RTOL, "y")
+    _assert_within(_conv_launch("conv3x3_dx", dy, w, bwd),
+                   tconv.conv3x3_dx_ref(dy, w, x.dtype), GN_RTOL, "dx")
 
 
 @pytest.mark.cuda
 def test_cuda_conv_autograd_and_channels_last(cuda):
-    """The autograd op runs both kernels; an input with channels-last
-    strides (as the transformer's residual add leaves it) is copied to
-    NCHW, not read through the wrong strides."""
+    """The autograd op runs both kernels on an input with channels-last
+    strides (the layout the kernel reads) and an fp32 weight (cast)."""
     x = _rand((1, 320, 16, 16), 0, 1.0, cuda, torch.bfloat16)
     w = _rand((640, 320, 3, 3), 1, 0.02, cuda, torch.float32)
     xl = x.to(memory_format=torch.channels_last).requires_grad_(True)
@@ -417,11 +523,51 @@ def test_cuda_conv_autograd_and_channels_last(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_conv_nchw_and_channels_last_inputs_agree(cuda):
+    """An NCHW input is copied to channels-last, never read through the
+    wrong strides: it gives the channels-last input's result bit for bit,
+    in both directions, and the output is channels-last either way."""
+    x = _rand((2, 320, 32, 32), 0, 1.0, cuda, torch.bfloat16)
+    dy = _rand((2, 640, 32, 32), 1, 1.0, cuda, torch.bfloat16)
+    w = tconv.to_kernel_layout(_rand((640, 320, 3, 3), 2, 0.02, cuda,
+                                     torch.bfloat16))
+    y_n = tconv.conv3x3_fwd(x, w)
+    y_l = tconv.conv3x3_fwd(tconv.to_kernel_layout(x), w)
+    dx_n = tconv.conv3x3_dx(dy, w, torch.bfloat16)
+    dx_l = tconv.conv3x3_dx(tconv.to_kernel_layout(dy), w, torch.bfloat16)
+    assert torch.equal(y_n, y_l) and torch.equal(dx_n, dx_l)
+    assert all(tconv.in_kernel_layout(t) for t in (y_n, y_l, dx_n, dx_l))
+    # an NCHW weight is copied to the kernel's layout: the same result
+    assert torch.equal(tconv.conv3x3_fwd(x, w.contiguous()), y_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,ci,co", [(8, 2560, 1280), (16, 1280, 1280)])
+def test_cuda_conv_split_k_is_deterministic(cuda, hw, ci, co):
+    """Split-K sums its fp32 partials in a fixed order: two calls give the
+    same bits, with the planner's split and with a forced one of 6."""
+    x = _rand((1, ci, hw, hw), 0, 1.0, cuda, torch.bfloat16)
+    dy = _rand((1, co, hw, hw), 1, 1.0, cuda, torch.bfloat16)
+    w = tconv.to_kernel_layout(_rand((co, ci, 3, 3), 2, (9 * ci) ** -0.5,
+                                     cuda, torch.bfloat16))
+    forced = (tconv.fixed_plan(1, hw, hw, ci, co, 2, 128, 6),
+              tconv.fixed_plan(1, hw, hw, co, ci, 2, 128, 6))
+    for fwd, bwd in ((None, None), forced):
+        runs = [(_conv_launch("conv3x3_fwd", x, w, fwd),
+                 _conv_launch("conv3x3_dx", dy, w, bwd))
+                for _ in range(2)]
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+        _assert_within(runs[0][0], tconv.conv3x3_fwd_ref(x, w), GN_RTOL,
+                       "y")
+
+
+@pytest.mark.cuda
 def test_cuda_conv_refuses_other_inputs(cuda):
     x = torch.zeros((1, 64, 8, 8), device=cuda)
     w = torch.zeros((64, 64, 3, 3), device=cuda)
     with pytest.raises(TypeError):
         tconv.conv3x3_fwd(x, w)
-    xb = torch.zeros((1, 40, 8, 8), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        tconv.conv3x3_fwd(xb, w[:, :40])
+    xb = torch.zeros((1, 36, 8, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tconv.conv3x3_fwd(xb, w[:, :36])
