@@ -8,13 +8,17 @@ Phases, each reported on its own line:
      source, all started together);
   3. kernels: each kernel route against its plain PyTorch version on the
      card, at every shape the 512x512 U-Net gives it (the attention routes
-     also at one query length != key length), with errors, device times
-     (CUDA events, the device kept ahead of the host), the plain version's
-     and, where one PyTorch call computes the same function, that call's
-     time, and the card's bound; for the conv kernel (K7) also each site's
-     plan, its and cuDNN's back-to-back host-clock times per call, those
-     times summed over the 47 convs of one U-Net forward, and a check at
-     two ragged shapes;
+     also at one query length != key length, and on q, k, v sliced from
+     one [B, S, 3, H, D] tensor), with errors, device times (CUDA events,
+     the device kept ahead of the host), the plain version's and, where one
+     PyTorch call computes the same function, that call's time, and the
+     card's bound; for the attention kernels also back-to-back host-clock
+     times of the kernel and SDPA, a check that a second backward call
+     gives the same bits, and those times summed over the U-Net's ten
+     self-attention sites (flash_per_unet); for the conv kernel (K7) also
+     each site's plan, its and cuDNN's back-to-back host-clock times per
+     call, those times summed over the 47 convs of one U-Net forward, and a
+     check at two ragged shapes;
   4. edit: one 512x512 DiffusionHandles(variant="sd2") edit through the four
      public steps with the default U-Net (seeded random weights),
      EDIT_TIMESTEPS timesteps, with per-step seconds, the kernels' launch
@@ -335,9 +339,30 @@ def _qkv(rand, b, sq, sk, h, d):
             rand((b, sk, h, d)))
 
 
-def _kernels_flash_fwd(res, rand):
+def _qkv_strided(rand, b, s, h, d):
+    """q, k, v as the slices [:, :, i] of one [B, S, 3, H, D] tensor (a
+    fused projection's layout): read in place, strides 3*H*D apart."""
+    qkv = rand((b, s, 3, h, d))
+    qkv[:, :, :2] *= 1.5  # q and k at _qkv's scale
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+# The U-Net's ten self-attention sites per call: five at 64x64 latents
+# (4096 tokens, 5 heads) and five at 32x32 (1024 tokens, 10 heads).
+FLASH_SITES = {(4096, 5, 64): 5, (1024, 10, 64): 5}
+
+
+def _flash_site(b, sq, sk, h, d):
+    """The U-Net site key of a self-attention shape, or None."""
+    return (b, sq, h, d) if sq == sk and (sq, h, d) in FLASH_SITES else None
+
+
+def _kernels_flash_fwd(res, rand, per_site):
     """K1, K5 and K4 against their plain versions; SDPA is the library
-    call of all three."""
+    call of all three. Device and back-to-back host-clock times of K1 and
+    SDPA at the U-Net's sites go to `per_site`. Then each route on q, k, v
+    sliced from one [B, S, 3, H, D] tensor, read in place (no layout copy)
+    and held to its plain version."""
     import torch
     import torch.nn.functional as F
     att = _kernel_modules()[0]
@@ -353,11 +378,15 @@ def _kernels_flash_fwd(res, rand):
     for b, sq, sk, h, d in shapes:
         q, k, v = _qkv(rand, b, sq, sk, h, d)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = _device_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        lib_ms, lib_wall_ms = _device_ms(sdpa), _wall_ms(sdpa)
         bound = _bound(4.0 * b * h * sq * sk * d,
                        (2 * sq + 2 * sk) * b * h * d * 2 + b * h * sq * 4,
                        PEAK_BF16)
+        plan = att.plan_flash(b, h, sq, sk)
         for name, kernel, plain, lse_tol in routes:
             o, lse = kernel(q, k, v)
             o_ref, lse_ref = plain(q, k, v)
@@ -365,16 +394,45 @@ def _kernels_flash_fwd(res, rand):
             err_o, tol_o = _rel_err(o, o_ref, FWD_O_RTOL)
             err_l = (lse - lse_ref).abs().max().item()
             ms = _device_ms(lambda: kernel(q, k, v))
+            wall_ms = _wall_ms(lambda: kernel(q, k, v))
             plain_ms = _device_ms(lambda: plain(q, k, v))
             _check(name, (b, sq, sk, h, d), [err_o, err_l], [tol_o, lse_tol],
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound[0])
+                   wall_ms=wall_ms, library_wall_ms=lib_wall_ms,
+                   bound_ms=bound[0],
+                   plan={"warpgroups": plan.warpgroups,
+                         "block_n": plan.block_n, "grid": plan.grid})
             res.add(name, max(err_o, err_l), ms, plain_ms, bound, lib_ms)
+            site = _flash_site(b, sq, sk, h, d)
+            if name == "flash_fwd" and site:
+                per_site[site] = {"fwd_ms": ms, "fwd_wall_ms": wall_ms,
+                                  "sdpa_ms": lib_ms,
+                                  "sdpa_wall_ms": lib_wall_ms}
+    copies = att.LAYOUT_COPIES["flash"]
+    for b, s, h, d in FWD_SHAPES[::2]:
+        q, k, v = _qkv_strided(rand, b, s, h, d)
+        for name, kernel, plain, lse_tol in routes:
+            o, lse = kernel(q, k, v)
+            o_ref, lse_ref = plain(q, k, v)
+            err_o, tol_o = _rel_err(o, o_ref, FWD_O_RTOL)
+            err_l = (lse - lse_ref).abs().max().item()
+            _check(name, (b, s, s, h, d), [err_o, err_l], [tol_o, lse_tol],
+                   strided="[B,S,3,H,D]",
+                   layout_copies=att.LAYOUT_COPIES["flash"] - copies)
+            res.rows[name]["max_abs_err"] = max(
+                res.rows[name]["max_abs_err"], err_o, err_l)
+    if att.LAYOUT_COPIES["flash"] != copies:
+        raise AssertionError("strided q, k, v were copied, not read in "
+                             "place")
 
 
-def _kernels_flash_bwd(res, rand):
+def _kernels_flash_bwd(res, rand, per_site):
     """K2, K3 and K6 against their plain versions; SDPA forward + backward
-    is the library call of all three."""
+    is the library call of all three. Each route runs twice on the same
+    inputs and must give the same bits (no atomics, a fixed order). Device
+    and back-to-back times of K2 and SDPA forward + backward at the U-Net's
+    sites go to `per_site`. Then each route on q, k, v sliced from one
+    [B, S, 3, H, D] tensor, held to its plain version."""
     import torch
     import torch.nn.functional as F
     att = _kernel_modules()[0]
@@ -396,23 +454,67 @@ def _kernels_flash_bwd(res, rand):
             out = F.scaled_dot_product_attention(qt, kt, vt)
             torch.autograd.grad(out, (qt, kt, vt), dot)
 
-        lib_ms = _device_ms(sdpa_fwd_bwd)
+        lib_ms, lib_wall_ms = _device_ms(sdpa_fwd_bwd), _wall_ms(sdpa_fwd_bwd)
         # the function's five products (the kernels recompute two more)
         bound = _bound(10.0 * b * h * sq * sk * d,
                        (4 * sq + 4 * sk) * b * h * d * 2 + b * h * sq * 4,
                        PEAK_BF16)
         for name, kernel, plain in routes:
             got = kernel(q, k, v, o, lse, do)
+            again = kernel(q, k, v, o, lse, do)
             want = plain(q, k, v, o, lse, do)
             torch.cuda.synchronize()
             errs, tols = zip(*(_rel_err(g_, w_, BWD_RTOL)
                                for g_, w_ in zip(got, want)))
+            repeatable = all(torch.equal(x, y) for x, y in zip(got, again))
             ms = _device_ms(lambda: kernel(q, k, v, o, lse, do))
+            wall_ms = _wall_ms(lambda: kernel(q, k, v, o, lse, do))
             plain_ms = _device_ms(lambda: plain(q, k, v, o, lse, do))
             _check(name, (b, sq, sk, h, d), list(errs), list(tols), ms=ms,
                    plain_ms=plain_ms, library_ms_fwd_bwd=lib_ms,
-                   bound_ms=bound[0])
+                   wall_ms=wall_ms, library_wall_ms_fwd_bwd=lib_wall_ms,
+                   bound_ms=bound[0], bitwise_repeatable=repeatable)
+            if not repeatable:
+                raise AssertionError(f"{name} gave other bits on a second "
+                                     f"call at {(b, sq, sk, h, d)}")
             res.add(name, max(errs), ms, plain_ms, bound, lib_ms)
+            site = _flash_site(b, sq, sk, h, d)
+            if name == "flash_bwd" and site:
+                per_site[site].update(bwd_ms=ms, bwd_wall_ms=wall_ms,
+                                      sdpa_fwd_bwd_ms=lib_ms,
+                                      sdpa_fwd_bwd_wall_ms=lib_wall_ms)
+    for b, s, h, d in BWD_SHAPES:
+        q, k, v = _qkv_strided(rand, b, s, h, d)
+        do = rand(q.shape)
+        o, lse = att.flash_fwd_ref(q, k, v)
+        for name, kernel, plain in routes:
+            errs, tols = zip(*(_rel_err(g_, w_, BWD_RTOL) for g_, w_ in zip(
+                kernel(q, k, v, o, lse, do), plain(q, k, v, o, lse, do))))
+            _check(name, (b, s, s, h, d), list(errs), list(tols),
+                   strided="[B,S,3,H,D]")
+            res.rows[name]["max_abs_err"] = max(res.rows[name]["max_abs_err"],
+                                                *errs)
+
+
+def _flash_per_unet(per_site):
+    """K1 against SDPA summed over the U-Net's ten self-attention sites,
+    device and back-to-back wall ms, at each batch; where the backward was
+    timed (B=1), K2 against SDPA forward + backward too."""
+    for b in BATCHES:
+        sums = {}
+        for (sq, h, d), count in FLASH_SITES.items():
+            for key, ms in per_site[(b, sq, h, d)].items():
+                sums[key] = sums.get(key, 0.0) + count * ms
+        ratios = {"fwd_over_sdpa": sums["fwd_ms"] / sums["sdpa_ms"],
+                  "fwd_wall_over_sdpa": (sums["fwd_wall_ms"]
+                                         / sums["sdpa_wall_ms"])}
+        if "bwd_ms" in sums:
+            ratios["bwd_over_sdpa_fwd_bwd"] = (sums["bwd_ms"]
+                                               / sums["sdpa_fwd_bwd_ms"])
+            ratios["bwd_wall_over_sdpa_fwd_bwd"] = (
+                sums["bwd_wall_ms"] / sums["sdpa_fwd_bwd_wall_ms"])
+        _line("flash_per_unet", batch=b, sites=sum(FLASH_SITES.values()),
+              **sums, **ratios)
 
 
 def _kernels_gn(res, rand):
@@ -662,8 +764,10 @@ def phase_kernels() -> dict:
         return x.to(dtype)
 
     res = _Results()
-    _kernels_flash_fwd(res, rand)
-    _kernels_flash_bwd(res, rand)
+    per_site = {}
+    _kernels_flash_fwd(res, rand, per_site)
+    _kernels_flash_bwd(res, rand, per_site)
+    _flash_per_unet(per_site)
     _kernels_gn(res, rand)
     _kernels_gn_conv(res, rand)
     _kernels_conv(res, rand)

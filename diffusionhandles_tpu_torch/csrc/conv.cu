@@ -45,13 +45,13 @@
 //     one TMA store (clipped at the ragged edges).
 // The tile (consumer warpgroups, BN, the pixel box) and S come from the
 // planner in ops/conv.py (plan_conv3x3); this file only checks them.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace conv {
+
+using namespace hopper;
 
 constexpr int KC = 64;         // channels of one K step
 constexpr int ROW = KC * 2;    // bytes of one shared-memory row (128B swizzle)
@@ -62,229 +62,6 @@ constexpr int MAX_STAGES = 8;
 constexpr int ERR_NO_ENCODE = 1001;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = 1002;     // a tensor map was refused
 constexpr int ERR_PLAN = 1003;       // a plan this file has no kernel for
-
-// ---------------------------------------------------------------------------
-// PTX wrappers: mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the barrier's phase with parity `parity` has completed. A
-// wait that outlasts ~2 s of clock (a copy that never lands) traps, so a
-// fault shows as a launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 32)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
-                                             const void* src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128B-swizzled operand tile whose
-// base is 1024-byte aligned: lbo / sbo in bytes (wgmma's "leading" and
-// "stride" byte offsets).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator reads across a wgmma wait.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Named barrier over the consumer warpgroups (id 0 is __syncthreads).
-__device__ __forceinline__ void consumers_sync(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
-}
-
-// d[64 x BN] += A[64 x 16] . B[16 x BN] (bf16 in, fp32 sum), both from
-// shared memory; TRANS_B = 1 reads B MN-major.
-template <int BN>
-struct Mma;
-
-#define ACC8(i)                                                   \
-  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]),           \
-      "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]),       \
-      "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-
-template <>
-struct Mma<64> {
-  template <int TRANS_B>
-  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %34;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "l"(da), "l"(db), "n"(TRANS_B));
-  }
-};
-
-template <>
-struct Mma<128> {
-  template <int TRANS_B>
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %66;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
-        ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "l"(da), "l"(db), "n"(TRANS_B));
-  }
-};
-
-template <>
-struct Mma<160> {
-  template <int TRANS_B>
-  static __device__ __forceinline__ void run(float (&d)[80], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79"
-      "}, %80, %81, p, 1, 1, 0, %82;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
-        ACC8(32), ACC8(40), ACC8(48), ACC8(56),
-        ACC8(64), ACC8(72)
-      : "l"(da), "l"(db), "n"(TRANS_B));
-  }
-};
-
-template <>
-struct Mma<256> {
-  template <int TRANS_B>
-  static __device__ __forceinline__ void run(float (&d)[128], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %130;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
-        ACC8(32), ACC8(40), ACC8(48), ACC8(56),
-        ACC8(64), ACC8(72), ACC8(80), ACC8(88),
-        ACC8(96), ACC8(104), ACC8(112), ACC8(120)
-      : "l"(da), "l"(db), "n"(TRANS_B));
-  }
-};
-#undef ACC8
 
 // ---------------------------------------------------------------------------
 // The kernel
@@ -489,33 +266,6 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and launches
 // ---------------------------------------------------------------------------
-
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a libcuda entry, found through the runtime (the
-// library links no libcuda).
-EncodeFn encode_fn() {
-  static const EncodeFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeFn>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A bf16 tensor map over `rank` dims (innermost first) of a dense tensor.
 bool encode(CUtensorMap* map, const void* ptr, int rank,

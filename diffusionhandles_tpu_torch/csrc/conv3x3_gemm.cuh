@@ -15,9 +15,34 @@
 // into shared memory with the zero halo applied by the caller's value.
 #pragma once
 
-#include "flash_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace conv3 {
+
+// c += a . b, mma.sync m16n8k16 (bf16 in, fp32 sum), with g = lane / 4 and
+// t = lane % 4:
+//   a (16x16, row-major): a0 = (g, 2t..2t+1)    a1 = (g+8, 2t..2t+1)
+//                         a2 = (g, 2t+8..2t+9)  a3 = (g+8, 2t+8..2t+9)
+//   b (16x8, k x n):      b0 = (k 2t..2t+1, n g) b1 = (k 2t+8..2t+9, n g)
+//   c (16x8, fp32):       c0,c1 = (g, 2t..2t+1)  c2,c3 = (g+8, 2t..2t+1)
+// Each 32-bit register holds two bf16, the lower index in the low half.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 in one register, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
 
 constexpr int BM = 64;          // output pixels of a CTA
 constexpr int BN = 64;          // output channels of a CTA
@@ -96,7 +121,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[2][4][4],
       const float v1 =
           tp == 8 ? a_val(kc0 + kcl + 1, 0) : a_val(kc0 + kcl, tp + 1);
       *reinterpret_cast<uint32_t*>(as + px.am * LDK + k) =
-          flash::pack_f32(v0, v1);
+          pack_f32(v0, v1);
       k += 4;
       tp += 4;
       if (tp >= 9) {
@@ -147,7 +172,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[2][4][4],
         const uint32_t b1 = ld_pair(bs, n, kk * 16 + 2 * t + 8);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
-          flash::mma_bf16(acc[mt][nt], a[mt], b0, b1);
+          mma_bf16(acc[mt][nt], a[mt], b0, b1);
       }
     }
   }

@@ -36,7 +36,7 @@
 //
 // Grid: (ceil(H*W / 64) pixel tiles, ceil(N / 64) channel tiles, B).
 // Block: 4 warps, 2 x 2 over the 64 x 64 tile, 32 x 32 each; the GEMM
-// mainloop is conv3x3_gemm.cuh's, shared with the plain conv (conv.cu).
+// mainloop is conv3x3_gemm.cuh's (used by this file alone).
 #include "conv3x3_gemm.cuh"
 #include "gn_common.cuh"
 

@@ -2,8 +2,8 @@
 flash-attention kernels and the gates that pick between them.
 
 Layouts follow the JAX package's `ops/attention.py`:
-q is [B, Sq, H, D], k and v [B, Sk, H, D]; the kernels work on head-major
-[B*H, S, D] copies and the row log-sum-exp is [B*H, Sq] fp32.
+q is [B, Sq, H, D], k and v [B, Sk, H, D]; the row log-sum-exp is
+[B*H, Sq] fp32.
 
 The JAX package has three forward kernels and three backward kernels for
 one function, which differ only in where they round. Each has its plain
@@ -18,21 +18,28 @@ card:
 | K3 `_flash_bwd_dq/dkv_kernel` | `flash_bwd_twopass_ref` | `flash_bwd_twopass` |
 | K6 `_flash_bwd_fused_fold_kernel` | `flash_bwd_fold_ref` | `flash_bwd_fold` |
 
-The kernels are CUDA C++ for Hopper (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`),
-built at first use (`utils/cuda_build.py`): K1 and K4/K5 are two
-instantiations of one forward kernel (a bf16 or an fp32 row sum), and K2,
-K3 and K6 launch the same two backward kernels (K3 at head dim 64, where
-its extra rounding of dq is exact; K6 with delta formed from its bf16
-hi/lo pair). A wrapper runs the plain version only for tensors on the CPU;
-for a CUDA tensor it launches the kernel or raises.
+The kernels are CUDA C++ for Hopper (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`:
+TMA + wgmma), built at first use (`utils/cuda_build.py`). They read q, k, v,
+O and dO in the [B, S, H, D] layout where they lie and write O, dq, dk and
+dv in it, with the 1/sqrt(d) scale applied inside: one ctypes call per
+direction and no torch op around it. K1 and K4/K5 are instantiations of one
+forward kernel (a bf16 or an fp32 row sum) whose query tile and key step
+come from `plan_flash`; K2, K3 and K6 launch the same backward kernels (K3
+at head dim 64, where its extra rounding of dq is exact; K6 with delta
+formed from its bf16 hi/lo pair). A wrapper runs the plain version only for
+tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
+import dataclasses
+import functools
+import itertools
 import math
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,6 +54,9 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_unfolded": 0,
 
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 HEAD_DIM = 64  # the kernels' compiled head dim (flash_common.cuh: D)
+# Inputs the wrappers copied to a dense layout because TMA could not read
+# them in place (a strided head dim, or a base or stride off 16 bytes).
+LAYOUT_COPIES: Dict[str, int] = {"flash": 0}
 # The JAX package's switch of the backward kernel, read when the backward
 # runs: "twopass" (K3), "fold" (K6), anything else K2.
 BWD_ENV = "DIFFHANDLES_FLASH_BWD"
@@ -245,6 +255,64 @@ def flash_bwd_fold_ref(q, k, v, o, lse, do):
 
 
 # ---------------------------------------------------------------------------
+# The planner: the forward's query tile and key step, from the shape alone
+# ---------------------------------------------------------------------------
+
+SMS = 132                      # streaming multiprocessors of an H100 SXM
+# (consumer warpgroups, keys a step) of the forward kernels
+# csrc/flash_fwd.cu builds: a CTA owns 64 query rows per warpgroup (one
+# warpgroup: two CTAs share an SM). scripts/sweep_flash_tiles.py timed
+# (1, 64), (2, 64) and (2, 128) at the U-Net's four attention shapes and
+# CROSS_SHAPE of chip_smoke.py; (2, 128) was the fastest at every one
+# (PERF.md, Findings), so it is the one tile built.
+FWD_TILES = ((2, 128),)
+# Rows the backward's padded lse/delta rows round up to (flash_bwd.cu: PAD)
+BWD_PAD = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """One forward launch: `warpgroups` consumer warpgroups (64 query rows
+    each) a CTA, `block_n` keys a step, `grid` CTAs in `waves` waves over
+    the card's SMs. `note` says where the grid leaves SMs idle."""
+
+    warpgroups: int
+    block_n: int
+    grid: int
+    waves: int
+    note: str = ""
+
+    def launch_args(self) -> Tuple[int, int]:
+        return self.warpgroups, self.block_n
+
+
+def fixed_flash_plan(b: int, h: int, sq: int, warpgroups: int,
+                     block_n: int) -> FlashPlan:
+    """The forward plan with the given tile (tests use it to reach every
+    kernel instance)."""
+    grid = math.ceil(sq / (64 * warpgroups)) * h * b
+    per_wave = SMS * (2 if warpgroups == 1 else 1)
+    waves = math.ceil(grid / per_wave)
+    note = ""
+    if grid % per_wave:
+        note = (f"{grid} CTAs in {waves} wave(s) of {per_wave}: the last "
+                f"fills {grid % per_wave}")
+    return FlashPlan(warpgroups, block_n, grid, waves, note)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_flash(b: int, h: int, sq: int, sk: int) -> FlashPlan:
+    """The forward's tile at [B, Sq, H, 64] queries over Sk keys: of the
+    built tiles, the one whose CTAs' waves times query rows a CTA is least
+    (the time of its longest-running SM, keys alike for every tile), ties
+    to the larger tile and key step."""
+    del sk
+    return min((fixed_flash_plan(b, h, sq, nwg, bn) for nwg, bn in FWD_TILES),
+               key=lambda p: (p.waves * p.warpgroups, -p.warpgroups,
+                              -p.block_n))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -257,10 +325,9 @@ def kernel_library() -> ctypes.CDLL:
     if _LIB is None:
         lib = load_library("flash_attention", KERNEL_SOURCES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd_bf16.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.flash_fwd_bf16.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
         lib.flash_fwd_bf16.restype = i32
-        lib.flash_bwd_bf16.argtypes = ([ptr] * 9 + [i32] * 3
-                                       + [ctypes.c_float, ptr])
+        lib.flash_bwd_bf16.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
         lib.flash_bwd_bf16.restype = i32
         _LIB = lib
     return _LIB
@@ -280,48 +347,81 @@ def _check_cuda(q, *rest: torch.Tensor) -> None:
                              f"[{b}, S, {h}, {d}]")
 
 
-def _fwd_cuda(q, k, v, f32_sum: bool, name: str):
+def _tma_operand(x: torch.Tensor):
+    """(x, (sb, ss, sh)): a [B, S, H, 64] operand as the kernels read it in
+    place, with its strides in elements. TMA needs a unit-stride head dim
+    and the base and other strides in 16-byte units; an input without them
+    is copied dense once (counted in LAYOUT_COPIES). A size-1 dim's stride
+    is never stepped, so it gets the dense value."""
+    b, s, h, d = x.shape
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x, (s * h * d, h * d, d)
+    sb, ss, sh, sd = x.stride()
+    sh = sh if h > 1 else d
+    ss = ss if s > 1 else h * sh
+    sb = sb if b > 1 else s * ss
+    if (sd != 1 or x.data_ptr() % 16
+            or any(st <= 0 or st % 8 for st in (sb, ss, sh))):
+        LAYOUT_COPIES["flash"] += 1
+        return x.contiguous(), (s * h * d, h * d, d)
+    return x, (sb, ss, sh)
+
+
+def _strides_arg(strides) -> array.array:
+    """The operands' strides as the int64 array the entries read; the
+    caller keeps it alive across the call and passes its address."""
+    return array.array("q", itertools.chain.from_iterable(strides))
+
+
+def _fwd_launch(q, k, v, f32_sum: bool, name: str,
+                plan: Optional[FlashPlan] = None):
+    """Run the forward kernel with `plan` or the planner's (the CUDA tests
+    force plans through here to reach every kernel instance): (o
+    [B,Sq,H,D] bf16, dense, lse [B*H,Sq] fp32)."""
     _check_cuda(q, k, v)
     if k.shape[1] != v.shape[1]:
         raise ValueError(f"flash kernels: k and v lengths differ "
                          f"({k.shape[1]} != {v.shape[1]})")
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     sk = k.shape[1]
+    plan = plan or plan_flash(b, h, sq, sk)
     lib = kernel_library()
-    qt = _heads_first(_prescale(q)).contiguous()
-    kt = _heads_first(k).contiguous()
-    vt = _heads_first(v).contiguous()
-    o = torch.empty_like(qt)
+    (q, sq_), (k, sk_), (v, sv_) = (_tma_operand(x) for x in (q, k, v))
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    strides = _strides_arg((sq_, sk_, sv_))
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd_bf16(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(), b * h, sq, sk,
-                                 int(f32_sum), stream_of(q))
+        err = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 o.data_ptr(), lse.data_ptr(),
+                                 strides.buffer_info()[0], b, sq, sk, h,
+                                 *plan.launch_args(), int(f32_sum),
+                                 stream_of(q))
     raise_on(err, name)
     LAUNCHES[name] += 1
-    return _heads_last(o, b, h), lse
+    return o, lse
 
 
 def flash_fwd_cuda(q, k, v):
     """K1 on the card: (o [B,Sq,H,D] bf16, lse [B*H,Sq] fp32)."""
-    return _fwd_cuda(q, k, v, False, "flash_fwd")
+    return _fwd_launch(q, k, v, False, "flash_fwd")
 
 
 def flash_fwd_unfolded_cuda(q, k, v):
     """K5 on the card: the forward kernel with the fp32 row sum."""
-    return _fwd_cuda(q, k, v, True, "flash_fwd_unfolded")
+    return _fwd_launch(q, k, v, True, "flash_fwd_unfolded")
 
 
 def flash_fwd_stream_cuda(q, k, v):
     """K4 on the card: the same fp32-row-sum kernel, which streams K/V in
-    64-key tiles whatever K4's block_k (block_k only moves where the plain
-    version rounds p)."""
-    return _fwd_cuda(q, k, v, True, "flash_fwd_stream")
+    tiles of the plan's keys whatever K4's block_k (block_k only moves
+    where the plain version rounds p)."""
+    return _fwd_launch(q, k, v, True, "flash_fwd_stream")
 
 
 def _bwd_cuda(q, k, v, o, lse, do, name: str, fold_delta: bool = False):
-    """Launch the backward kernels. delta = rowsum(dO * O) in fp32 or, with
-    `fold_delta`, -(d_hi + d_lo) of K6's bf16 hi/lo pair."""
+    """Launch the backward kernels (one call: the delta prologue, dk/dv and
+    dq). delta = rowsum(dO * O) in fp32 or, with `fold_delta`,
+    -(d_hi + d_lo) of K6's bf16 hi/lo pair."""
     _check_cuda(q, k, v, o, do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -334,27 +434,26 @@ def _bwd_cuda(q, k, v, o, lse, do, name: str, fold_delta: bool = False):
         raise ValueError(f"lse must be fp32 [{b * h}, {sq}], got "
                          f"{lse.dtype} {tuple(lse.shape)}")
     lib = kernel_library()
-    qt = _heads_first(_prescale(q)).contiguous()
-    kt = _heads_first(k).contiguous()
-    vt = _heads_first(v).contiguous()
-    dot = _heads_first(do).contiguous()
-    delta = _delta(_heads_first(o), dot)
-    if fold_delta:
-        d_hi, d_lo = _delta_hi_lo(delta, do.dtype)
-        delta = -(d_hi.float() + d_lo.float())
-    delta = delta.reshape(b * h, sq).contiguous()
+    operands = [_tma_operand(x) for x in (q, k, v, o, do)]
+    (q, _), (k, _), (v, _), (o, _), (do, _) = operands
     lse = lse.contiguous()
-    dq = torch.empty_like(qt)
-    dk, dv = torch.empty_like(kt), torch.empty_like(kt)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    sqp = math.ceil(sq / BWD_PAD) * BWD_PAD
+    scratch = torch.empty((2 * b * h * sqp,), dtype=torch.float32,
+                          device=q.device)
+    strides = _strides_arg([st for _, st in operands])
     with torch.cuda.device(q.device):
-        err = lib.flash_bwd_bf16(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-                                 dot.data_ptr(), lse.data_ptr(),
-                                 delta.data_ptr(), dq.data_ptr(),
-                                 dk.data_ptr(), dv.data_ptr(), b * h, sq, sk,
-                                 1.0 / math.sqrt(d), stream_of(q))
+        err = lib.flash_bwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                 scratch.data_ptr(),
+                                 strides.buffer_info()[0],
+                                 b, sq, sk, h, int(fold_delta), stream_of(q))
     raise_on(err, name)
     LAUNCHES[name] += 1
-    return _heads_last(dq, b, h), _heads_last(dk, b, h), _heads_last(dv, b, h)
+    return dq, dk, dv
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do):
@@ -468,7 +567,7 @@ class FlashAttention(torch.autograd.Function):
         mode = os.environ.get(BWD_ENV)
         bwd = {"twopass": flash_bwd_twopass,
                "fold": flash_bwd_fold}.get(mode, flash_bwd)
-        return bwd(q, k, v, o, lse, do.contiguous())
+        return bwd(q, k, v, o, lse, do)
 
 
 def flash_attention_diff(q, k, v):

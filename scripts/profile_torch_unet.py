@@ -7,11 +7,13 @@ seeded random weights (median of repeats, synchronized): the batch-1
 forward (DDIM inversion, the null-text conditional pass), the batch-1
 forward + backward to the latents (guidance; null-text differentiates to
 the embedding instead), and the batch-2 CFG forward. Then one batch-1
-forward + backward under torch.profiler: device time by kernel, the flash
-kernels' and the conv kernel's (K7) share, the copy kernels (PyTorch's
-copies, which layout changes and dtype casts both run, and cuDNN's NCHW <->
-NHWC transposes), and the device's busy share of the wall time (profiled,
-and against the unprofiled call). With --fused, the U-Net with the fused
+forward + backward under torch.profiler: device time by kernel, the count
+of device ops (kernels and copies) in the call, the flash kernels' device
+ms (each kernel, and their sum) and the conv kernel's (K7), the copy
+kernels (PyTorch's copies, which layout changes and dtype casts both run,
+and cuDNN's NCHW <-> NHWC transposes) and their share of the device time,
+and the device's busy share of the wall time (profiled, and against the
+unprofiled call). With --fused, the U-Net with the fused
 GroupNorm kernels (UNetConfig.fused_gn_conv, fused_gn; same weights), and
 with --conv, the U-Net with the conv kernel (UNetConfig.conv3x3_kernel;
 same weights), are timed in turns with the default one and profiled after
@@ -92,7 +94,7 @@ def _profile(fwd_bwd, call_ms: float, label: str) -> None:
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
-    flash_us = sum(r[0] for r in rows if "flash" in r[1])
+    flash = [r for r in rows if "flash" in r[1]]
     # K7: conv.cu's kernels (K9's are gnconv::conv3x3_kernel)
     conv_us = sum(r[0] for r in rows
                   if re.search(r"\bconv::(conv3x3|splitk_sum)_kernel", r[1]))
@@ -100,18 +102,22 @@ def _profile(fwd_bwd, call_ms: float, label: str) -> None:
     # cuDNN's own NCHW <-> NHWC transposes
     layout = [r for r in rows if any(k in r[1].lower() for k in (
         "copy_kernel", "nchwtonhwc", "nhwctonchw"))]
+    layout_us = sum(r[0] for r in layout)
     print(json.dumps({
         label: {
             "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
+            "device_ops": sum(r[2] for r in rows),
             "device_busy_share": total_us / 1e3 / (wall * 1e3),
             # the profiler slows the host; against the unprofiled call:
             "device_busy_share_unprofiled": total_us / 1e3 / call_ms,
-            "flash_kernels_ms": flash_us / 1e3,
+            "flash_kernels_ms": sum(r[0] for r in flash) / 1e3,
+            "flash_kernels": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
+                              for us, k, n in flash],
             "conv3x3_kernels_ms": conv_us / 1e3,
-            "layout_copies_ms": sum(r[0] for r in layout) / 1e3,
+            "layout_copies_ms": layout_us / 1e3,
+            "layout_copies_share": layout_us / total_us,
             "layout_copies": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                               for us, k, n in layout],
-            "kernel_launches": sum(r[2] for r in rows),
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for us, k, n in rows[:15]]}}))
 

@@ -225,6 +225,178 @@ def test_cuda_kernels_refuse_other_inputs(cuda):
         tatt.flash_fwd(q, q, q)
 
 
+# The forward planner and the layout the kernels read (CPU: shapes only).
+# (B, Sq, Sk, H) of the U-Net's four self-attention shapes and chip_smoke.py's
+# CROSS_SHAPE, with the grid of 128-row query tiles each gives
+FLASH_PLAN_GRIDS = [((1, 4096, 4096, 5), 160), ((2, 4096, 4096, 5), 320),
+                    ((1, 1024, 1024, 10), 80), ((2, 1024, 1024, 10), 160),
+                    ((2, 1000, 4096, 5), 80)]
+
+
+@pytest.mark.parametrize("shape,grid", FLASH_PLAN_GRIDS)
+def test_flash_plan_grid_covers_the_queries(shape, grid):
+    """The planner's grid at each shape: query tiles of 64 rows per
+    warpgroup times heads times batch, covering every query row once (the
+    last tile ragged), its tile one csrc/flash_fwd.cu builds; a grid that
+    leaves SMs idle in its last wave says so."""
+    b, sq, sk, h = shape
+    plan = tatt.plan_flash(b, h, sq, sk)
+    assert (plan.warpgroups, plan.block_n) in tatt.FWD_TILES
+    rows = 64 * plan.warpgroups
+    tiles = plan.grid // (b * h)
+    assert plan.grid == grid == tiles * b * h
+    assert (tiles - 1) * rows < sq <= tiles * rows
+    assert plan.waves == math.ceil(grid / tatt.SMS)
+    assert bool(plan.note) == (grid % tatt.SMS != 0)
+
+
+def test_flash_tiles_are_the_planners_picks():
+    """Every tile csrc/flash_fwd.cu instantiates is the planner's pick at
+    some U-Net shape or CROSS_SHAPE, and the file has each one; the
+    backward's padded rows match flash_bwd.cu's."""
+    picked = {tatt.plan_flash(b, h, sq, sk).launch_args()
+              for (b, sq, sk, h), _ in FLASH_PLAN_GRIDS}
+    assert picked == set(tatt.FWD_TILES)
+    csrc = pathlib.Path(tatt.__file__).parents[1] / "csrc"
+    cases = {(int(a), int(b)) for a, b in re.findall(
+        r"FWD_CASE\((\d+), (\d+)\)", (csrc / "flash_fwd.cu").read_text())}
+    assert cases == set(tatt.FWD_TILES)
+    pad = re.search(r"constexpr int PAD = (\d+);",
+                    (csrc / "flash_bwd.cu").read_text())
+    assert int(pad.group(1)) == tatt.BWD_PAD
+
+
+def test_flash_operands_are_read_in_place():
+    """Slices of one [B, S, 3, H, D] tensor and the U-Net's projection views
+    go to the kernels as they lie, with their strides; a size-1 dim gets the
+    dense stride; a strided head dim, or a stride off 16 bytes, is copied
+    dense once and counted."""
+    qkv = torch.zeros((2, 10, 3, 4, 64), dtype=torch.bfloat16)
+    before = tatt.LAYOUT_COPIES["flash"]
+    x, strides = tatt._tma_operand(qkv[:, :, 1])
+    assert x.data_ptr() == qkv[:, :, 1].data_ptr()
+    assert strides == (10 * 3 * 4 * 64, 3 * 4 * 64, 64)
+    proj = torch.zeros((1, 10, 256), dtype=torch.bfloat16).view(1, 10, 4, 64)
+    assert tatt._tma_operand(proj)[1] == (10 * 256, 256, 64)
+    one = torch.zeros((1, 10, 1, 64), dtype=torch.bfloat16)
+    assert tatt._tma_operand(one)[1] == (640, 64, 64)
+    assert tatt.LAYOUT_COPIES["flash"] == before
+    wide = torch.zeros((1, 10, 4, 128), dtype=torch.bfloat16)
+    x, strides = tatt._tma_operand(wide[..., ::2])
+    assert x.is_contiguous() and strides == (10 * 4 * 64, 4 * 64, 64)
+    odd = torch.zeros((1, 10, 4, 68), dtype=torch.bfloat16)[..., :64]
+    x, strides = tatt._tma_operand(odd)
+    assert x.is_contiguous() and strides == (10 * 4 * 64, 4 * 64, 64)
+    assert tatt.LAYOUT_COPIES["flash"] == before + 2
+
+
+def test_smoke_flash_sites_are_the_unets():
+    """chip_smoke.py sums the attention kernels over FLASH_SITES: those are
+    the SD-2-depth U-Net's self-attention layers that take the kernels at
+    64x64 latents (flash_attention on, as the pipeline's config has it), by
+    (tokens, heads, head dim)."""
+    import collections
+
+    import chip_smoke
+    from diffusionhandles_tpu_torch.models import unet as tunet
+    with torch.device("meta"):
+        net = tunet.UNet2DConditionModel(tunet.UNetConfig(
+            flash_attention=True))
+    side = {"down_blocks": lambda i: 64 >> i, "mid_block": lambda i: 8,
+            "up_blocks": lambda i: 8 << i}
+    sites = collections.Counter()
+    for name, mod in net.named_modules():
+        if isinstance(mod, tunet.Attention) and name.endswith("attn1"):
+            parts = name.split(".")
+            tokens = side[parts[0]](int(parts[1]) if parts[1].isdigit()
+                                    else 0) ** 2
+            if mod.use_flash and tatt.flash_ok(tokens, tokens, mod.head_dim):
+                sites[(tokens, mod.heads, mod.head_dim)] += 1
+    assert sites == chip_smoke.FLASH_SITES
+    assert sum(sites.values()) == 10
+
+
+def _strided_qkv(b, s, h, device, seed):
+    """q, k, v as slices of one [B, S, 3, H, 64] tensor."""
+    qkv = _rand((b, s, 3, h, 64), seed, 1.5, device, torch.bfloat16)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h", [(1, 1024, 2), (2, 520, 3)])
+def test_cuda_strided_qkv_are_read_in_place(cuda, b, s, h):
+    """Every route on q, k, v sliced from one [B, S, 3, H, 64] tensor is
+    held to its plain version, with no layout copy."""
+    q, k, v = _strided_qkv(b, s, h, cuda, 0)
+    do = _rand((b, s, h, 64), 1, 1.0, cuda, torch.bfloat16)
+    before = tatt.LAYOUT_COPIES["flash"]
+    for route, plain, lse_tol in (
+            (tatt.flash_fwd, tatt.flash_fwd_ref, 2.0 ** -8),
+            (tatt.flash_fwd_unfolded, tatt.flash_fwd_unfolded_ref,
+             2.0 ** -12)):
+        (o, lse), (o_ref, lse_ref) = route(q, k, v), plain(q, k, v)
+        _assert_within(o, o_ref, 2.0 ** -7, route.__name__)
+        assert (lse - lse_ref).abs().max() <= lse_tol
+    o, lse = tatt.flash_fwd_ref(q, k, v)
+    for route, plain in ((tatt.flash_bwd, tatt.flash_bwd_ref),
+                         (tatt.flash_bwd_fold, tatt.flash_bwd_fold_ref)):
+        for g, w, name in zip(route(q, k, v, o, lse, do),
+                              plain(q, k, v, o, lse, do), "qkv"):
+            _assert_within(g, w, 2.0 ** -6, f"{route.__name__} d{name}")
+    assert tatt.LAYOUT_COPIES["flash"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(1024, 1024), (1000, 1500)])
+def test_cuda_backward_is_bitwise_repeatable(cuda, sq, sk):
+    """No atomics and a fixed summation order: two backward calls on the
+    same inputs give the same bits, on every route."""
+    q = _rand((2, sq, 2, 64), 0, 1.5, cuda, torch.bfloat16)
+    k, v = (_rand((2, sk, 2, 64), i, 1.5, cuda, torch.bfloat16)
+            for i in (1, 2))
+    do = _rand((2, sq, 2, 64), 3, 1.0, cuda, torch.bfloat16)
+    o, lse = tatt.flash_fwd(q, k, v)
+    for route in (tatt.flash_bwd, tatt.flash_bwd_twopass,
+                  tatt.flash_bwd_fold):
+        first, second = route(q, k, v, o, lse, do), route(q, k, v, o, lse, do)
+        assert all(torch.equal(a, z) for a, z in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_strided_head_dim_is_copied_once(cuda):
+    """A q whose head dim is not unit-stride gets one dense copy (counted),
+    and then the result of the dense input, bit for bit."""
+    wide = _rand((1, 1024, 2, 128), 0, 1.5, cuda, torch.bfloat16)
+    k, v = (_rand((1, 1024, 2, 64), i, 1.0, cuda, torch.bfloat16)
+            for i in (1, 2))
+    q = wide[..., ::2]
+    before = tatt.LAYOUT_COPIES["flash"]
+    o, lse = tatt.flash_fwd(q, k, v)
+    assert tatt.LAYOUT_COPIES["flash"] == before + 1
+    o_dense, lse_dense = tatt.flash_fwd(q.contiguous(), k, v)
+    assert torch.equal(o, o_dense) and torch.equal(lse, lse_dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32_sum", [False, True])
+@pytest.mark.parametrize("warpgroups,block_n", tatt.FWD_TILES)
+def test_cuda_every_forward_instance_matches_plain(cuda, warpgroups, block_n,
+                                                   f32_sum):
+    """Each forward kernel instance, forced through a fixed plan, against
+    the plain version of its row sum (K1's bf16, K5's fp32), at a ragged
+    query and key length."""
+    q = _rand((2, 1000, 3, 64), 0, 1.5, cuda, torch.bfloat16)
+    k, v = (_rand((2, 1500, 3, 64), i, 1.5, cuda, torch.bfloat16)
+            for i in (1, 2))
+    plan = tatt.fixed_flash_plan(2, 3, 1000, warpgroups, block_n)
+    o, lse = tatt._fwd_launch(q, k, v, f32_sum, "flash_fwd", plan)
+    plain = tatt.flash_fwd_unfolded_ref if f32_sum else tatt.flash_fwd_ref
+    o_ref, lse_ref = plain(q, k, v)
+    _assert_within(o, o_ref, 2.0 ** -7, "o")
+    assert (lse - lse_ref).abs().max() <= (2.0 ** -12 if f32_sum
+                                           else 2.0 ** -8)
+
+
 # ---------------------------------------------------------------------------
 # K8 and K9. Tolerance of a kernel against its plain version, bf16: both
 # round the same fp32 recipe once to bf16, with sums in another order and
