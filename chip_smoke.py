@@ -18,7 +18,9 @@ Phases, each reported on its own line:
      self-attention sites (flash_per_unet); for the conv kernel (K7) also
      each site's plan, its and cuDNN's back-to-back host-clock times per
      call, those times summed over the 47 convs of one U-Net forward, and a
-     check at two ragged shapes;
+     check at two ragged shapes; for the GroupNorm kernels (K8, K9) also
+     back-to-back times beside F.group_norm's and the unfused default
+     path's, and K9's plans;
   4. edit: one 512x512 DiffusionHandles(variant="sd2") edit through the four
      public steps with the default U-Net (seeded random weights),
      EDIT_TIMESTEPS timesteps, with per-step seconds, the kernels' launch
@@ -41,7 +43,25 @@ Phases, each reported on its own line:
      upsampler convs take the conv kernel (UNetConfig.conv3x3_kernel), on
      the same seeded weights: K7 launches once per eligible conv per U-Net
      call;
- 11. unet_conv_reference: that U-Net against a default one, as in 9.
+ 11. unet_conv_reference: that U-Net against a default one, as in 9;
+ 12. fp32_routes: the default U-Net of GuidedDiffuserConfig(dtype=
+     "float32") (flash on), then the fused and conv U-Nets on its weights,
+     one 512x512 forward and backward to the latents each (the default one
+     also with DIFFHANDLES_FLASH_BWD "twopass" and "fold"), then the
+     three U-Nets in fp16, one forward each: no call raises; in fp32 every
+     kernel op on the path runs its general route on the card, counted
+     (`<kernel>_general`: the general kernels, csrc/flash_general.cu and
+     conv_general.cu, and the fp32 instances of gn.cu and gn_conv.cu), and
+     no Hopper kernel launches; in fp16 the flash, conv and fused kernels
+     run their fp16 instances and K8 its general one; eps and the gradient
+     agree with the fp32 default U-Net's.
+The bf16 paths (4, 6, 7, 8, 10) must run no general route; the fused edit
+holds K9's and K8's launches to their sites per U-Net call, as the conv
+edit holds K7's. The kernels phase also checks the Hopper kernels' fp16
+instances and every general route against its plain version (fp32, timed,
+at a U-Net site; fp16; bf16 at a head dim or channel count the Hopper
+kernels are not built for), and the forward entries (7) run once more in
+fp32, on the general kernels.
 Each edit runs with only its own models on the card, so that its peak
 memory is its own. Each path's launch counts are set to 0 just before it
 and read just after.
@@ -166,6 +186,20 @@ KERNELS = {
     "conv3x3_dx": ("diffusionhandles_tpu_torch/csrc/conv.cu",
                    "diffusionhandles_tpu/ops/conv.py:35"),
 }
+# The general route of each kernel (`<name>_general`): fp32, fp16 and the
+# shapes the Hopper kernels are not built for, through the general kernels
+GENERAL_SOURCES = {
+    "flash_fwd": "flash_general.cu", "flash_fwd_unfolded": "flash_general.cu",
+    "flash_fwd_stream": "flash_general.cu", "flash_bwd": "flash_general.cu",
+    "flash_bwd_twopass": "flash_general.cu",
+    "flash_bwd_fold": "flash_general.cu", "conv3x3_fwd": "conv_general.cu",
+    "conv3x3_dx": "conv_general.cu", "gn_silu_fwd": "gn.cu",
+    "gn_silu_bwd": "gn.cu", "gn_silu_conv3x3_fwd": "gn_conv.cu",
+    "gn_silu_conv3x3_dx": "gn_conv.cu"}
+KERNELS.update({
+    f"{name}_general": (f"diffusionhandles_tpu_torch/csrc/{src}",
+                        KERNELS[name][1])
+    for name, src in GENERAL_SOURCES.items()})
 BWD_MODES = {None: "flash_bwd", "twopass": "flash_bwd_twopass",
              "fold": "flash_bwd_fold"}
 
@@ -518,6 +552,10 @@ def _flash_per_unet(per_site):
 
 
 def _kernels_gn(res, rand):
+    """K8 forward and backward against their plain versions at every
+    GroupNorm site; device and back-to-back times of the kernel, of
+    F.group_norm (its one-call library where there is no SiLU) and of the
+    default path's composition (fp32 GroupNorm, SiLU, cast)."""
     import torch
     import torch.nn.functional as F
     gn = _kernel_modules()[1]
@@ -540,50 +578,75 @@ def _kernels_gn(res, rand):
             torch.cuda.synchronize()
             errs, tols = zip(_rel_err(y, y_ref, GN_RTOL),
                              _rel_err(rsig, rsig_ref, GN_RTOL))
-            ms = _device_ms(lambda: gn.gn_silu_fwd_cuda(x, g, beta, 32, eps,
-                                                        act, bf16))
-            plain_ms = _device_ms(lambda: gn.gn_silu_fwd_ref(
-                x, g, beta, 32, eps, act, bf16))
+
+            def kernel_fwd():
+                return gn.gn_silu_fwd_cuda(x, g, beta, 32, eps, act, bf16)
+
+            def default_fwd():
+                return F.silu(F.group_norm(x.float(), 32, g, beta,
+                                           eps)).to(bf16)
+
             gb, bb = g.to(bf16), beta.to(bf16)
             # one PyTorch call computes the same function where there is
             # no SiLU: F.group_norm (its CUDA kernel reduces in fp32)
-            lib_ms = (None if act else _device_ms(
-                lambda: F.group_norm(x, 32, gb, bb, eps)))
-            default_ms = _device_ms(lambda: F.silu(F.group_norm(
-                x.float(), 32, g, beta, eps)).to(bf16))
+            lib_fwd = (None if act else
+                       lambda: F.group_norm(x, 32, gb, bb, eps))
+            ms = _device_ms(kernel_fwd)
+            plain_ms = _device_ms(lambda: gn.gn_silu_fwd_ref(
+                x, g, beta, 32, eps, act, bf16))
+            lib_ms = None if lib_fwd is None else _device_ms(lib_fwd)
             # read x, write y; ~9 fp32 operations an element
             bound = _bound(9.0 * n, 4 * n + 8 * c, PEAK_FP32)
             _check("gn_silu_fwd", shape + (act,), list(errs), list(tols),
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   default_ms=default_ms, bound_ms=bound[0])
+                   default_ms=_device_ms(default_fwd), bound_ms=bound[0],
+                   wall_ms=_wall_ms(kernel_fwd),
+                   library_wall_ms=(None if lib_fwd is None
+                                    else _wall_ms(lib_fwd)),
+                   default_wall_ms=_wall_ms(default_fwd))
             res.add("gn_silu_fwd", max(errs), ms, plain_ms, bound, lib_ms)
 
             errs, tols = zip(*(_rel_err(g_, w_, GN_RTOL)
                                for g_, w_ in zip(got, want)))
-            ms = _device_ms(lambda: gn.gn_silu_bwd_cuda(
-                x, dy, g, beta, mean_ref, rsig_ref, 32, act))
+
+            def kernel_bwd():
+                return gn.gn_silu_bwd_cuda(x, dy, g, beta, mean_ref,
+                                           rsig_ref, 32, act)
+
+            ms = _device_ms(kernel_bwd)
             plain_ms = _device_ms(lambda: gn.gn_silu_bwd_ref(
                 x, dy, g, beta, mean_ref, rsig_ref, 32, act))
-            lib_ms = None
+            lib_bwd = None
             if not act:
                 _, m_, r_ = torch.ops.aten.native_group_norm(
                     x, gb, bb, b, c, side * side, 32, eps)
-                lib_ms = _device_ms(
-                    lambda: torch.ops.aten.native_group_norm_backward(
+
+                def lib_bwd():
+                    return torch.ops.aten.native_group_norm_backward(
                         dy, x, m_, r_, gb, b, c, side * side, 32,
-                        [True, True, True]))
+                        [True, True, True])
+            lib_ms = None if lib_bwd is None else _device_ms(lib_bwd)
             # read x and dy, write dx; ~17 fp32 operations an element
             bound = _bound(17.0 * n, 6 * n + 8 * c, PEAK_FP32)
             _check("gn_silu_bwd", shape + (act,), list(errs), list(tols),
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound[0])
+                   bound_ms=bound[0], wall_ms=_wall_ms(kernel_bwd),
+                   library_wall_ms=(None if lib_bwd is None
+                                    else _wall_ms(lib_bwd)))
             res.add("gn_silu_bwd", max(errs), ms, plain_ms, bound, lib_ms)
 
 
 def _kernels_gn_conv(res, rand):
+    """K9 forward and dx against their plain versions at the fused U-Net's
+    eight shapes, B 1 and 2, on channels-last x, w and dy (the fused U-Net
+    holds its weights channels-last), with each direction's plan; device
+    and back-to-back times of the kernels and of the default path's
+    unfused composition on NCHW tensors (fp32 GroupNorm, SiLU, a cast, a
+    cuDNN bf16 conv; for dx its autograd backward to x): default_ms,
+    default_wall_ms. No one PyTorch call computes the fused function."""
     import torch
     import torch.nn.functional as F
-    gc = _kernel_modules()[2]
+    gc, conv = _kernel_modules()[2:]
     bf16 = torch.bfloat16
     for side, ci, co in CONV_SHAPES:
         for b in BATCHES:
@@ -591,14 +654,15 @@ def _kernels_gn_conv(res, rand):
             x = rand(shape, 1.5, 0.5)
             w = rand((co, ci, 3, 3), (9 * ci) ** -0.5)
             dy = rand((b, co, side, side))
+            xl, wl, dyl = (conv.to_kernel_layout(t) for t in (x, w, dy))
             g = 1.0 + 0.1 * rand((ci,), dtype=torch.float32)
             beta = 0.1 * rand((ci,), dtype=torch.float32)
-            y, mean, rsig = gc.gn_silu_conv3x3_fwd_cuda(x, g, beta, w, 32,
+            y, mean, rsig = gc.gn_silu_conv3x3_fwd_cuda(xl, g, beta, wl, 32,
                                                         1e-5)
             y_ref, mean_ref, rsig_ref = gc.gn_silu_conv3x3_fwd_ref(
                 x, g, beta, w, 32, 1e-5)
-            dx = gc.gn_silu_conv3x3_dx_cuda(x, g, beta, w, mean_ref, rsig_ref,
-                                            dy, 32)
+            dx = gc.gn_silu_conv3x3_dx_cuda(xl, g, beta, wl, mean_ref,
+                                            rsig_ref, dyl, 32)
             dx_ref = gc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean_ref,
                                                rsig_ref, dy, 32)
             torch.cuda.synchronize()
@@ -617,22 +681,34 @@ def _kernels_gn_conv(res, rand):
                 out = F.conv2d(z.to(bf16), w, padding=1)
                 torch.autograd.grad(out, xg, dy)
 
+            def kernel_fwd():
+                return gc.gn_silu_conv3x3_fwd_cuda(xl, g, beta, wl, 32, 1e-5)
+
+            def kernel_dx():
+                return gc.gn_silu_conv3x3_dx_cuda(xl, g, beta, wl, mean_ref,
+                                                  rsig_ref, dyl, 32)
+
+            plans = {"fwd": conv.plan_conv3x3(b, side, side, ci, co),
+                     "dx": conv.plan_conv3x3(b, side, side, co, ci,
+                                             f32_out=True)}
             errs, tols = zip(_rel_err(y, y_ref, GN_RTOL),
                              _rel_err(rsig, rsig_ref, GN_RTOL))
-            ms = _device_ms(lambda: gc.gn_silu_conv3x3_fwd_cuda(
-                x, g, beta, w, 32, 1e-5))
+            ms = _device_ms(kernel_fwd)
             plain_ms = _device_ms(lambda: gc.gn_silu_conv3x3_fwd_ref(
                 x, g, beta, w, 32, 1e-5))
             bound = _bound(flops, act_bytes + w_bytes, PEAK_BF16)
             _check("gn_silu_conv3x3_fwd", shape + (co,), list(errs),
                    list(tols), ms=ms, plain_ms=plain_ms,
                    default_ms=_device_ms(default_fwd), bound_ms=bound[0],
-                   bound_by=bound[1])
+                   bound_by=bound[1], wall_ms=_wall_ms(kernel_fwd),
+                   default_wall_ms=_wall_ms(default_fwd),
+                   plan=_plan_fields(plans["fwd"]))
             res.add("gn_silu_conv3x3_fwd", max(errs), ms, plain_ms, bound)
 
             err, tol = _rel_err(dx, dx_ref, GN_RTOL)
-            ms = _device_ms(lambda: gc.gn_silu_conv3x3_dx_cuda(
-                x, g, beta, w, mean_ref, rsig_ref, dy, 32))
+            again = kernel_dx()
+            repeatable = torch.equal(dx, again)
+            ms = _device_ms(kernel_dx)
             plain_ms = _device_ms(lambda: gc.gn_silu_conv3x3_dx_ref(
                 x, g, beta, w, mean_ref, rsig_ref, dy, 32))
             # read x, dy and w, write dx
@@ -640,7 +716,14 @@ def _kernels_gn_conv(res, rand):
                            + w_bytes, PEAK_BF16)
             _check("gn_silu_conv3x3_dx", shape + (co,), [err], [tol], ms=ms,
                    plain_ms=plain_ms, default_ms=_device_ms(default_dx),
-                   bound_ms=bound[0], bound_by=bound[1])
+                   bound_ms=bound[0], bound_by=bound[1],
+                   wall_ms=_wall_ms(kernel_dx),
+                   default_wall_ms=_wall_ms(default_dx),
+                   plan=_plan_fields(plans["dx"]),
+                   bitwise_repeatable=repeatable)
+            if not repeatable:
+                raise AssertionError("gn_silu_conv3x3_dx gave other bits on "
+                                     f"a second call at {shape + (co,)}")
             res.add("gn_silu_conv3x3_dx", err, ms, plain_ms, bound)
 
 
@@ -751,6 +834,261 @@ def _kernels_conv(res, rand):
                                         / acc["library_wall_ms"]))
 
 
+# Shapes of the general routes' checks: (dtype, shape) with the first,
+# fp32 at a U-Net site at B=1, also timed; the others (fp16, and bf16 at a
+# head dim or channel count the Hopper kernels are not built for) checked
+GENERAL_FLASH = [("float32", (1, 4096, 4096, 5, 64)),
+                 ("float16", (2, 1024, 1024, 10, 64)),
+                 ("bfloat16", (1, 1000, 1500, 8, 40))]
+# (dtype, (B, side, Ci, Co, groups))
+GENERAL_CONV = [("float32", (1, 64, 320, 320, 32)),
+                ("float16", (2, 32, 640, 640, 32)),
+                ("bfloat16", (2, 12, 100, 36, 4))]
+
+
+def _kernels_general_flash(res, rand):
+    """The general flash kernels (every forward and backward variant)
+    against their plain versions on the same card tensors; SDPA (forward,
+    and forward + backward) in the same dtype is the library call."""
+    import torch
+    import torch.nn.functional as F
+    att = _kernel_modules()[0]
+    fwd = [("flash_fwd", att.flash_fwd_ref, FWD_LSE_ATOL),
+           ("flash_fwd_unfolded", att.flash_fwd_unfolded_ref,
+            FWD_F32_LSE_ATOL),
+           ("flash_fwd_stream",
+            lambda q, k, v: att.flash_fwd_stream_ref(q, k, v, STREAM_BLOCK_K),
+            FWD_F32_LSE_ATOL)]
+    bwd = [("flash_bwd", att.flash_bwd_ref),
+           ("flash_bwd_twopass", att.flash_bwd_twopass_ref),
+           ("flash_bwd_fold", att.flash_bwd_fold_ref)]
+    for i, (dt, (b, sq, sk, h, d)) in enumerate(GENERAL_FLASH):
+        dtype = getattr(torch, dt)
+        timed = i == 0
+        q, k, v = (rand(sh, dtype=dtype) for sh in
+                   ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d)))
+        do = rand((b, sq, h, d), dtype=dtype)
+        es = torch.finfo(dtype).bits // 8
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        shape = (dt, b, sq, sk, h, d)
+        lib_ms = (_device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt)) if timed else None)
+        bound = _bound(4.0 * b * h * sq * sk * d,
+                       (2 * sq + 2 * sk) * b * h * d * es + b * h * sq * 4,
+                       PEAK_FP32)
+        for name, plain, lse_tol in fwd:
+            kernel = getattr(att, f"{name}_general")
+            o, lse = kernel(q, k, v)
+            o_ref, lse_ref = plain(q, k, v)
+            err_o, tol_o = _rel_err(o, o_ref, FWD_O_RTOL)
+            err_l = (lse - lse_ref).abs().max().item()
+            fields = {}
+            if timed:
+                fields = dict(ms=_device_ms(lambda: kernel(q, k, v)),
+                              plain_ms=_device_ms(lambda: plain(q, k, v)),
+                              library_ms=lib_ms, bound_ms=bound[0])
+            _check(f"{name}_general", shape, [err_o, err_l],
+                   [tol_o, lse_tol], **fields)
+            _add_general(res, f"{name}_general", max(err_o, err_l), fields,
+                         bound)
+        o, lse = att.flash_fwd_ref(q, k, v)
+        lib_ms = None
+        if timed:
+            qg, kg, vg = (x.detach().requires_grad_(True)
+                          for x in (qt, kt, vt))
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qg, kg, vg)
+                torch.autograd.grad(out, (qg, kg, vg), do.transpose(1, 2))
+
+            lib_ms = _device_ms(sdpa_fwd_bwd)
+        bound = _bound(10.0 * b * h * sq * sk * d,
+                       (4 * sq + 4 * sk) * b * h * d * es + b * h * sq * 4,
+                       PEAK_FP32)
+        for name, plain in bwd:
+            kernel = getattr(att, f"{name}_general")
+            got = kernel(q, k, v, o, lse, do)
+            want = plain(q, k, v, o, lse, do)
+            errs, tols = zip(*(_rel_err(g_, w_, BWD_RTOL)
+                               for g_, w_ in zip(got, want)))
+            repeatable = all(torch.equal(g_, a_) for g_, a_ in
+                             zip(got, kernel(q, k, v, o, lse, do)))
+            fields = {}
+            if timed:
+                fields = dict(
+                    ms=_device_ms(lambda: kernel(q, k, v, o, lse, do)),
+                    plain_ms=_device_ms(lambda: plain(q, k, v, o, lse, do)),
+                    library_ms=lib_ms, bound_ms=bound[0])
+            _check(f"{name}_general", shape, list(errs), list(tols),
+                   bitwise_repeatable=repeatable, **fields)
+            if not repeatable:
+                raise AssertionError(f"{name}_general gave other bits on a "
+                                     f"second call at {shape}")
+            _add_general(res, f"{name}_general", max(errs), fields, bound)
+
+
+def _kernels_general_gn_conv(res, rand):
+    """The general instances of K7 (conv_general.cu), K8 and K9 against
+    their plain versions on the same card tensors; the library calls are
+    cuDNN's conv (forward, input gradient) and F.group_norm where there is
+    no SiLU, in the same dtype."""
+    import torch
+    import torch.nn.functional as F
+    _, gn, gc, conv = _kernel_modules()
+    for i, (dt, (b, side, ci, co, groups)) in enumerate(GENERAL_CONV):
+        dtype = getattr(torch, dt)
+        timed = i == 0
+        es = torch.finfo(dtype).bits // 8
+        x = rand((b, ci, side, side), 1.5, 0.5, dtype=dtype)
+        w = rand((co, ci, 3, 3), (9 * ci) ** -0.5, dtype=dtype)
+        dy = rand((b, co, side, side), dtype=dtype)
+        dxin = rand((b, ci, side, side), dtype=dtype)
+        g = 1.0 + 0.1 * rand((ci,), dtype=torch.float32)
+        beta = 0.1 * rand((ci,), dtype=torch.float32)
+        xl, wl, dyl = (conv.to_kernel_layout(t) for t in (x, w, dy))
+        shape = (dt, b, ci, side, side, co)
+        px = b * side * side
+        flops = 2.0 * px * 9 * ci * co
+        conv_bound = _bound(flops, es * (px * (ci + co) + 9 * ci * co),
+                            PEAK_FP32)
+        xg = xl.detach().requires_grad_(True)
+        y_lib = F.conv2d(xg, wl, padding=1)
+        cases = [
+            ("conv3x3_fwd_general", lambda: conv.conv3x3_fwd_general(xl, wl),
+             lambda: conv.conv3x3_fwd_ref(x, w),
+             lambda: F.conv2d(xl, wl, padding=1), conv_bound),
+            ("conv3x3_dx_general",
+             lambda: conv.conv3x3_dx_general(dyl, wl, dtype),
+             lambda: conv.conv3x3_dx_ref(dy, w, dtype),
+             lambda: torch.autograd.grad(y_lib, xg, dyl, retain_graph=True),
+             conv_bound),
+            ("gn_silu_conv3x3_fwd_general",
+             lambda: gc.gn_silu_conv3x3_fwd_general(xl, g, beta, wl, groups,
+                                                    1e-5)[0],
+             lambda: gc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, groups,
+                                                1e-5)[0],
+             None, conv_bound)]
+        mean, rsig = gc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, groups,
+                                                1e-5)[1:]
+        cases.append((
+            "gn_silu_conv3x3_dx_general",
+            lambda: gc.gn_silu_conv3x3_dx_general(xl, g, beta, wl, mean,
+                                                  rsig, dyl, groups),
+            lambda: gc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean, rsig, dy,
+                                              groups),
+            None, _bound(flops, es * (px * (2 * ci + co) + 9 * ci * co),
+                         PEAK_FP32)))
+        if side * side % 8 == 0:
+            gn_bytes = es * b * ci * side * side
+            cases += [
+                ("gn_silu_fwd_general",
+                 lambda: gn.gn_silu_fwd_general(x, g, beta, groups, 1e-6,
+                                                True, dtype)[0],
+                 lambda: gn.gn_silu_fwd_ref(x, g, beta, groups, 1e-6, True,
+                                            dtype)[0],
+                 None, _bound(9.0 * gn_bytes / es, 2 * gn_bytes, PEAK_FP32)),
+                ("gn_silu_bwd_general",
+                 lambda: gn.gn_silu_bwd_general(x, dxin, g, beta, mean, rsig,
+                                                groups, True)[0],
+                 lambda: gn.gn_silu_bwd_ref(x, dxin, g, beta, mean, rsig,
+                                            groups, True)[0],
+                 None, _bound(17.0 * gn_bytes / es, 3 * gn_bytes,
+                              PEAK_FP32))]
+        for name, kernel, plain, lib, bound in cases:
+            got = kernel()
+            err, tol = _rel_err(got, plain(), GN_RTOL)
+            fields = {}
+            if timed:
+                fields = dict(ms=_device_ms(kernel),
+                              plain_ms=_device_ms(plain),
+                              library_ms=(None if lib is None
+                                          else _device_ms(lib)),
+                              bound_ms=bound[0])
+            _check(name, shape, [err], [tol], dtype_out=str(got.dtype),
+                   **fields)
+            if got.dtype != dtype:
+                raise AssertionError(f"{name} wrote {got.dtype}, not {dtype}")
+            _add_general(res, name, err, fields, bound)
+
+
+def _kernels_fp16(res, rand):
+    """The Hopper kernels' fp16 instances against their plain versions at
+    one main-path shape each, with the bf16 instances' tolerances, and
+    their device ms there (on the kernel line, beside the bf16 instance's
+    on its own); the worst error joins the kernel's row."""
+    import torch
+    att, _, gc, conv = _kernel_modules()
+    f16 = torch.float16
+
+    def check(name, shape, pairs, rtol, fn):
+        errs, tols = zip(*(_rel_err(g_, w_, rtol) for g_, w_ in pairs))
+        _check(name, ("float16",) + shape, list(errs), list(tols),
+               ms=_device_ms(fn))
+        res.rows[name]["max_abs_err"] = max(res.rows[name]["max_abs_err"],
+                                            *errs)
+
+    b, s_, h, d = FWD_SHAPES[0]
+    q, k, v = (rand((b, s_, h, d), dtype=f16) for _ in range(3))
+    for name, plain in (
+            ("flash_fwd", att.flash_fwd_ref),
+            ("flash_fwd_unfolded", att.flash_fwd_unfolded_ref),
+            ("flash_fwd_stream", lambda q, k, v: att.flash_fwd_stream_ref(
+                q, k, v, STREAM_BLOCK_K))):
+        kernel = getattr(att, f"{name}_cuda")
+        o, lse = kernel(q, k, v)
+        o_ref, lse_ref = plain(q, k, v)
+        if o.dtype != f16:
+            raise AssertionError(f"{name} wrote {o.dtype}")
+        check(name, (b, s_, s_, h, d), [(o, o_ref)], FWD_O_RTOL,
+              lambda: kernel(q, k, v))
+    b, s_, h, d = BWD_SHAPES[1]
+    q, k, v, do = (rand((b, s_, h, d), dtype=f16) for _ in range(4))
+    o, lse = att.flash_fwd_ref(q, k, v)
+    for name in ("flash_bwd", "flash_bwd_twopass", "flash_bwd_fold"):
+        kernel = getattr(att, f"{name}_cuda")
+        got = kernel(q, k, v, o, lse, do)
+        want = getattr(att, f"{name}_ref")(q, k, v, o, lse, do)
+        check(name, (b, s_, s_, h, d), list(zip(got, want)), BWD_RTOL,
+              lambda: kernel(q, k, v, o, lse, do))
+    side, ci, co = CONV_SHAPES[0]
+    x = rand((1, ci, side, side), 1.5, 0.5, dtype=f16)
+    w = rand((co, ci, 3, 3), (9 * ci) ** -0.5, dtype=f16)
+    dy = rand((1, co, side, side), dtype=f16)
+    g = 1.0 + 0.1 * rand((ci,), dtype=torch.float32)
+    beta = 0.1 * rand((ci,), dtype=torch.float32)
+    shape = (1, ci, side, side, co)
+    xl, wl, dyl = (conv.to_kernel_layout(t) for t in (x, w, dy))
+    check("conv3x3_fwd", shape, [(conv.conv3x3_fwd_cuda(xl, wl),
+                                  conv.conv3x3_fwd_ref(x, w))], GN_RTOL,
+          lambda: conv.conv3x3_fwd_cuda(xl, wl))
+    check("conv3x3_dx", shape, [(conv.conv3x3_dx_cuda(dyl, wl, f16),
+                                 conv.conv3x3_dx_ref(dy, w, f16))], GN_RTOL,
+          lambda: conv.conv3x3_dx_cuda(dyl, wl, f16))
+    y, mean, rsig = gc.gn_silu_conv3x3_fwd_cuda(xl, g, beta, wl, 32, 1e-5)
+    y_ref, mean_ref, rsig_ref = gc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, 32,
+                                                           1e-5)
+    check("gn_silu_conv3x3_fwd", shape, [(y, y_ref)], GN_RTOL,
+          lambda: gc.gn_silu_conv3x3_fwd_cuda(xl, g, beta, wl, 32, 1e-5))
+    check("gn_silu_conv3x3_dx", shape, [(
+        gc.gn_silu_conv3x3_dx_cuda(xl, g, beta, wl, mean_ref, rsig_ref, dyl,
+                                   32),
+        gc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean_ref, rsig_ref, dy,
+                                  32))], GN_RTOL,
+          lambda: gc.gn_silu_conv3x3_dx_cuda(xl, g, beta, wl, mean_ref,
+                                             rsig_ref, dyl, 32))
+
+
+def _add_general(res, name, err, fields, bound):
+    """A general kernel's row: the worst error over its checks, the times
+    of its timed (fp32) check."""
+    if fields:
+        res.add(name, err, fields["ms"], fields["plain_ms"], bound,
+                fields["library_ms"])
+    else:
+        res.rows[name]["max_abs_err"] = max(res.rows[name]["max_abs_err"],
+                                            err)
+
+
 def phase_kernels() -> dict:
     """Each kernel vs its plain version at the main path's shapes; returns
     {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -771,6 +1109,9 @@ def phase_kernels() -> dict:
     _kernels_gn(res, rand)
     _kernels_gn_conv(res, rand)
     _kernels_conv(res, rand)
+    _kernels_fp16(res, rand)
+    _kernels_general_flash(res, rand)
+    _kernels_general_gn_conv(res, rand)
     return res.rows
 
 
@@ -790,21 +1131,27 @@ def _sample(res: int = 512, seed: int = 0):
                 fg_mask=fg.astype(np.float32)[None, None])
 
 
+def _swapped_unet(unet, **switches):
+    """A U-Net built on `unet`'s config with `switches` set (UNetConfig
+    fields), holding the same weight tensors."""
+    import torch
+
+    from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
+    cfg = dataclasses.replace(unet.config, **switches)
+    with torch.device("meta"):
+        other = UNet2DConditionModel(cfg)
+    other.load_state_dict(unet.state_dict(), strict=True, assign=True)
+    return other.eval().requires_grad_(False)
+
+
 def _swapped_models(conf, **switches):
     """The seeded sd2 models with the U-Net swapped for one built on the
     config with `switches` set, holding the same weight tensors."""
-    import torch
-
     from diffusionhandles_tpu_torch.diffuser import create_sd_models
-    from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
 
     models = create_sd_models(conf=conf, device="cuda")
-    cfg = dataclasses.replace(models.unet_config, **switches)
-    with torch.device("meta"):
-        unet = UNet2DConditionModel(cfg)
-    unet.load_state_dict(models.unet.state_dict(), strict=True, assign=True)
-    unet.eval().requires_grad_(False)
-    return dataclasses.replace(models, unet=unet, unet_config=cfg)
+    unet = _swapped_unet(models.unet, **switches)
+    return dataclasses.replace(models, unet=unet, unet_config=unet.config)
 
 
 def _handles(num_timesteps: int, **switches):
@@ -913,6 +1260,9 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
         "activations_finite": all(bool(torch.isfinite(torch.as_tensor(
             a)).all()) for a in acts),
         "kernels_launched": all(launches[k] > 0 for k in kernels),
+        # bf16 at the U-Net's shapes: every call on a Hopper kernel
+        "no_general_route": not any(n for k, n in launches.items()
+                                    if k.endswith("_general")),
     }
     _line(name, seconds=steps, total_seconds=sum(steps.values()),
           launches=launches, unet_calls=calls, peak_bytes=peak,
@@ -948,6 +1298,43 @@ def check_conv_launches(launches, calls):
           conv3x3_dx=launches["conv3x3_dx"], checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"conv launches off: {checks}")
+
+
+# Fused resnet halves (K9) and fused GroupNorms (K8) of the fused U-Net at
+# 512x512, per forward; 2 halves come before the first cross-attention.
+FUSED_HALVES = 34
+FUSED_HALVES_BEFORE_CONTEXT = 2
+FUSED_NORMS = 17
+
+
+def check_fused_launches(launches, calls):
+    """K9's forward and K8's forward launch at each fused site once per
+    U-Net forward; K9's dx at each half a backward reaches (all of them
+    for a gradient to the latents, all but those before the first
+    cross-attention for one to the text embedding), K8's backward at most
+    once per fused GroupNorm and backward."""
+    fwd, grads = calls["forward"], calls["with_grad"]
+    checks = {
+        "k9_fwd_per_call": launches["gn_silu_conv3x3_fwd"]
+        == FUSED_HALVES * fwd,
+        "k9_dx_per_backward": ((FUSED_HALVES - FUSED_HALVES_BEFORE_CONTEXT)
+                               * grads <= launches["gn_silu_conv3x3_dx"]
+                               <= FUSED_HALVES * grads),
+        "k8_fwd_per_call": launches["gn_silu_fwd"] == FUSED_NORMS * fwd,
+        "k8_bwd_per_backward": (0 < launches["gn_silu_bwd"]
+                                <= FUSED_NORMS * grads),
+    }
+    _line("edit_fused_launches", unet_calls=calls,
+          **{k: launches[k] for k in ("gn_silu_conv3x3_fwd",
+                                      "gn_silu_conv3x3_dx", "gn_silu_fwd",
+                                      "gn_silu_bwd")}, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"fused launches off: {checks}")
+
+
+def _no_general(counts) -> bool:
+    """True when no general route ran (bf16 at the U-Net's shapes)."""
+    return not any(n for k, n in counts.items() if k.endswith("_general"))
 
 
 def _unet_input(unet, res: int, seed: int):
@@ -1033,7 +1420,7 @@ def phase_unet_flash_bwd_modes(handles) -> dict:
     unet = handles.diffuser.models.unet
     x, t, ctx = _unet_input(unet, handles.diffuser.latent_res, 3)
     saved = os.environ.pop(env, None)
-    grads, launches, errs = {}, {}, {}
+    grads, launches, errs, general_free = {}, {}, {}, {}
     try:
         for mode, route in BWD_MODES.items():
             if mode is not None:
@@ -1043,6 +1430,7 @@ def phase_unet_flash_bwd_modes(handles) -> dict:
             torch.cuda.synchronize()
             counts = launch_counts()
             launches[route] = {r: counts[r] for r in BWD_MODES.values()}
+            general_free[route] = _no_general(counts)
             os.environ.pop(env, None)
     finally:
         if saved is not None:
@@ -1052,6 +1440,7 @@ def phase_unet_flash_bwd_modes(handles) -> dict:
         err, tol = _rel_err(grads[route], grads["flash_bwd"], UNET_RTOL)
         errs[route] = [err, tol]
         checks[route] = (counts[route] > 0 and err <= tol
+                         and general_free[route]
                          and bool(torch.isfinite(grads[route]).all())
                          and all(n == 0 for r, n in counts.items()
                                  if r != route))
@@ -1091,13 +1480,135 @@ def phase_attention_forward_entries() -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     checks = {"within_tol": ok,
-              "launched": all(counts[n] == len(FWD_SHAPES) for n in entries)}
-    _line("attention_forward_entries", launches={n: counts[n]
-                                                 for n in entries},
-          max_err_over_tol=errs, checks=checks)
+              "launched": all(counts[n] == len(FWD_SHAPES) for n in entries),
+              "no_general_route": _no_general(counts)}
+    # the same entries in fp32 at the first shape: the general kernels
+    reset_launch_counts()
+    q, k, v = (torch.randn(FWD_SHAPES[0], generator=gen, device="cuda")
+               for _ in range(3))
+    dense = att.dot_product_attention(q, k, v)
+    for name, entry in entries.items():
+        out = entry(q, k, v)
+        err, tol = _rel_err(out, dense, ENTRY_RTOL)
+        errs[f"{name}_general"] = err / tol
+        checks["within_tol"] &= (out.dtype == torch.float32 and err <= tol
+                                 and bool(torch.isfinite(out).all()))
+    torch.cuda.synchronize()
+    general_counts = {k: n for k, n in launch_counts().items() if n}
+    checks["fp32_general"] = general_counts == {f"{n}_general": 1
+                                                for n in entries}
+    counts.update(general_counts)
+    _line("attention_forward_entries",
+          launches={n: counts[n] for n in entries},
+          fp32_launches=general_counts, max_err_over_tol=errs,
+          checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"forward entries failed: {checks}")
     return counts
+
+
+# Each U-Net of the fp32 phase: its config switches, and the general routes
+# its 512x512 forward takes (the kernel ops on its path) and how often: 10
+# self-attention sites; 17 GroupNorms and 34 fused resnet halves; 47
+# conv-kernel convs. The backward to the latents reaches every site once,
+# with the matching backward route.
+FP32_ROUTES = {
+    "default": ({}, {"flash_fwd_general": 10}),
+    "fused": (dict(fused_gn_conv=True, fused_gn=True),
+              {"flash_fwd_general": 10, "gn_silu_fwd_general": FUSED_NORMS,
+               "gn_silu_conv3x3_fwd_general": FUSED_HALVES}),
+    "conv": (dict(conv3x3_kernel=True),
+             {"flash_fwd_general": 10, "conv3x3_fwd_general": CONV3_SITES}),
+}
+FP16_ROUTE = {"flash_fwd_general": "flash_fwd",
+              "gn_silu_conv3x3_fwd_general": "gn_silu_conv3x3_fwd",
+              "conv3x3_fwd_general": "conv3x3_fwd"}
+BACKWARD_ROUTE = {"flash_fwd_general": "flash_bwd_general",
+                  "gn_silu_fwd_general": "gn_silu_bwd_general",
+                  "gn_silu_conv3x3_fwd_general": "gn_silu_conv3x3_dx_general",
+                  "conv3x3_fwd_general": "conv3x3_dx_general"}
+
+
+def phase_fp32_routes() -> dict:
+    """The U-Net of GuidedDiffuserConfig(dtype="float32") (flash on, the
+    default), then the fused and conv U-Nets on its weights: one 512x512
+    forward and backward to the latents each, the default one also with
+    DIFFHANDLES_FLASH_BWD "twopass" and "fold"; then the three U-Nets in
+    fp16 on the same weights, one forward each. None raises; each fp32 run
+    takes exactly its general routes (FP32_ROUTES, and in the backward the
+    matching backward route at each site) and launches no Hopper kernel;
+    each fp16 run takes the Hopper kernels' fp16 instances (FP16_ROUTE)
+    and K8's general one; eps and the gradient are finite and agree with
+    the fp32 default U-Net's.
+    Returns the launch counts summed over the runs."""
+    import os
+
+    import torch
+
+    from diffusionhandles_tpu_torch.config import GuidedDiffuserConfig
+    from diffusionhandles_tpu_torch.diffuser import create_sd_models
+    models = create_sd_models(conf=GuidedDiffuserConfig(dtype="float32"),
+                              device="cuda")
+    unet = models.unet
+    del models
+    x, t, ctx = _unet_input(unet, 64, 4)
+    env = _kernel_modules()[0].BWD_ENV
+    default = FP32_ROUTES["default"][1]
+    # (name, config switches, DIFFHANDLES_FLASH_BWD, forward routes, the
+    # flash backward route or None for a forward only)
+    runs = [(n, sw, None, r, "flash_bwd_general")
+            for n, (sw, r) in FP32_ROUTES.items()]
+    runs += [(f"default_{mode}", {}, mode, default,
+              f"flash_bwd_{mode}_general") for mode in ("twopass", "fold")]
+    # fp16: the Hopper kernels' fp16 instances, K8's general one
+    runs += [(f"{n}_fp16", {**sw, "dtype": torch.float16}, None,
+              {FP16_ROUTE.get(k, k): c for k, c in r.items()}, None)
+             for n, (sw, r) in FP32_ROUTES.items()]
+    eps, grads, checks, total = {}, {}, {}, {}
+    saved = os.environ.pop(env, None)
+    try:
+        for name, switches, mode, routes, flash_bwd in runs:
+            u = _swapped_unet(unet, **switches) if switches else unet
+            if mode is not None:
+                os.environ[env] = mode
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            expected, fields, grad_ok = dict(routes), {}, True
+            if flash_bwd is None:
+                with torch.no_grad():
+                    eps[name] = u(x, t, ctx)[0].float()
+            else:
+                eps[name], grads[name] = _latents_grad(u, x, t, ctx)
+                expected.update({BACKWARD_ROUTE[k]: n
+                                 for k, n in routes.items()})
+                expected[flash_bwd] = expected.pop("flash_bwd_general")
+                err_g, tol_g = _rel_err(grads[name], grads["default"],
+                                        UNET_RTOL)
+                grad_ok = (bool(torch.isfinite(grads[name]).all())
+                           and err_g <= tol_g)
+                fields = dict(max_abs_err_grad=err_g, tol_grad=tol_g)
+            os.environ.pop(env, None)
+            torch.cuda.synchronize()
+            fields["seconds"] = time.perf_counter() - start
+            counts = {k: n for k, n in launch_counts().items() if n}
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            err, tol = _rel_err(eps[name], eps["default"], UNET_RTOL)
+            checks[name] = (counts == expected and grad_ok
+                            and bool(torch.isfinite(eps[name]).all())
+                            and err <= tol)
+            _line("fp32_routes", unet=name, launches=counts,
+                  expected=expected, max_abs_err=err, tol=tol, **fields,
+                  ok=checks[name])
+            del u
+    finally:
+        os.environ.pop(env, None)
+        if saved is not None:
+            os.environ[env] = saved
+    if not all(checks.values()):
+        raise AssertionError(f"fp32 routes failed: {checks}")
+    return total
 
 
 FUSED_EDIT_KERNELS = ("flash_fwd", "flash_bwd", "gn_silu_fwd",
@@ -1133,9 +1644,11 @@ def main() -> int:
         entries = phase_attention_forward_entries()
         launches.update({n: entries[n] for n in ("flash_fwd_unfolded",
                                                  "flash_fwd_stream")})
-        fused, fused_launches, _ = phase_edit(
+        general = {k: n for k, n in entries.items() if k.endswith("_general")}
+        fused, fused_launches, fused_calls = phase_edit(
             "edit_fused", FUSED_EDIT_TIMESTEPS, FUSED_EDIT_KERNELS,
             fused_gn_conv=True, fused_gn=True)
+        check_fused_launches(fused_launches, fused_calls)
         launches.update({n: fused_launches[n] for n in FUSED_EDIT_KERNELS})
         phase_unet_switch_reference("unet_fused_reference", fused,
                                     default_config)
@@ -1150,6 +1663,17 @@ def main() -> int:
                                                        "conv3x3_dx")})
         phase_unet_switch_reference("unet_conv_reference", conv,
                                     default_config)
+        del conv
+        _free_device_memory()
+        # the general routes' launches; the Hopper kernels' stay the
+        # edits' (their fp16 runs here are checks of other instances)
+        for k, n in phase_fp32_routes().items():
+            if k.endswith("_general"):
+                general[k] = general.get(k, 0) + n
+        launches.update(general)
+        missing = [n for n in KERNELS if not launches.get(n)]
+        if missing:
+            raise AssertionError(f"no path launched {missing}")
     except Exception as exc:  # report and fail, with no result line
         import traceback
         traceback.print_exc()

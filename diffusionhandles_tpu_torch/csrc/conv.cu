@@ -45,8 +45,17 @@
 //     one TMA store (clipped at the ragged edges).
 // The tile (consumer warpgroups, BN, the pixel box) and S come from the
 // planner in ops/conv.py (plan_conv3x3); this file only checks them.
+//
+// What this kernel is not built for (fp32 or fp16 activations, channel
+// counts that are not multiples of 8) runs conv_general.cu's kernel.
+//
+// The fused GroupNorm+SiLU+conv kernels (gn_conv.cu, K9) run this GEMM
+// through run() (conv.cuh): the forward on their normalized activation,
+// dx with fp32 output (every split writes partials, none are summed here)
+// so that their own epilogue pass sums the splits.
 #include <cstdint>
 
+#include "conv.cuh"
 #include "hopper.cuh"
 
 namespace conv {
@@ -58,11 +67,6 @@ constexpr int ROW = KC * 2;    // bytes of one shared-memory row (128B swizzle)
 constexpr int SMEM_BUDGET = 227 * 1024;
 constexpr int MAX_STAGES = 8;
 
-// Errors this file reports besides cudaError_t values.
-constexpr int ERR_NO_ENCODE = 1001;  // cuTensorMapEncodeTiled not found
-constexpr int ERR_ENCODE = 1002;     // a tensor map was refused
-constexpr int ERR_PLAN = 1003;       // a plan this file has no kernel for
-
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
@@ -73,8 +77,8 @@ struct Params {
   int bw, bh, bb;       // the M tile's pixel box (bw * bh * bb = 64 * NWG)
   int tiles_w, tiles_h; // M tiles across W and across H
   int c_steps;          // channel chunks of 64 along K (K steps = 9 * this)
-  int splits;           // K ranges (grid z); > 1 writes fp32 partials
-  float* part;          // [splits][B*H*W][nch] fp32 when splits > 1
+  int splits;           // K ranges (grid z)
+  float* part;          // [splits][B*H*W][nch] fp32 partials, or null: bf16
 };
 
 template <bool DX, int NWG, int BN>
@@ -93,7 +97,8 @@ struct Cfg {
   static_assert(BM * BN * 2 <= STAGES * STAGE_BYTES, "epilogue tile");
 };
 
-template <bool DX, int NWG, int BN>
+// T: the activations' and weight's type, bf16 or fp16
+template <typename T, bool DX, int NWG, int BN>
 __global__ void __launch_bounds__(Cfg<DX, NWG, BN>::THREADS, 1)
     conv3x3_kernel(const __grid_constant__ CUtensorMap act_map,
                    const __grid_constant__ CUtensorMap w_map,
@@ -181,13 +186,13 @@ __global__ void __launch_bounds__(Cfg<DX, NWG, BN>::THREADS, 1)
         const uint64_t da = smem_desc(a_addr + kk * 32, 16, 1024);
         if constexpr (!DX) {
           const uint64_t db = smem_desc(b_addr + kk * 32, 16, 1024);
-          Mma<BN>::template run<0>(acc, da, db);
+          Mma<BN, T>::template run<0>(acc, da, db);
         } else {
           // B, MN-major: 64-channel column blocks 64 rows apart (LBO),
           // 8-row groups of K 1024 B apart (SBO), k16 slices 16 rows apart
           const uint64_t db =
               smem_desc(b_addr + kk * 16 * ROW, 64 * ROW, 1024);
-          Mma<BN>::template run<1>(acc, da, db);
+          Mma<BN, T>::template run<1>(acc, da, db);
         }
       }
       wgmma_commit();
@@ -202,16 +207,16 @@ __global__ void __launch_bounds__(Cfg<DX, NWG, BN>::THREADS, 1)
     // 16 wq + t%32/4 + 8 (i%4/2), columns 8 (i/4) + 2 (t%4) + {0, 1}.
     const int r0 = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
     const int c0 = 2 * (lane % 4);
-    if (p.splits == 1) {
-      // bf16 tile [BM][BN] over the drained stages, then one TMA store
+    if (p.part == nullptr) {
+      // T tile [BM][BN] over the drained stages, then one TMA store
       consumers_sync(NWG * 128);
-      __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
+      T* st = reinterpret_cast<T*>(smem);
 #pragma unroll
       for (int i = 0; i < BN / 2; i += 2) {
         const int r = r0 + 8 * ((i % 4) / 2);
         const int c = 8 * (i / 4) + c0;
-        *reinterpret_cast<__nv_bfloat162*>(st + r * BN + c) =
-            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+        *reinterpret_cast<uint32_t*>(st + r * BN + c) =
+            pack<T>(acc[i], acc[i + 1]);
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       consumers_sync(NWG * 128);
@@ -240,11 +245,11 @@ __global__ void __launch_bounds__(Cfg<DX, NWG, BN>::THREADS, 1)
   }
 }
 
-// out[e] = bf16(sum over s of part[s][e]), s in order; 8 elements a thread.
+// out[e] = T(sum over s of part[s][e]), s in order; 8 elements a thread.
+template <typename T>
 __global__ void __launch_bounds__(256)
-    splitk_sum_kernel(const float* __restrict__ part,
-                      __nv_bfloat16* __restrict__ out, long long n8,
-                      int splits) {
+    splitk_sum_kernel(const float* __restrict__ part, T* __restrict__ out,
+                      long long n8, int splits) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= n8) return;
@@ -256,25 +261,24 @@ __global__ void __launch_bounds__(256)
     lo.x += a.x; lo.y += a.y; lo.z += a.z; lo.w += a.w;
     hi.x += b.x; hi.y += b.y; hi.z += b.z; hi.w += b.w;
   }
-  __nv_bfloat162 v[4] = {__floats2bfloat162_rn(lo.x, lo.y),
-                         __floats2bfloat162_rn(lo.z, lo.w),
-                         __floats2bfloat162_rn(hi.x, hi.y),
-                         __floats2bfloat162_rn(hi.z, hi.w)};
-  reinterpret_cast<uint4*>(out)[i] = *reinterpret_cast<uint4*>(v);
+  reinterpret_cast<uint4*>(out)[i] =
+      make_uint4(pack<T>(lo.x, lo.y), pack<T>(lo.z, lo.w),
+                 pack<T>(hi.x, hi.y), pack<T>(hi.z, hi.w));
 }
 
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and launches
 // ---------------------------------------------------------------------------
 
-// A bf16 tensor map over `rank` dims (innermost first) of a dense tensor.
+// A T tensor map over `rank` dims (innermost first) of a dense tensor.
+template <typename T>
 bool encode(CUtensorMap* map, const void* ptr, int rank,
             const cuuint64_t* dims, const cuuint32_t* box, bool swizzle) {
   cuuint64_t strides[4];
   cuuint64_t bytes = 2;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return encode_fn()(map, tma_type<T>(), rank,
                      const_cast<void*>(ptr), dims, strides, box, ones,
                      CU_TENSOR_MAP_INTERLEAVE_NONE,
                      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -283,39 +287,42 @@ bool encode(CUtensorMap* map, const void* ptr, int rank,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool DX, int NWG, int BN>
+template <typename T, bool DX, int NWG, int BN>
 int launch(const CUtensorMap& act, const CUtensorMap& wmap,
            const CUtensorMap& out, const Params& p, dim3 grid,
            cudaStream_t stream) {
   using C = Cfg<DX, NWG, BN>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_kernel<DX, NWG, BN>,
+      conv3x3_kernel<T, DX, NWG, BN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  conv3x3_kernel<DX, NWG, BN>
+  conv3x3_kernel<T, DX, NWG, BN>
       <<<grid, C::THREADS, C::SMEM, stream>>>(act, wmap, out, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool DX>
+template <typename T, bool DX>
 int launch_tile(int nwg, int bn, const CUtensorMap& act,
                 const CUtensorMap& wmap, const CUtensorMap& out,
                 const Params& p, dim3 grid, cudaStream_t st) {
 // The tiles of ops/conv.py's TILES: those its planner picks.
 #define CONV_CASE(NWG, BN)                                        \
   if (nwg == NWG && bn == BN)                                     \
-    return launch<DX, NWG, BN>(act, wmap, out, p, grid, st);
+    return launch<T, DX, NWG, BN>(act, wmap, out, p, grid, st);
   CONV_CASE(1, 64) CONV_CASE(1, 160)
   CONV_CASE(2, 128) CONV_CASE(2, 160) CONV_CASE(2, 256)
 #undef CONV_CASE
   return ERR_PLAN;
 }
 
+template <typename T>
 int run(bool dx, const void* src, const void* w, void* out, float* part,
-        int b, int h, int wd, int ci, int co, int nwg, int bn, int bw, int bh,
-        int bb, int splits, cudaStream_t st) {
+        bool f32_out, int b, int h, int wd, int ci, int co, int nwg, int bn,
+        int bw, int bh, int bb, int splits, cudaStream_t st) {
   if (encode_fn() == nullptr) return ERR_NO_ENCODE;
-  if (bw * bh * bb != 64 * nwg || splits < 1 || (splits > 1 && !part))
+  const bool partials = f32_out || splits > 1;
+  if (bw * bh * bb != 64 * nwg || splits < 1 || (partials && !part) ||
+      (!f32_out && !out))
     return ERR_PLAN;
   const int kch = dx ? co : ci, nch = dx ? ci : co;
   CUtensorMap act_map, w_map, out_map;
@@ -329,9 +336,10 @@ int run(bool dx, const void* src, const void* w, void* out, float* part,
                                   cuuint64_t(h), cuuint64_t(b)};
   const cuuint32_t out_box[4] = {cuuint32_t(bn), cuuint32_t(bw),
                                  cuuint32_t(bh), cuuint32_t(bb)};
-  if (!encode(&act_map, src, 4, act_dims, act_box, true) ||
-      !encode(&w_map, w, 3, w_dims, w_box, true) ||
-      !encode(&out_map, out, 4, out_dims, out_box, false))
+  out_map = CUtensorMap{};  // unread when the output is fp32 partials
+  if (!encode<T>(&act_map, src, 4, act_dims, act_box, true) ||
+      !encode<T>(&w_map, w, 3, w_dims, w_box, true) ||
+      (!f32_out && !encode<T>(&out_map, out, 4, out_dims, out_box, false)))
     return ERR_ENCODE;
 
   Params p;
@@ -342,19 +350,27 @@ int run(bool dx, const void* src, const void* w, void* out, float* part,
   p.tiles_h = (h + bh - 1) / bh;
   p.c_steps = (kch + KC - 1) / KC;
   p.splits = splits;
-  p.part = part;
+  p.part = partials ? part : nullptr;
   const dim3 grid(p.tiles_w * p.tiles_h * ((b + bb - 1) / bb),
                   (nch + bn - 1) / bn, splits);
-  const int err = dx ? launch_tile<true>(nwg, bn, act_map, w_map, out_map, p,
-                                         grid, st)
-                     : launch_tile<false>(nwg, bn, act_map, w_map, out_map,
-                                          p, grid, st);
-  if (err != 0 || splits == 1) return err;
+  const int err = dx ? launch_tile<T, true>(nwg, bn, act_map, w_map,
+                                            out_map, p, grid, st)
+                     : launch_tile<T, false>(nwg, bn, act_map, w_map,
+                                             out_map, p, grid, st);
+  if (err != 0 || f32_out || splits == 1) return err;
   const long long n8 = static_cast<long long>(b) * h * wd * nch / 8;
-  splitk_sum_kernel<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, st>>>(
-      part, static_cast<__nv_bfloat16*>(out), n8, splits);
+  splitk_sum_kernel<T>
+      <<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, st>>>(
+          part, static_cast<T*>(out), n8, splits);
   return static_cast<int>(cudaGetLastError());
 }
+
+template int run<__nv_bfloat16>(bool, const void*, const void*, void*,
+                                float*, bool, int, int, int, int, int, int,
+                                int, int, int, int, int, cudaStream_t);
+template int run<__half>(bool, const void*, const void*, void*, float*, bool,
+                         int, int, int, int, int, int, int, int, int, int,
+                         int, cudaStream_t);
 
 }  // namespace conv
 
@@ -368,9 +384,10 @@ extern "C" int conv3x3_fwd_bf16(const void* x, const void* w, void* y,
                                 void* part, int b, int h, int wd, int ci,
                                 int co, int nwg, int bn, int bw, int bh,
                                 int bb, int splits, void* stream) {
-  return conv::run(false, x, w, y, static_cast<float*>(part), b, h, wd, ci,
-                   co, nwg, bn, bw, bh, bb, splits,
-                   static_cast<cudaStream_t>(stream));
+  return conv::run<__nv_bfloat16>(false, x, w, y, static_cast<float*>(part),
+                                  false, b, h, wd, ci, co, nwg, bn, bw, bh,
+                                  bb, splits,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // dy: [b, h, wd, co] bf16 (NHWC), w as conv3x3_fwd_bf16, dx: [b, h, wd, ci]
@@ -379,7 +396,28 @@ extern "C" int conv3x3_dx_bf16(const void* dy, const void* w, void* dx,
                                void* part, int b, int h, int wd, int ci,
                                int co, int nwg, int bn, int bw, int bh,
                                int bb, int splits, void* stream) {
-  return conv::run(true, dy, w, dx, static_cast<float*>(part), b, h, wd, ci,
-                   co, nwg, bn, bw, bh, bb, splits,
-                   static_cast<cudaStream_t>(stream));
+  return conv::run<__nv_bfloat16>(true, dy, w, dx, static_cast<float*>(part),
+                                  false, b, h, wd, ci, co, nwg, bn, bw, bh,
+                                  bb, splits,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The fp16 instances: conv3x3_fwd_bf16 and conv3x3_dx_bf16 with every
+// tensor but part in fp16 (wgmma's f16 products, fp16 tensor maps).
+extern "C" int conv3x3_fwd_f16(const void* x, const void* w, void* y,
+                               void* part, int b, int h, int wd, int ci,
+                               int co, int nwg, int bn, int bw, int bh,
+                               int bb, int splits, void* stream) {
+  return conv::run<__half>(false, x, w, y, static_cast<float*>(part), false,
+                           b, h, wd, ci, co, nwg, bn, bw, bh, bb, splits,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int conv3x3_dx_f16(const void* dy, const void* w, void* dx,
+                              void* part, int b, int h, int wd, int ci,
+                              int co, int nwg, int bn, int bw, int bh,
+                              int bb, int splits, void* stream) {
+  return conv::run<__half>(true, dy, w, dx, static_cast<float*>(part), false,
+                           b, h, wd, ci, co, nwg, bn, bw, bh, bb, splits,
+                           static_cast<cudaStream_t>(stream));
 }

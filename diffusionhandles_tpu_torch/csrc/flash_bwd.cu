@@ -70,6 +70,7 @@ struct BwdParams {
 
 constexpr int PRO_THREADS = 256;  // 8 threads (16 bytes each) per row
 
+template <typename T>
 __global__ void __launch_bounds__(PRO_THREADS)
     flash_bwd_prologue_kernel(Bshd o, Bshd dout, const float* __restrict__ lse,
                               float* __restrict__ lse_pad,
@@ -86,16 +87,17 @@ __global__ void __launch_bounds__(PRO_THREADS)
   float acc = 0.f;
   if (s < sq) {
     const uint4 ov = *reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(o.ptr) + b * o.sb + s * o.ss +
+        static_cast<const T*>(o.ptr) + b * o.sb + s * o.ss +
         hh * o.sh + part * 8);
     const uint4 dv = *reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(dout.ptr) + b * dout.sb +
+        static_cast<const T*>(dout.ptr) + b * dout.sb +
         s * dout.ss + hh * dout.sh + part * 8);
     const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
     const uint32_t dw[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      acc += bf16_lo(ow[i]) * bf16_lo(dw[i]) + bf16_hi(ow[i]) * bf16_hi(dw[i]);
+      acc += unpack_lo<T>(ow[i]) * unpack_lo<T>(dw[i]) +
+             unpack_hi<T>(ow[i]) * unpack_hi<T>(dw[i]);
   }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -106,10 +108,10 @@ __global__ void __launch_bounds__(PRO_THREADS)
     delta_pad[row] = 0.f;
     return;
   }
-  if (fold) {  // K6: -delta as the bf16 hi/lo pair it adds to dp
-    const __nv_bfloat16 hi = __float2bfloat16_rn(-acc);
-    const __nv_bfloat16 lo = __float2bfloat16_rn(-acc - __bfloat162float(hi));
-    acc = -(__bfloat162float(hi) + __bfloat162float(lo));
+  if (fold) {  // K6: -delta as the T hi/lo pair it adds to dp
+    const uint32_t hi = pack<T>(-acc, 0.f);
+    const uint32_t lo = pack<T>(-acc - unpack_lo<T>(hi), 0.f);
+    acc = -(unpack_lo<T>(hi) + unpack_lo<T>(lo));
   }
   lse_pad[row] = lse[bh * sq + s];
   delta_pad[row] = acc;
@@ -130,6 +132,7 @@ __device__ __forceinline__ void load_resident(uint8_t* dst,
 
 // d[64 x 64] = A[64 x 64] . B^T with A (rows of the warpgroup) and B (a
 // 64-row tile) K-major in shared memory.
+template <typename T>
 __device__ __forceinline__ void mma_abt(float (&d)[32], uint32_t a,
                                         uint32_t bt) {
 #pragma unroll
@@ -137,19 +140,20 @@ __device__ __forceinline__ void mma_abt(float (&d)[32], uint32_t a,
     const uint64_t da = smem_desc(a + kk * 32, 16, 1024);
     const uint64_t db = smem_desc(bt + kk * 32, 16, 1024);
     if (kk == 0)
-      Mma<64>::run<0, 0>(d, da, db);
+      Mma<64, T>::template run<0, 0>(d, da, db);
     else
-      Mma<64>::run<0, 1>(d, da, db);
+      Mma<64, T>::template run<0, 1>(d, da, db);
   }
 }
 
 // d[64 x 64] += A[64 x 64] . B with A in registers (acc_to_a of a 64-column
 // accumulator) and B a 64-row tile read MN-major.
+template <typename T>
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[16],
                                        uint32_t bt) {
 #pragma unroll
   for (int kk = 0; kk < BS / 16; ++kk)
-    Mma<64>::run_rs<1>(d, &a[4 * kk], smem_desc(bt + kk * 16 * ROW, 64 * ROW,
+    Mma<64, T>::template run_rs<1>(d, &a[4 * kk], smem_desc(bt + kk * 16 * ROW, 64 * ROW,
                                                 1024));
 }
 
@@ -161,6 +165,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[16],
 constexpr int KV_STAGE = 2 * TILE + 1024;
 constexpr int KV_SMEM = 1024 + 2 * BM * ROW + STAGES * KV_STAGE + 256;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -244,9 +249,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           reinterpret_cast<const float*>(ring + s * KV_STAGE + 2 * TILE);
       mbar_wait(&full[s], (j / STAGES) & 1);
       wgmma_fence();
-      mma_abt(st_acc, k_addr, q_t);
+      mma_abt<T>(st_acc, k_addr, q_t);
       wgmma_commit();
-      mma_abt(dpt_acc, v_addr, do_t);
+      mma_abt<T>(dpt_acc, v_addr, do_t);
       wgmma_commit();
       wgmma_wait<1>();  // S^T and the previous tile's dV, dK are done
       fence_acc(st_acc);
@@ -261,9 +266,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float lse2 = stats[8 * (i / 4) + 2 * (lane % 4) + i % 2] * LOG2E;
         pt[i] = ex2(fmaf(st_acc[i], c, -lse2));
       }
-      acc_to_a(pt, pa);
+      acc_to_a<T>(pt, pa);
       wgmma_fence();
-      mma_rs(dv_acc, pa, do_t);  // dV += P^T dO
+      mma_rs<T>(dv_acc, pa, do_t);  // dV += P^T dO
       wgmma_commit();
       wgmma_wait<1>();  // dP^T is done
       fence_acc(dpt_acc);
@@ -272,11 +277,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < 16; ++i) {
         const float2 dl = *reinterpret_cast<const float2*>(
             stats + BS + 8 * (i / 2) + 2 * (lane % 4));
-        dsa[i] = pack_bf16(pt[2 * i] * (dpt_acc[2 * i] - dl.x),
+        dsa[i] = pack<T>(pt[2 * i] * (dpt_acc[2 * i] - dl.x),
                            pt[2 * i + 1] * (dpt_acc[2 * i + 1] - dl.y));
       }
       wgmma_fence();
-      mma_rs(dk_acc, dsa, q_t);  // dK += dS^T Q
+      mma_rs<T>(dk_acc, dsa, q_t);  // dK += dS^T Q
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -288,8 +293,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // the warpgroup's own K and V rows are free: its products are done
     uint8_t* dk_t = k_s + wg * 64 * ROW;
     uint8_t* dv_t = v_s + wg * 64 * ROW;
-    stage_rows(dk_t, dk_acc, SCALE, SCALE);
-    stage_rows(dv_t, dv_acc, 1.f, 1.f);
+    stage_rows<T>(dk_t, dk_acc, SCALE, SCALE);
+    stage_rows<T>(dv_t, dv_acc, 1.f, 1.f);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_sync(2 + wg, 128);
     if (threadIdx.x % 128 == 0) {
@@ -307,6 +312,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 constexpr int Q_STAGE = 2 * TILE;
 constexpr int Q_SMEM = 1024 + 2 * BM * ROW + STAGES * Q_STAGE + 256;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
@@ -385,9 +391,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t k_t = ring_addr + s * Q_STAGE, v_t = k_t + TILE;
       mbar_wait(&full[s], (j / STAGES) & 1);
       wgmma_fence();
-      mma_abt(s_acc, q_addr, k_t);
+      mma_abt<T>(s_acc, q_addr, k_t);
       wgmma_commit();
-      mma_abt(dp_acc, do_addr, v_t);
+      mma_abt<T>(dp_acc, do_addr, v_t);
       wgmma_commit();
       wgmma_wait<1>();  // S and the previous tile's dQ are done
       fence_acc(s_acc);
@@ -405,10 +411,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_acc(dp_acc);
 #pragma unroll
       for (int i = 0; i < 16; ++i)
-        dsa[i] = pack_bf16(pr[2 * i] * (dp_acc[2 * i] - dl[i % 2]),
+        dsa[i] = pack<T>(pr[2 * i] * (dp_acc[2 * i] - dl[i % 2]),
                            pr[2 * i + 1] * (dp_acc[2 * i + 1] - dl[i % 2]));
       wgmma_fence();
-      mma_rs(dq_acc, dsa, k_t);  // dQ += dS K
+      mma_rs<T>(dq_acc, dsa, k_t);  // dQ += dS K
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -416,7 +422,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     fence_regs(dsa);
 
     uint8_t* tile = q_s + wg * 64 * ROW;
-    stage_rows(tile, dq_acc, SCALE, SCALE);
+    stage_rows<T>(tile, dq_acc, SCALE, SCALE);
     store_tile(&dq_map, tile, 2 + wg, h, q0 + wg * 64, b);
   }
 }
@@ -426,6 +432,65 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
+}
+
+template <typename T>
+int backward(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, void* dq, void* dk, void* dv,
+             void* scratch, const long long* strides, int b, int sq, int sk,
+             int h, int fold, void* stream) {
+  if (encode_fn() == nullptr) return ERR_NO_ENCODE;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Bshd qt{q, strides[0], strides[1], strides[2]};
+  const Bshd kt{k, strides[3], strides[4], strides[5]};
+  const Bshd vt{v, strides[6], strides[7], strides[8]};
+  const Bshd ot{o, strides[9], strides[10], strides[11]};
+  const Bshd dot{dout, strides[12], strides[13], strides[14]};
+  const long long hd = static_cast<long long>(h) * D;
+  const Bshd dqt{dq, sq * hd, hd, D};
+  const Bshd dkt{dk, sk * hd, hd, D}, dvt{dv, sk * hd, hd, D};
+  CUtensorMap q_map, k_map, v_map, do_map, dq_map, dk_map, dv_map;
+  if (!encode_bshd<T>(&q_map, qt, b, sq, h, BS) ||
+      !encode_bshd<T>(&k_map, kt, b, sk, h, BS) ||
+      !encode_bshd<T>(&v_map, vt, b, sk, h, BS) ||
+      !encode_bshd<T>(&do_map, dot, b, sq, h, BS) ||
+      !encode_bshd<T>(&dq_map, dqt, b, sq, h, BS) ||
+      !encode_bshd<T>(&dk_map, dkt, b, sk, h, BS) ||
+      !encode_bshd<T>(&dv_map, dvt, b, sk, h, BS))
+    return ERR_ENCODE;
+
+  BwdParams p;
+  p.h = h;
+  p.sq = sq;
+  p.sk = sk;
+  p.sqp = (sq + PAD - 1) / PAD * PAD;
+  float* lse_pad = static_cast<float*>(scratch);
+  float* delta_pad = lse_pad + static_cast<size_t>(b) * h * p.sqp;
+  p.lse = lse_pad;
+  p.delta = delta_pad;
+
+  const long long rows = static_cast<long long>(b) * h * p.sqp;
+  flash_bwd_prologue_kernel<T><<<static_cast<unsigned>(
+                                  (rows * 8 + PRO_THREADS - 1) / PRO_THREADS),
+                              PRO_THREADS, 0, st>>>(
+      ot, dot, static_cast<const float*>(lse), lse_pad, delta_pad, h, sq,
+      p.sqp, rows, fold);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  static const cudaError_t attr_kv =
+      allow_smem(flash_bwd_dkdv_kernel<T>, KV_SMEM);
+  static const cudaError_t attr_q = allow_smem(flash_bwd_dq_kernel<T>, Q_SMEM);
+  if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
+  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
+  flash_bwd_dkdv_kernel<T><<<dim3((sk + BM - 1) / BM, h, b), THREADS, KV_SMEM,
+                          st>>>(q_map, k_map, v_map, do_map, dk_map, dv_map,
+                                p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<T><<<dim3((sq + BM - 1) / BM, h, b), THREADS, Q_SMEM,
+                        st>>>(q_map, k_map, v_map, do_map, dq_map, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace flash
@@ -442,57 +507,18 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* lse, void* dq, void* dk, void* dv,
                               void* scratch, const long long* strides, int b,
                               int sq, int sk, int h, int fold, void* stream) {
-  using namespace flash;
-  if (encode_fn() == nullptr) return ERR_NO_ENCODE;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Bshd qt{q, strides[0], strides[1], strides[2]};
-  const Bshd kt{k, strides[3], strides[4], strides[5]};
-  const Bshd vt{v, strides[6], strides[7], strides[8]};
-  const Bshd ot{o, strides[9], strides[10], strides[11]};
-  const Bshd dot{dout, strides[12], strides[13], strides[14]};
-  const long long hd = static_cast<long long>(h) * D;
-  const Bshd dqt{dq, sq * hd, hd, D};
-  const Bshd dkt{dk, sk * hd, hd, D}, dvt{dv, sk * hd, hd, D};
-  CUtensorMap q_map, k_map, v_map, do_map, dq_map, dk_map, dv_map;
-  if (!encode_bshd(&q_map, qt, b, sq, h, BS) ||
-      !encode_bshd(&k_map, kt, b, sk, h, BS) ||
-      !encode_bshd(&v_map, vt, b, sk, h, BS) ||
-      !encode_bshd(&do_map, dot, b, sq, h, BS) ||
-      !encode_bshd(&dq_map, dqt, b, sq, h, BS) ||
-      !encode_bshd(&dk_map, dkt, b, sk, h, BS) ||
-      !encode_bshd(&dv_map, dvt, b, sk, h, BS))
-    return ERR_ENCODE;
+  return flash::backward<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv,
+                                        scratch, strides, b, sq, sk, h, fold,
+                                        stream);
+}
 
-  BwdParams p;
-  p.h = h;
-  p.sq = sq;
-  p.sk = sk;
-  p.sqp = (sq + PAD - 1) / PAD * PAD;
-  float* lse_pad = static_cast<float*>(scratch);
-  float* delta_pad = lse_pad + static_cast<size_t>(b) * h * p.sqp;
-  p.lse = lse_pad;
-  p.delta = delta_pad;
-
-  const long long rows = static_cast<long long>(b) * h * p.sqp;
-  flash_bwd_prologue_kernel<<<static_cast<unsigned>(
-                                  (rows * 8 + PRO_THREADS - 1) / PRO_THREADS),
-                              PRO_THREADS, 0, st>>>(
-      ot, dot, static_cast<const float*>(lse), lse_pad, delta_pad, h, sq,
-      p.sqp, rows, fold);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  static const cudaError_t attr_kv =
-      allow_smem(flash_bwd_dkdv_kernel, KV_SMEM);
-  static const cudaError_t attr_q = allow_smem(flash_bwd_dq_kernel, Q_SMEM);
-  if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
-  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
-  flash_bwd_dkdv_kernel<<<dim3((sk + BM - 1) / BM, h, b), THREADS, KV_SMEM,
-                          st>>>(q_map, k_map, v_map, do_map, dk_map, dv_map,
-                                p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<<<dim3((sq + BM - 1) / BM, h, b), THREADS, Q_SMEM,
-                        st>>>(q_map, k_map, v_map, do_map, dq_map, p);
-  return static_cast<int>(cudaGetLastError());
+// flash_bwd_bf16 with q, k, v, o, dout, dq, dk, dv in fp16 (p and dS
+// rounded to fp16; K6's pair of fp16)
+extern "C" int flash_bwd_f16(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const void* lse, void* dq, void* dk, void* dv,
+                             void* scratch, const long long* strides, int b,
+                             int sq, int sk, int h, int fold, void* stream) {
+  return flash::backward<__half>(q, k, v, o, dout, lse, dq, dk, dv, scratch,
+                                 strides, b, sq, sk, h, fold, stream);
 }

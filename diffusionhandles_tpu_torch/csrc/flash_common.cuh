@@ -23,7 +23,7 @@ using namespace hopper;
 
 constexpr int D = 64;      // head dim (the U-Net's, at every level)
 constexpr int ROW = D * 2;  // bytes of one row: the 128B swizzle's span
-// 1/sqrt(64), exact in binary: bf16(q / 8) . k and (q . k) / 8 are the same
+// 1/sqrt(64), exact in binary: T(q / 8) . k and (q . k) / 8 are the same
 // fp32 number away from underflow, so the kernels apply it to the fp32
 // logits instead of to a pre-scaled copy of q (the JAX wrappers' prescale).
 constexpr float SCALE = 0.125f;
@@ -34,16 +34,18 @@ constexpr int ERR_NO_ENCODE = 1001;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = 1002;     // a tensor map was refused
 constexpr int ERR_PLAN = 1003;       // a tile this file has no kernel for
 
-// A [B, S, H, 64] bf16 operand: its base and its strides in elements (D's
-// is 1). The wrapper makes the base and strides multiples of 16 bytes.
+// A [B, S, H, 64] operand of a 16-bit type (bf16 or fp16): its base and its
+// strides in elements (D's is 1). The wrapper makes the base and strides
+// multiples of 16 bytes.
 struct Bshd {
   const void* ptr;
   long long sb, ss, sh;
 };
 
-// The tensor map of `t` (b x s x h rows of 64) with boxes of `rows` rows of
-// one head, 128-byte swizzled.
-inline bool encode_bshd(CUtensorMap* map, const Bshd& t, int b, int s, int h,
+// The tensor map of `t` (b x s x h rows of 64 T) with boxes of `rows` rows
+// of one head, 128-byte swizzled.
+template <typename T>
+bool encode_bshd(CUtensorMap* map, const Bshd& t, int b, int s, int h,
                         int rows) {
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(h), cuuint64_t(s),
                               cuuint64_t(b)};
@@ -51,7 +53,7 @@ inline bool encode_bshd(CUtensorMap* map, const Bshd& t, int b, int s, int h,
                                  cuuint64_t(t.sb) * 2};
   const cuuint32_t box[4] = {cuuint32_t(D), 1, cuuint32_t(rows), 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return encode_fn()(map, tma_type<T>(), 4,
                      const_cast<void*>(t.ptr), dims, strides, box, ones,
                      CU_TENSOR_MAP_INTERLEAVE_NONE,
                      CU_TENSOR_MAP_SWIZZLE_128B,
@@ -66,9 +68,10 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // Write a warpgroup's m64n64 fp32 accumulator, times `scale0` (its rows
-// l / 4) and `scale1` (rows l / 4 + 8), as bf16 into the 64-row tile at
+// l / 4) and `scale1` (rows l / 4 + 8), as T into the 64-row tile at
 // `tile` (1024-byte aligned) in the 128B swizzle of the store's tensor map:
 // 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+template <typename T>
 __device__ __forceinline__ void stage_rows(uint8_t* tile, const float (&d)[32],
                                            float scale0, float scale1) {
   const int t = threadIdx.x % 128;
@@ -80,7 +83,7 @@ __device__ __forceinline__ void stage_rows(uint8_t* tile, const float (&d)[32],
     const float s = i % 4 < 2 ? scale0 : scale1;
     *reinterpret_cast<uint32_t*>(tile + r * ROW + ((c / 8) ^ (r % 8)) * 16 +
                                  (c % 8) * 2) =
-        pack_bf16(d[i] * s, d[i + 1] * s);
+        pack<T>(d[i] * s, d[i + 1] * s);
   }
 }
 

@@ -1,6 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal, unmasked,
 // bf16 inputs, fp32 logits and softmax state, bf16 output plus the fp32
 // row log-sum-exp that the backward needs. q has sq rows, k and v sk rows.
+// The kernel is a template over the 16-bit type: the fp16 instance
+// (flash_fwd_f16) reads, rounds p to and writes fp16 where the bf16 one
+// uses bf16.
 //
 // Replaces three forward kernels of the JAX package's ops/attention.py,
 // all launched by _flash_fwd_impl, which differ only in where p is rounded:
@@ -78,7 +81,8 @@ struct FwdParams {
   float* lse;  // [B*H, sq]
 };
 
-template <bool F32_SUM, int NWG, int BN>
+// T: the operands' type, bf16 or fp16
+template <typename T, bool F32_SUM, int NWG, int BN>
 __global__ void __launch_bounds__(FwdCfg<NWG, BN>::THREADS,
                                   FwdCfg<NWG, BN>::MIN_BLOCKS)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -153,7 +157,7 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BN>::THREADS,
     constexpr float c = SCALE * LOG2E;
 
     float s_acc[BN / 2];     // logits of the current tile, then its p
-    uint32_t pa[BN / 4];     // bf16 p of the previous tile (A operand)
+    uint32_t pa[BN / 4];     // T p of the previous tile (A operand)
     float o_acc[32];
     float m[2] = {-INFINITY, -INFINITY};  // raw row max, rows l/4 (+8)
     float l[2] = {0.f, 0.f};  // this thread's partial row sums
@@ -167,16 +171,16 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BN>::THREADS,
         const uint64_t da = smem_desc(q_addr + kk * 32, 16, 1024);
         const uint64_t db = smem_desc(kt + kk * 32, 16, 1024);
         if (kk == 0)
-          Mma<BN>::template run<0, 0>(s_acc, da, db);
+          Mma<BN, T>::template run<0, 0>(s_acc, da, db);
         else
-          Mma<BN>::template run<0, 1>(s_acc, da, db);
+          Mma<BN, T>::template run<0, 1>(s_acc, da, db);
       }
     };
     auto issue_pv = [&](int j) {
       const uint32_t vt = v_addr + (j % ST) * C::KV_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        Mma<64>::template run_rs<1>(
+        Mma<64, T>::template run_rs<1>(
             o_acc, &pa[4 * kk], smem_desc(vt + kk * 16 * ROW, 64 * ROW, 1024));
     };
     auto release = [&](uint64_t* bar) {
@@ -207,17 +211,17 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BN>::THREADS,
       for (int i = 0; i < BN / 2; ++i)
         s_acc[i] = ex2(fmaf(s_acc[i], c, -mc[i % 4 / 2]));
     };
-    // The row sums of tile j's p: K1 sums the bf16 values the value
-    // product takes (unpacked from pa), K4/K5 the fp32 ones.
+    // The row sums of tile j's p: K1 sums the T values the value product
+    // takes (unpacked from pa), K4/K5 the fp32 ones.
     auto pack_and_sum = [&](float (&alpha)[2]) {
-      acc_to_a(s_acc, pa);
+      acc_to_a<T>(s_acc, pa);
       float sum[2] = {0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < BN / 4; ++i) {
         if constexpr (F32_SUM)
           sum[i % 2] += s_acc[2 * i] + s_acc[2 * i + 1];
         else
-          sum[i % 2] += bf16_lo(pa[i]) + bf16_hi(pa[i]);
+          sum[i % 2] += unpack_lo<T>(pa[i]) + unpack_hi<T>(pa[i]);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
@@ -279,37 +283,65 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BN>::THREADS,
     }
     // the warpgroup's own Q rows are free: all its S products are done
     uint8_t* tile = q_s + wg * 64 * ROW;
-    stage_rows(tile, o_acc, 1.f / l[0], 1.f / l[1]);
+    stage_rows<T>(tile, o_acc, 1.f / l[0], 1.f / l[1]);
     store_tile(&o_map, tile, 2 + wg, h, q0 + wg * 64, b);
   }
 }
 
-template <bool F32_SUM, int NWG, int BN>
+template <typename T, bool F32_SUM, int NWG, int BN>
 int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
            const CUtensorMap& o, const FwdParams& p, int b,
            cudaStream_t stream) {
   using C = FwdCfg<NWG, BN>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<F32_SUM, NWG, BN>,
+      flash_fwd_kernel<T, F32_SUM, NWG, BN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((p.sq + C::BM - 1) / C::BM, p.h, b);
-  flash_fwd_kernel<F32_SUM, NWG, BN>
+  flash_fwd_kernel<T, F32_SUM, NWG, BN>
       <<<grid, C::THREADS, C::SMEM, stream>>>(q, k, v, o, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool F32_SUM>
+template <typename T, bool F32_SUM>
 int launch_tile(int nwg, int bn, const CUtensorMap& q, const CUtensorMap& k,
                 const CUtensorMap& v, const CUtensorMap& o,
                 const FwdParams& p, int b, cudaStream_t st) {
 // The tiles of ops/attention.py's FWD_TILES: those its planner picks.
 #define FWD_CASE(NWG, BN)                                         \
   if (nwg == NWG && bn == BN)                                     \
-    return launch<F32_SUM, NWG, BN>(q, k, v, o, p, b, st);
+    return launch<T, F32_SUM, NWG, BN>(q, k, v, o, p, b, st);
   FWD_CASE(2, 128)
 #undef FWD_CASE
   return ERR_PLAN;
+}
+
+template <typename T>
+int forward(const void* q, const void* k, const void* v, void* o, void* lse,
+            const long long* strides, int b, int sq, int sk, int h, int nwg,
+            int bn, int f32_sum, void* stream) {
+  if (encode_fn() == nullptr) return ERR_NO_ENCODE;
+  const Bshd qt{q, strides[0], strides[1], strides[2]};
+  const Bshd kt{k, strides[3], strides[4], strides[5]};
+  const Bshd vt{v, strides[6], strides[7], strides[8]};
+  const Bshd ot{o, static_cast<long long>(sq) * h * D,
+                static_cast<long long>(h) * D, D};
+  CUtensorMap q_map, k_map, v_map, o_map;
+  if (!encode_bshd<T>(&q_map, qt, b, sq, h, 64 * nwg) ||
+      !encode_bshd<T>(&k_map, kt, b, sk, h, bn) ||
+      !encode_bshd<T>(&v_map, vt, b, sk, h, bn) ||
+      !encode_bshd<T>(&o_map, ot, b, sq, h, 64))
+    return ERR_ENCODE;
+  FwdParams p;
+  p.h = h;
+  p.sq = sq;
+  p.sk = sk;
+  p.lse = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return f32_sum ? launch_tile<T, true>(nwg, bn, q_map, k_map, v_map, o_map,
+                                        p, b, st)
+                 : launch_tile<T, false>(nwg, bn, q_map, k_map, v_map, o_map,
+                                         p, b, st);
 }
 
 }  // namespace flash
@@ -325,27 +357,15 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, const long long* strides,
                               int b, int sq, int sk, int h, int nwg, int bn,
                               int f32_sum, void* stream) {
-  using namespace flash;
-  if (encode_fn() == nullptr) return ERR_NO_ENCODE;
-  const Bshd qt{q, strides[0], strides[1], strides[2]};
-  const Bshd kt{k, strides[3], strides[4], strides[5]};
-  const Bshd vt{v, strides[6], strides[7], strides[8]};
-  const Bshd ot{o, static_cast<long long>(sq) * h * D,
-                static_cast<long long>(h) * D, D};
-  CUtensorMap q_map, k_map, v_map, o_map;
-  if (!encode_bshd(&q_map, qt, b, sq, h, 64 * nwg) ||
-      !encode_bshd(&k_map, kt, b, sk, h, bn) ||
-      !encode_bshd(&v_map, vt, b, sk, h, bn) ||
-      !encode_bshd(&o_map, ot, b, sq, h, 64))
-    return ERR_ENCODE;
-  FwdParams p;
-  p.h = h;
-  p.sq = sq;
-  p.sk = sk;
-  p.lse = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return f32_sum
-             ? launch_tile<true>(nwg, bn, q_map, k_map, v_map, o_map, p, b, st)
-             : launch_tile<false>(nwg, bn, q_map, k_map, v_map, o_map, p, b,
-                                  st);
+  return flash::forward<__nv_bfloat16>(q, k, v, o, lse, strides, b, sq, sk,
+                                       h, nwg, bn, f32_sum, stream);
+}
+
+// flash_fwd_bf16 with q, k, v and o in fp16 (p rounded to fp16)
+extern "C" int flash_fwd_f16(const void* q, const void* k, const void* v,
+                             void* o, void* lse, const long long* strides,
+                             int b, int sq, int sk, int h, int nwg, int bn,
+                             int f32_sum, void* stream) {
+  return flash::forward<__half>(q, k, v, o, lse, strides, b, sq, sk, h, nwg,
+                                bn, f32_sum, stream);
 }

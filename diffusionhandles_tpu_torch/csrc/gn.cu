@@ -14,28 +14,37 @@
 //   backward: bwd_sums (u = sum bf16(dz), v = sum bf16(dz*xh) per (b, c))
 //             -> bwd_groups (t1, t2 per (b, g)) -> bwd_apply (dx).
 // Rounding points are the TPU kernel's: x*x and the gradient products are
-// rounded to bf16 before the fp32 sums, the variance is clamped at 0.
+// rounded to x's type before the fp32 sums, the variance is clamped at 0.
+// The kernels are templates over the types of x and y (elem.cuh): the
+// bf16 instance is the pipeline's, gn_fwd_general / gn_bwd_general take
+// fp32 and fp16 (and bf16 x with another y) with the same kernels.
 //
 // Bound: a few operations per element against 2 bytes read and 2 written
 // (forward; backward reads x and dy), far below the card's flop:byte
 // balance, so the kernels are bound by memory: 3 passes over x forward
 // (two reads, one write), 4 backward. This first version reads x again in
 // the apply pass rather than keeping a group in shared memory.
+//
+// Layout: NCHW. A (batch, channel) pair is one contiguous run of
+// hw = H*W values, and the channels of group g of image b are the runs
+// (b*G + g)*cg .. (b*G + g)*cg + cg - 1 (cg = C / G), one contiguous block.
 #include "gn_common.cuh"
 
 namespace gn {
 
-// s1[r] = sum of run r of x, s2[r] = sum of its squares, r < runs; each
-// square is rounded to bf16 first when round_sq (the GroupNorm kernel's
-// recipe) and kept in fp32 otherwise (the fused conv kernel's).
+constexpr int STAT_WARPS = 8;  // (b, c) runs per block of the sums passes
+
+// s1[r] = sum of run r of x, s2[r] = sum of its squares each rounded to
+// x's type first, r < runs.
+template <typename T>
 __global__ void __launch_bounds__(STAT_WARPS * 32)
-    channel_sums_kernel(const __nv_bfloat16* __restrict__ x,
+    channel_sums_kernel(const T* __restrict__ x,
                         float* __restrict__ s1, float* __restrict__ s2,
-                        int runs, int hw, int round_sq) {
+                        int runs, int hw) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = blockIdx.x * STAT_WARPS + warp;
   if (r >= runs) return;
-  const __nv_bfloat16* row = x + (size_t)r * hw;
+  const T* row = x + (size_t)r * hw;
   float a = 0.f, q = 0.f;
   for (int i = lane * VEC; i < hw; i += 32 * VEC) {
     float f[VEC];
@@ -43,7 +52,7 @@ __global__ void __launch_bounds__(STAT_WARPS * 32)
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       a += f[j];
-      q += round_sq ? bf16_round(f[j] * f[j]) : f[j] * f[j];
+      q += elem::round_t<T>(f[j] * f[j]);
     }
   }
   a = warp_sum(a);
@@ -55,12 +64,12 @@ __global__ void __launch_bounds__(STAT_WARPS * 32)
 }
 
 // mean[bg], rsig[bg] of the groups bg < groups_total from the channel sums;
-// var = s2/n - mean^2, clamped at 0 when `clamp`.
+// var = s2/n - mean^2, clamped at 0.
 __global__ void group_stats_kernel(const float* __restrict__ s1,
                                    const float* __restrict__ s2,
                                    float* __restrict__ mean,
                                    float* __restrict__ rsig, int groups_total,
-                                   int cg, float n, float eps, int clamp) {
+                                   int cg, float n, float eps) {
   const int bg = blockIdx.x * blockDim.x + threadIdx.x;
   if (bg >= groups_total) return;
   float a = 0.f, q = 0.f;
@@ -69,39 +78,41 @@ __global__ void group_stats_kernel(const float* __restrict__ s1,
     q += s2[bg * cg + c];
   }
   const float m = a / n;
-  float var = q / n - m * m;
-  if (clamp) var = fmaxf(var, 0.f);
+  const float var = fmaxf(q / n - m * m, 0.f);
   mean[bg] = m;
   rsig[bg] = 1.f / sqrtf(var + eps);
 }
 
-cudaError_t launch_group_stats(const __nv_bfloat16* x, float* sums,
+// Both statistics passes over x [b, c, hw]: mean and rsig [b*groups] fp32;
+// sums is fp32 scratch of 2*b*c.
+template <typename T>
+cudaError_t launch_group_stats(const T* x, float* sums,
                                float* mean, float* rsig, int b, int c, int hw,
-                               int groups, float eps, bool gn_recipe,
-                               cudaStream_t stream) {
+                               int groups, float eps, cudaStream_t stream) {
   const int runs = b * c, cg = c / groups, bg = b * groups;
   channel_sums_kernel<<<(runs + STAT_WARPS - 1) / STAT_WARPS,
                         STAT_WARPS * 32, 0, stream>>>(x, sums, sums + runs,
-                                                      runs, hw, gn_recipe);
+                                                      runs, hw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   group_stats_kernel<<<(bg + 127) / 128, 128, 0, stream>>>(
-      sums, sums + runs, mean, rsig, bg, cg, (float)cg * (float)hw, eps,
-      gn_recipe);
+      sums, sums + runs, mean, rsig, bg, cg, (float)cg * (float)hw, eps);
   return cudaGetLastError();
 }
 
 constexpr int APPLY_THREADS = 256;
 
-// y = x*A + B (A = rsig*gamma, B = beta - mean*A), SiLU when act; one
-// 16-byte vector per thread (hw % 8 == 0, so a vector lies in one run).
+// y = x*A + B (A = rsig*gamma, B = beta - mean*A), SiLU when act, x of
+// type T and y of type U; one vector of 8 per thread (hw % 8 == 0, so a
+// vector lies in one run).
+template <typename T, typename U>
 __global__ void __launch_bounds__(APPLY_THREADS)
-    gn_apply_kernel(const __nv_bfloat16* __restrict__ x,
+    gn_apply_kernel(const T* __restrict__ x,
                     const float* __restrict__ gamma,
                     const float* __restrict__ beta,
                     const float* __restrict__ mean,
                     const float* __restrict__ rsig,
-                    __nv_bfloat16* __restrict__ y, int c, int hw, int cg,
+                    U* __restrict__ y, int c, int hw, int cg,
                     int act, long long vecs) {
   const long long i = (long long)blockIdx.x * APPLY_THREADS + threadIdx.x;
   if (i >= vecs) return;
@@ -120,11 +131,13 @@ __global__ void __launch_bounds__(APPLY_THREADS)
   store8(y + e, f);
 }
 
-// u[r] = sum bf16(dz), v[r] = sum bf16(dz * xh) over run r (one warp each),
-// dz = dy * silu'(xh*gamma + beta) when act, else dy.
+// u[r] = sum T(dz), v[r] = sum T(dz * xh) over run r (one warp each), the
+// terms rounded to x's type T; dz = dy * silu'(xh*gamma + beta) when act,
+// else dy.
+template <typename T>
 __global__ void __launch_bounds__(STAT_WARPS * 32)
-    gn_bwd_sums_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ dy,
+    gn_bwd_sums_kernel(const T* __restrict__ x,
+                       const T* __restrict__ dy,
                        const float* __restrict__ gamma,
                        const float* __restrict__ beta,
                        const float* __restrict__ mean,
@@ -146,8 +159,8 @@ __global__ void __launch_bounds__(STAT_WARPS * 32)
     for (int j = 0; j < VEC; ++j) {
       const float xh = (xf[j] - m) * rs;
       const float dz = act ? d[j] * silu_grad(xh * g + bt) : d[j];
-      su += bf16_round(dz);
-      sv += bf16_round(dz * xh);
+      su += elem::round_t<T>(dz);
+      sv += elem::round_t<T>(dz * xh);
     }
   }
   su = warp_sum(su);
@@ -178,17 +191,18 @@ __global__ void gn_bwd_groups_kernel(const float* __restrict__ u,
   t2[bg] = q / n;
 }
 
-// dx = rsig * (gamma*dz - t1 - xh*t2), one 16-byte vector per thread
+// dx = rsig * (gamma*dz - t1 - xh*t2), one vector of 8 per thread
+template <typename T>
 __global__ void __launch_bounds__(APPLY_THREADS)
-    gn_bwd_apply_kernel(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ dy,
+    gn_bwd_apply_kernel(const T* __restrict__ x,
+                        const T* __restrict__ dy,
                         const float* __restrict__ gamma,
                         const float* __restrict__ beta,
                         const float* __restrict__ mean,
                         const float* __restrict__ rsig,
                         const float* __restrict__ t1,
                         const float* __restrict__ t2,
-                        __nv_bfloat16* __restrict__ dx, int c, int hw, int cg,
+                        T* __restrict__ dx, int c, int hw, int cg,
                         int act, long long vecs) {
   const long long i = (long long)blockIdx.x * APPLY_THREADS + threadIdx.x;
   if (i >= vecs) return;
@@ -209,29 +223,71 @@ __global__ void __launch_bounds__(APPLY_THREADS)
   store8(dx + e, xf);
 }
 
+template <typename T, typename U>
+int fwd(const void* x, const void* gamma, const void* beta, void* y,
+        void* mean, void* rsig, void* sums, int b, int c, int hw, int groups,
+        float eps, int act, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  cudaError_t err = launch_group_stats(
+      xt, static_cast<float*>(sums), static_cast<float*>(mean),
+      static_cast<float*>(rsig), b, c, hw, groups, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vecs = (long long)b * c * hw / VEC;
+  gn_apply_kernel<T, U><<<(unsigned)((vecs + APPLY_THREADS - 1) /
+                                     APPLY_THREADS),
+                          APPLY_THREADS, 0, st>>>(
+      xt, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const float*>(mean), static_cast<const float*>(rsig),
+      static_cast<U*>(y), c, hw, c / groups, act, vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd(const void* x, const void* dy, const void* gamma, const void* beta,
+        const void* mean, const void* rsig, void* dx, void* u, void* v,
+        void* t1, void* t2, int b, int c, int hw, int groups, int act,
+        cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  const float* g = static_cast<const float*>(gamma);
+  const float* bt = static_cast<const float*>(beta);
+  const float* m = static_cast<const float*>(mean);
+  const float* rs = static_cast<const float*>(rsig);
+  float* uf = static_cast<float*>(u);
+  float* vf = static_cast<float*>(v);
+  float* t1f = static_cast<float*>(t1);
+  float* t2f = static_cast<float*>(t2);
+  const int runs = b * c, cg = c / groups, bg = b * groups;
+  gn_bwd_sums_kernel<T><<<(runs + STAT_WARPS - 1) / STAT_WARPS,
+                          STAT_WARPS * 32, 0, st>>>(
+      xt, dyt, g, bt, m, rs, uf, vf, runs, c, hw, cg, act);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_bwd_groups_kernel<<<(bg + 127) / 128, 128, 0, st>>>(
+      uf, vf, g, t1f, t2f, bg, c, cg, (float)cg * (float)hw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vecs = (long long)runs * hw / VEC;
+  gn_bwd_apply_kernel<T><<<(unsigned)((vecs + APPLY_THREADS - 1) /
+                                      APPLY_THREADS),
+                           APPLY_THREADS, 0, st>>>(
+      xt, dyt, g, bt, m, rs, t1f, t2f, static_cast<T*>(dx), c, hw, cg, act,
+      vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace gn
 
-// x, y: [b, c, hw] bf16 contiguous, hw % 8 == 0, c % groups == 0; gamma,
-// beta: [c] fp32; mean, rsig: [b*groups] fp32 out; sums: fp32 scratch of
-// 2*b*c. Returns the launches' cudaError_t.
+// x, y: [b, c, hw] bf16 contiguous and 16-byte aligned, hw % 8 == 0,
+// c % groups == 0; gamma, beta: [c] fp32; mean, rsig: [b*groups] fp32 out;
+// sums: fp32 scratch of 2*b*c. Returns the launches' cudaError_t.
 extern "C" int gn_fwd_bf16(const void* x, const void* gamma, const void* beta,
                            void* y, void* mean, void* rsig, void* sums, int b,
                            int c, int hw, int groups, float eps, int act,
                            void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  cudaError_t err = gn::launch_group_stats(
-      xb, static_cast<float*>(sums), static_cast<float*>(mean),
-      static_cast<float*>(rsig), b, c, hw, groups, eps, true, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vecs = (long long)b * c * hw / gn::VEC;
-  gn::gn_apply_kernel<<<(unsigned)((vecs + gn::APPLY_THREADS - 1) /
-                                   gn::APPLY_THREADS),
-                        gn::APPLY_THREADS, 0, st>>>(
-      xb, static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(mean), static_cast<const float*>(rsig),
-      static_cast<__nv_bfloat16*>(y), c, hw, c / groups, act, vecs);
-  return static_cast<int>(cudaGetLastError());
+  return gn::fwd<__nv_bfloat16, __nv_bfloat16>(
+      x, gamma, beta, y, mean, rsig, sums, b, c, hw, groups, eps, act,
+      static_cast<cudaStream_t>(stream));
 }
 
 // x, dy, dx: [b, c, hw] bf16; mean, rsig from gn_fwd_bf16; u, v: [b*c]
@@ -242,32 +298,39 @@ extern "C" int gn_bwd_bf16(const void* x, const void* dy, const void* gamma,
                            const void* rsig, void* dx, void* u, void* v,
                            void* t1, void* t2, int b, int c, int hw,
                            int groups, int act, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const __nv_bfloat16* dyb = static_cast<const __nv_bfloat16*>(dy);
-  const float* g = static_cast<const float*>(gamma);
-  const float* bt = static_cast<const float*>(beta);
-  const float* m = static_cast<const float*>(mean);
-  const float* rs = static_cast<const float*>(rsig);
-  float* uf = static_cast<float*>(u);
-  float* vf = static_cast<float*>(v);
-  float* t1f = static_cast<float*>(t1);
-  float* t2f = static_cast<float*>(t2);
-  const int runs = b * c, cg = c / groups, bg = b * groups;
-  gn::gn_bwd_sums_kernel<<<(runs + gn::STAT_WARPS - 1) / gn::STAT_WARPS,
-                           gn::STAT_WARPS * 32, 0, st>>>(
-      xb, dyb, g, bt, m, rs, uf, vf, runs, c, hw, cg, act);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gn::gn_bwd_groups_kernel<<<(bg + 127) / 128, 128, 0, st>>>(
-      uf, vf, g, t1f, t2f, bg, c, cg, (float)cg * (float)hw);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vecs = (long long)runs * hw / gn::VEC;
-  gn::gn_bwd_apply_kernel<<<(unsigned)((vecs + gn::APPLY_THREADS - 1) /
-                                       gn::APPLY_THREADS),
-                            gn::APPLY_THREADS, 0, st>>>(
-      xb, dyb, g, bt, m, rs, t1f, t2f, static_cast<__nv_bfloat16*>(dx), c,
-      hw, cg, act, vecs);
-  return static_cast<int>(cudaGetLastError());
+  return gn::bwd<__nv_bfloat16>(x, dy, gamma, beta, mean, rsig, dx, u, v, t1,
+                                t2, b, c, hw, groups, act,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// gn_fwd_bf16's instances for the other types: x of dtype code xdt, y of
+// ydt (elem.cuh's ELEM_*); the same kernels and rounding points, rounded
+// to x's type where the bf16 instance rounds to bf16.
+extern "C" int gn_fwd_general(int xdt, int ydt, const void* x,
+                              const void* gamma, const void* beta, void* y,
+                              void* mean, void* rsig, void* sums, int b,
+                              int c, int hw, int groups, float eps, int act,
+                              void* stream) {
+  return elem::dispatch(xdt, [&](auto xt) {
+    return elem::dispatch(ydt, [&](auto yt) {
+      return gn::fwd<decltype(xt), decltype(yt)>(
+          x, gamma, beta, y, mean, rsig, sums, b, c, hw, groups, eps, act,
+          static_cast<cudaStream_t>(stream));
+    });
+  });
+}
+
+// gn_bwd_bf16's instances for the other types: x, dy and dx of dtype code
+// dt.
+extern "C" int gn_bwd_general(int dt, const void* x, const void* dy,
+                              const void* gamma, const void* beta,
+                              const void* mean, const void* rsig, void* dx,
+                              void* u, void* v, void* t1, void* t2, int b,
+                              int c, int hw, int groups, int act,
+                              void* stream) {
+  return elem::dispatch(dt, [&](auto t) {
+    return gn::bwd<decltype(t)>(x, dy, gamma, beta, mean, rsig, dx, u, v, t1,
+                                t2, b, c, hw, groups, act,
+                                static_cast<cudaStream_t>(stream));
+  });
 }

@@ -1,265 +1,436 @@
 // Fused GroupNorm + SiLU + 3x3 conv (SAME, stride 1) forward and input
-// gradient for Hopper (sm_90a): NCHW bf16 activations, PyTorch's
-// [Co, Ci, 3, 3] bf16 weight, fp32 statistics and accumulation.
+// gradient for Hopper (sm_90a): channels-last (NHWC) bf16 activations, the
+// weight held channels-last ([Co][3][3][Ci], as K7 reads it), fp32
+// statistics and accumulation.
 //
 // Replaces the JAX package's ops/gn_conv.py:_gn_conv_fwd_kernel and
 // _gn_conv_bwd_kernel (launched by _fwd_impl / _bwd_dx_impl). Each TPU
-// kernel holds one whole padded image (up to 72 MB of VMEM) in one grid
-// cell: it reduces the GroupNorm statistics in place, then runs the nine
-// shifted tap matmuls over it. No CTA can hold an image (227 KB of shared
-// memory), so the statistics become passes of their own (gn_common.cuh),
-// and the conv is an implicit GEMM over tiles:
-//   M = H*W output pixels, N = output channels, K = 9 * input channels,
-//   ordered (channel, tap) with the tap fastest: PyTorch's own weight
-//   order, so the forward reads w as the [Co, 9*Ci] matrix it already is.
-// The A-tile loader normalizes each value it loads, (x - mean)*rsig*gamma
-// + beta in fp32, applies SiLU and the zero halo (SAME padding), and rounds
-// to bf16 into shared memory: the normalized activation never goes to
-// device memory. mma.sync m16n8k16 (bf16 in, fp32 accumulate).
-//   forward: y = bf16(sum of the nine taps); the bias is added outside.
-//   dx:      the same GEMM of dy against the flipped, transposed kernel
-//            (B[(co, tap)][ci] = w[co][ci][8 - tap]). The epilogue forms
-//            dxh = dz * silu'(xh*gamma + beta) * gamma, writes it in fp32
-//            and, per CTA, the per-channel sums of dxh and dxh*xh over its
-//            64 pixels (fixed order, no atomics). dx_groups reduces those
-//            to the group means t1, t2; dx_apply writes
-//            dx = rsig * (dxh - t1 - xh*t2).
+// kernel holds one whole padded image in VMEM: it reduces the GroupNorm
+// statistics in place, normalizes, and runs the nine shifted tap matmuls
+// over the normalized image. No CTA holds an image here (227 KB of shared
+// memory), so the work is cut at the two points where it needs all of an
+// image, and the GEMM is K7's (conv.cu, through conv.cuh's run()):
+//   forward: slot_sums -> group_sums (mean, rsig per (b, g)) -> prologue
+//            (z = bf16(silu((x - mean) * rsig * gamma + beta)), once per
+//            element, written channels-last) -> K7's forward GEMM on z;
+//   dx:      K7's dx GEMM of dy (fp32 output, every split's partials kept)
+//            -> slot_sums<DX> (the epilogue: dz = the fixed-order sum of
+//            the splits, dxh = dz * silu'(xh * gamma + beta) * gamma written
+//            in fp32, per-slot channel sums of dxh and dxh * xh)
+//            -> group_sums (t1, t2 per (b, g)) -> dx_apply
+//            (dx = rsig * (dxh - t1 - xh * t2)).
+// A slot is SLOT consecutive pixels of one image; every cross-block sum
+// goes through per-slot partials summed in a fixed order (no atomics), so
+// both directions are bitwise repeatable.
 //
-// Bound: 2*H*W*9*Ci*Co operations against (H*W*(Ci + Co) + 9*Ci*Co) * 2
-// bytes: at 64x64x320 -> 320, 7.5 GFLOP over 7 MB, above the card's
-// flop:byte balance, so the kernel should be bound by its matrix
-// throughput. This first version is far from it: the loader recomputes the
-// normalization once per tap (9x), tiles are 64x64 with no copy/compute
-// overlap, and the 8x8 and 16x16 levels fill only 20-40 CTAs. wgmma, TMA,
-// a channels-last layout and a normalized-activation stage are the known
-// next steps.
+// The passes are templates over the activations' type (elem.cuh). The
+// bf16 and fp16 instances (channels multiples of 8, 8 channels a thread)
+// run K7's TMA + wgmma GEMM; the general instances (gn_conv_*_general:
+// fp32, or bf16/fp16 with other channel counts, one channel a thread) run
+// K7's general GEMM (conv_general.cu), with no split.
 //
-// Grid: (ceil(H*W / 64) pixel tiles, ceil(N / 64) channel tiles, B).
-// Block: 4 warps, 2 x 2 over the 64 x 64 tile, 32 x 32 each; the GEMM
-// mainloop is conv3x3_gemm.cuh's (used by this file alone).
-#include "conv3x3_gemm.cuh"
+// Bound on this card: the conv's 2*B*H*W*9*Ci*Co operations against the
+// weight's 18*Ci*Co bytes plus the activations' (at 64x64 320 -> 320: 7.5
+// GFLOP, 7.6 us at 989 TFLOP/s), the same as K7's. What K9 adds is memory
+// traffic, a few bytes an element per pass: the forward reads x twice and
+// writes z once (2.6 MB each at 64x64x320); dx writes and reads dz and dxh
+// in fp32 (5.2 MB each) and reads x twice. Normalizing in the GEMM's A
+// loader instead (once per tap and N tile) moves that work onto the
+// special-function units, which then bound the mainloop.
+#include "conv.cuh"
 #include "gn_common.cuh"
 
 namespace gnconv {
 
-using conv3::BM;
-using conv3::BN;
-using conv3::NTHREADS;
-
-// DX = false: src = x [B, Ci, hw], y = conv(silu(gn(x))) [B, Co, hw].
-// DX = true:  src = dy [B, Co, hw], x is read in the epilogue, dxh
-//             [B, Ci, hw] and part1/part2 [B, pixel tiles, Ci] are written.
-template <bool DX>
-__global__ void __launch_bounds__(NTHREADS)
-    conv3x3_kernel(const __nv_bfloat16* __restrict__ src,
-                   const __nv_bfloat16* __restrict__ w,
-                   const float* __restrict__ gamma,
-                   const float* __restrict__ beta,
-                   const float* __restrict__ mean,
-                   const float* __restrict__ rsig,
-                   const __nv_bfloat16* __restrict__ x,
-                   __nv_bfloat16* __restrict__ y, float* __restrict__ dxh,
-                   float* __restrict__ part1, float* __restrict__ part2,
-                   int ci, int co, int h, int wd, int cg, int groups) {
-  __shared__ __align__(16) __nv_bfloat16 as[BM * conv3::LDK];
-  __shared__ __align__(16) __nv_bfloat16 bs[BN * conv3::LDK];
-  __shared__ float red[2][2][BN];  // dx: [sum][warp row][channel]
-
-  const int hw = h * wd;
-  const int kch = DX ? co : ci;  // channels along K
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 2, wn = warp % 2;
-
-  const conv3::APixel px(m0, h, wd);
-  const __nv_bfloat16* asrc = src + (size_t)b * kch * hw;
-  // A[m][(c, tap)]: the (normalized, SiLU'd) source value at the tap's
-  // shifted pixel, 0 in the halo
-  auto a_val = [&](int c, int tp) -> float {
-    if (!px.in(tp)) return 0.f;
-    const float raw = __bfloat162float(asrc[px.at(c, tp, hw, wd)]);
-    if (DX) return raw;
-    const int bg = b * groups + c / cg;
-    return gn::silu((raw - mean[bg]) * rsig[bg] * gamma[c] + beta[c]);
-  };
-  float acc[2][4][4];
-  conv3::mainloop<DX>(acc, as, bs, px, w, kch, DX ? ci : co, ci, n0, a_val);
-
-  if (!DX) {
-    conv3::store_bf16(acc, y, b, co, hw, m0, n0);
-    return;
-  }
-
-  float s1[4][2], s2[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) s1[nt][0] = s1[nt][1] = s2[nt][0] = s2[nt][1] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int m = m0 + wm * 32 + mt * 16 + g + 8 * (c >> 1);
-        const int n = n0 + wn * 32 + nt * 8 + 2 * t + (c & 1);
-        if (m < hw && n < ci) {
-          const size_t idx = ((size_t)b * ci + n) * hw + m;
-          const int bg = b * groups + n / cg;
-          const float xh = (__bfloat162float(x[idx]) - mean[bg]) * rsig[bg];
-          const float ga = gamma[n];
-          const float d = acc[mt][nt][c] * gn::silu_grad(xh * ga + beta[n]) * ga;
-          dxh[idx] = d;
-          s1[nt][c & 1] += d;
-          s2[nt][c & 1] += d * xh;
-        }
-      }
-  // sum over the 8 pixel rows g of the warp (lane bits 2..4)
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s1[nt][e] += __shfl_xor_sync(0xffffffffu, s1[nt][e], off);
-        s2[nt][e] += __shfl_xor_sync(0xffffffffu, s2[nt][e], off);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[0][wm][wn * 32 + nt * 8 + 2 * t + e] = s1[nt][e];
-        red[1][wm][wn * 32 + nt * 8 + 2 * t + e] = s2[nt][e];
-      }
-  }
-  __syncthreads();
-  const int n = threadIdx.x;
-  if (n < BN && n0 + n < ci) {
-    const size_t o = ((size_t)b * gridDim.x + blockIdx.x) * ci + n0 + n;
-    part1[o] = red[0][0][n] + red[0][1][n];
-    part2[o] = red[1][0][n] + red[1][1][n];
-  }
-}
-
-// t1[bg] = mean over group bg of dxh, t2[bg] = of dxh*xh: the per-CTA
-// channel sums, in (pixel tile, channel) order, over n = cg*hw
-__global__ void dx_groups_kernel(const float* __restrict__ part1,
-                                 const float* __restrict__ part2,
-                                 float* __restrict__ t1,
-                                 float* __restrict__ t2, int groups_total,
-                                 int groups, int ci, int cg, int mtiles,
-                                 float n) {
-  const int bg = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bg >= groups_total) return;
-  const int b = bg / groups, gi = bg % groups;
-  float a = 0.f, q = 0.f;
-  for (int mt = 0; mt < mtiles; ++mt)
-    for (int c = 0; c < cg; ++c) {
-      const size_t idx = ((size_t)b * mtiles + mt) * ci + gi * cg + c;
-      a += part1[idx];
-      q += part2[idx];
-    }
-  t1[bg] = a / n;
-  t2[bg] = q / n;
-}
-
+constexpr int SLOT = 8;           // pixels of one partial-sum slot
+constexpr int PAIRS = 32;         // channel pairs of one slot_sums block
+constexpr int GROUP_THREADS = 512;
 constexpr int APPLY_THREADS = 256;
 
-// dx = rsig * (dxh - t1 - xh*t2), 8 values per thread
+// Per slot (SLOT pixels of image b) and channel c, into s1/s2 [b][slot][c]:
+//   DX = false: s1 = sum x, s2 = sum x*x (fp32, not rounded);
+//   DX = true:  dz = sum over the splits of part[s] (s in order);
+//               dxh = dz * silu'(xh*gamma + beta) * gamma is written to
+//               dxh, s1 = sum dxh, s2 = sum dxh * xh, xh = (x - mean)*rsig.
+// Grid (b * slots, ceil(c / (CP * PAIRS))), block (PAIRS, SLOT): thread
+// (t, y) takes channels CP t .. CP t + CP - 1 of its block's range at the
+// slot's pixel y (c is a multiple of CP); the slot's SLOT values of a
+// channel are then summed in pixel order through shared memory. x is of
+// type T.
+template <typename T, bool DX, int CP>
+__global__ void __launch_bounds__(PAIRS * SLOT)
+    slot_sums_kernel(const T* __restrict__ x,
+                     const float* __restrict__ part, int splits,
+                     long long elems, const float* __restrict__ gamma,
+                     const float* __restrict__ beta,
+                     const float* __restrict__ mean,
+                     const float* __restrict__ rsig,
+                     float* __restrict__ dxh, float* __restrict__ s1,
+                     float* __restrict__ s2, int hw, int c, int cg,
+                     int groups, int slots) {
+  __shared__ float red[2][SLOT][PAIRS][CP];
+  const int b = blockIdx.x / slots, slot = blockIdx.x % slots;
+  const int ch = CP * (blockIdx.y * PAIRS + threadIdx.x);
+  const int p = slot * SLOT + threadIdx.y;
+  float a[CP] = {}, q[CP] = {};
+  if (ch < c && p < hw) {
+    const long long e = (static_cast<long long>(b) * hw + p) * c + ch;
+    float xv[CP];
+    elem::load<T, CP>(x + e, xv);
+    if (!DX) {
+#pragma unroll
+      for (int j = 0; j < CP; ++j) {
+        a[j] = xv[j];
+        q[j] = xv[j] * xv[j];
+      }
+    } else {
+      float dz[CP] = {};
+#pragma unroll 4
+      for (int s = 0; s < splits; ++s) {
+        float v[CP];
+        elem::load<float, CP>(part + s * elems + e, v);
+#pragma unroll
+        for (int j = 0; j < CP; ++j) dz[j] += v[j];
+      }
+#pragma unroll
+      for (int j = 0; j < CP; ++j) {
+        const int bg = b * groups + (ch + j) / cg;
+        const float xh = (xv[j] - mean[bg]) * rsig[bg];
+        const float g = gamma[ch + j];
+        a[j] = dz[j] * gn::silu_grad(xh * g + beta[ch + j]) * g;
+        q[j] = a[j] * xh;
+      }
+      elem::store<float, CP>(dxh + e, a);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < CP; ++j) {
+    red[0][threadIdx.y][threadIdx.x][j] = a[j];
+    red[1][threadIdx.y][threadIdx.x][j] = q[j];
+  }
+  __syncthreads();
+  if (threadIdx.y != 0 || ch >= c) return;
+#pragma unroll
+  for (int j = 0; j < CP; ++j) a[j] = q[j] = 0.f;
+#pragma unroll
+  for (int y = 0; y < SLOT; ++y) {
+#pragma unroll
+    for (int j = 0; j < CP; ++j) {
+      a[j] += red[0][y][threadIdx.x][j];
+      q[j] += red[1][y][threadIdx.x][j];
+    }
+  }
+  const long long o = (static_cast<long long>(b) * slots + slot) * c + ch;
+  elem::store<float, CP>(s1 + o, a);
+  elem::store<float, CP>(s2 + o, q);
+}
+
+// One block per (b, g): the sums of s1 and s2 over the group's cg channels
+// and the image's slots, in a fixed order (each thread a fixed stride of
+// the items, then warp and block trees). stats: out1 = mean, out2 = rsig =
+// 1/sqrt(E[x^2] - mean^2 + eps), not clamped; else out1 = sum s1 / n,
+// out2 = sum s2 / n.
+__global__ void __launch_bounds__(GROUP_THREADS)
+    group_sums_kernel(const float* __restrict__ s1,
+                      const float* __restrict__ s2, float* __restrict__ out1,
+                      float* __restrict__ out2, int groups, int c, int cg,
+                      int slots, float n, float eps, int stats) {
+  __shared__ float red[2][GROUP_THREADS / 32];
+  const int bg = blockIdx.x;
+  const int b = bg / groups, g = bg % groups;
+  const int items = slots * cg;
+  float a = 0.f, q = 0.f;
+  for (int i = threadIdx.x; i < items; i += GROUP_THREADS) {
+    const long long idx =
+        (static_cast<long long>(b) * slots + i / cg) * c + g * cg + i % cg;
+    a += s1[idx];
+    q += s2[idx];
+  }
+  a = gn::warp_sum(a);
+  q = gn::warp_sum(q);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    red[0][warp] = a;
+    red[1][warp] = q;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  a = q = 0.f;
+#pragma unroll
+  for (int w = 0; w < GROUP_THREADS / 32; ++w) {
+    a += red[0][w];
+    q += red[1][w];
+  }
+  if (stats) {
+    const float mu = a / n;
+    out1[bg] = mu;
+    out2[bg] = 1.f / sqrtf(q / n - mu * mu + eps);
+  } else {
+    out1[bg] = a / n;
+    out2[bg] = q / n;
+  }
+}
+
+// z = T(silu((x - mean) * rsig * gamma + beta)), V channels of one pixel
+// per thread (c is a multiple of V); the products and the sum rounded one
+// at a time (no fused multiply-add), as the plain version computes them.
+// Grid (vectors of one image / APPLY_THREADS, b): offsets within an image
+// in 32 bits.
+template <typename T, int V>
 __global__ void __launch_bounds__(APPLY_THREADS)
-    dx_apply_kernel(const __nv_bfloat16* __restrict__ x,
+    prologue_kernel(const T* __restrict__ x,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ beta,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ rsig,
+                    T* __restrict__ z, int c, int cg, int groups,
+                    int hwc) {
+  const int i = (blockIdx.x * APPLY_THREADS + threadIdx.x) * V;
+  if (i >= hwc) return;
+  const int b = blockIdx.y;
+  const long long e = static_cast<long long>(b) * hwc + i;
+  const int ch0 = i % c;
+  float f[V];
+  elem::load<T, V>(x + e, f);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int bg = b * groups + (ch0 + j) / cg;
+    const float xh = __fmul_rn(f[j] - mean[bg], rsig[bg]);
+    f[j] = gn::silu(__fadd_rn(__fmul_rn(xh, gamma[ch0 + j]), beta[ch0 + j]));
+  }
+  elem::store<T, V>(z + e, f);
+}
+
+// dx = rsig * (dxh - t1 - xh * t2), V channels of one pixel per thread;
+// the grid as prologue_kernel's
+template <typename T, int V>
+__global__ void __launch_bounds__(APPLY_THREADS)
+    dx_apply_kernel(const T* __restrict__ x,
                     const float* __restrict__ dxh,
                     const float* __restrict__ mean,
                     const float* __restrict__ rsig,
                     const float* __restrict__ t1,
                     const float* __restrict__ t2,
-                    __nv_bfloat16* __restrict__ dx, int hw, int cg,
-                    long long vecs) {
-  const long long i = (long long)blockIdx.x * APPLY_THREADS + threadIdx.x;
-  if (i >= vecs) return;
-  const long long e = i * gn::VEC;
-  const int bg = (int)(e / hw) / cg;
-  const float m = mean[bg], rs = rsig[bg], a1 = t1[bg], a2 = t2[bg];
-  float xf[gn::VEC];
-  gn::load8(x + e, xf);
-  const float4 d0 = reinterpret_cast<const float4*>(dxh + e)[0];
-  const float4 d1 = reinterpret_cast<const float4*>(dxh + e)[1];
-  const float d[gn::VEC] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+                    T* __restrict__ dx, int c, int cg, int groups,
+                    int hwc) {
+  const int i = (blockIdx.x * APPLY_THREADS + threadIdx.x) * V;
+  if (i >= hwc) return;
+  const int b = blockIdx.y;
+  const long long e = static_cast<long long>(b) * hwc + i;
+  const int ch0 = i % c;
+  float xf[V], d[V];
+  elem::load<T, V>(x + e, xf);
+  elem::load<float, V>(dxh + e, d);
 #pragma unroll
-  for (int j = 0; j < gn::VEC; ++j) {
-    const float xh = (xf[j] - m) * rs;
-    xf[j] = rs * (d[j] - a1 - xh * a2);
+  for (int j = 0; j < V; ++j) {
+    const int bg = b * groups + (ch0 + j) / cg;
+    const float rs = rsig[bg];
+    const float xh = (xf[j] - mean[bg]) * rs;
+    xf[j] = rs * (d[j] - t1[bg] - xh * t2[bg]);
   }
-  gn::store8(dx + e, xf);
+  elem::store<T, V>(dx + e, xf);
+}
+
+int slots_of(int hw) { return (hw + SLOT - 1) / SLOT; }
+
+// The grid of slot_sums_kernel with CP channels a thread
+dim3 slot_grid(int b, int hw, int c, int cp) {
+  return dim3(b * slots_of(hw), (c + cp * PAIRS - 1) / (cp * PAIRS));
+}
+
+// The grid of prologue_kernel and dx_apply_kernel: V channels a thread
+dim3 apply_grid(int b, int hwc, int v) {
+  return dim3((hwc / v + APPLY_THREADS - 1) / APPLY_THREADS, b);
+}
+
+// The conv GEMM of one direction: K7's (conv.cu) for the bf16 and fp16
+// instances, else the general one (conv_general.cu) in T
+template <typename T>
+int gemm(bool dx, const void* src, const void* w, void* out, float* part,
+         bool f32_out, int b, int h, int wd, int ci, int co, const int* plan,
+         cudaStream_t st) {
+  if constexpr (sizeof(T) == 2) {
+    if (plan != nullptr)
+      return conv::run<T>(dx, src, w, out, part, f32_out, b, h, wd, ci, co,
+                          plan[0], plan[1], plan[2], plan[3], plan[4],
+                          plan[5], st);
+  }
+  return conv::run_general(elem::code_of<T>(), dx, src, w,
+                           f32_out ? static_cast<void*>(part) : out, f32_out,
+                           b, h, wd, ci, co, st);
+}
+
+// The forward: V channels a thread in the elementwise passes, CP in the
+// sums (V = 8, CP = 2 for the bf16 instance on K7's GEMM, 1 and 1 for the
+// general one); plan = K7's (nwg, bn, bw, bh, bb, splits), or null for the
+// general GEMM.
+template <typename T, int V, int CP>
+int fwd(const void* x, const void* gamma, const void* beta, const void* w,
+        void* y, void* z, void* mean, void* rsig, void* sums, void* part,
+        int b, int h, int wd, int ci, int co, int groups, float eps,
+        const int* plan, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const float* g = static_cast<const float*>(gamma);
+  const float* bt = static_cast<const float*>(beta);
+  float* m = static_cast<float*>(mean);
+  float* rs = static_cast<float*>(rsig);
+  const int hw = h * wd, cg = ci / groups, slots = slots_of(hw);
+  float* s1 = static_cast<float*>(sums);
+  float* s2 = s1 + static_cast<long long>(b) * slots * ci;
+  slot_sums_kernel<T, false, CP>
+      <<<slot_grid(b, hw, ci, CP), dim3(PAIRS, SLOT), 0, st>>>(
+          xt, nullptr, 0, 0, nullptr, nullptr, nullptr, nullptr, nullptr, s1,
+          s2, hw, ci, cg, groups, slots);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  group_sums_kernel<<<b * groups, GROUP_THREADS, 0, st>>>(
+      s1, s2, m, rs, groups, ci, cg, slots,
+      static_cast<float>(cg) * static_cast<float>(hw), eps, 1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prologue_kernel<T, V><<<apply_grid(b, hw * ci, V), APPLY_THREADS, 0, st>>>(
+      xt, g, bt, m, rs, static_cast<T*>(z), ci, cg, groups, hw * ci);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return gemm<T>(false, z, w, y, static_cast<float*>(part), false, b, h, wd,
+                 ci, co, plan, st);
+}
+
+// dx, with V, CP and plan as fwd's (plan: K7's dx plan, fp32 out)
+template <typename T, int V, int CP>
+int dx(const void* x, const void* gamma, const void* beta, const void* w,
+       const void* mean, const void* rsig, const void* dy, void* dxo,
+       void* part, void* dxh, void* sums, void* t12, int b, int h, int wd,
+       int ci, int co, int groups, const int* plan, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const float* m = static_cast<const float*>(mean);
+  const float* rs = static_cast<const float*>(rsig);
+  float* pf = static_cast<float*>(part);
+  float* dxhf = static_cast<float*>(dxh);
+  const int hw = h * wd, cg = ci / groups, slots = slots_of(hw);
+  float* s1 = static_cast<float*>(sums);
+  float* s2 = s1 + static_cast<long long>(b) * slots * ci;
+  float* t1 = static_cast<float*>(t12);
+  float* t2 = t1 + b * groups;
+  const int rc = gemm<T>(true, dy, w, nullptr, pf, true, b, h, wd, ci, co,
+                         plan, st);
+  if (rc != 0) return rc;
+  const int splits = plan != nullptr ? plan[5] : 1;
+  const long long elems = static_cast<long long>(b) * hw * ci;
+  slot_sums_kernel<T, true, CP>
+      <<<slot_grid(b, hw, ci, CP), dim3(PAIRS, SLOT), 0, st>>>(
+          xt, pf, splits, elems, static_cast<const float*>(gamma),
+          static_cast<const float*>(beta), m, rs, dxhf, s1, s2, hw, ci, cg,
+          groups, slots);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  group_sums_kernel<<<b * groups, GROUP_THREADS, 0, st>>>(
+      s1, s2, t1, t2, groups, ci, cg, slots,
+      static_cast<float>(cg) * static_cast<float>(hw), 0.f, 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dx_apply_kernel<T, V><<<apply_grid(b, hw * ci, V), APPLY_THREADS, 0, st>>>(
+      xt, dxhf, m, rs, t1, t2, static_cast<T*>(dxo), ci, cg, groups, hw * ci);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace gnconv
 
-// x: [b, ci, h, wd] bf16, w: [co, ci, 3, 3] bf16, both contiguous and
-// 16-byte aligned, ci and co multiples of 16, h*wd of 8; gamma, beta: [ci]
-// fp32; y: [b, co, h, wd] bf16 out; mean, rsig: [b*groups] fp32 out; sums:
-// fp32 scratch of 2*b*ci. Returns the launches' cudaError_t.
+// x: [b, h, wd, ci] bf16 (NHWC), w: [co, 3, 3, ci] bf16 (PyTorch's
+// channels-last [co, ci, 3, 3]), all dense and 16-byte aligned, ci and co
+// multiples of 8, groups dividing ci; gamma, beta: [ci] fp32. Out: y
+// [b, h, wd, co] bf16, z [b, h, wd, ci] bf16 (the normalized activation),
+// mean and rsig [b*groups] fp32. sums: fp32 scratch of 2*b*ceil(h*wd/8)*ci;
+// part: as conv.cuh's run() takes it. The plan (nwg .. splits) is K7's.
+// Returns the launches' cudaError_t, or one of conv.cuh's errors.
 extern "C" int gn_conv_fwd_bf16(const void* x, const void* gamma,
                                 const void* beta, const void* w, void* y,
-                                void* mean, void* rsig, void* sums, int b,
-                                int ci, int co, int h, int wd, int groups,
-                                float eps, void* stream) {
-  using namespace gnconv;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  float* m = static_cast<float*>(mean);
-  float* rs = static_cast<float*>(rsig);
-  cudaError_t err = gn::launch_group_stats(xb, static_cast<float*>(sums), m,
-                                           rs, b, ci, h * wd, groups, eps,
-                                           false, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((h * wd + BM - 1) / BM, (co + BN - 1) / BN, b);
-  conv3x3_kernel<false><<<grid, NTHREADS, 0, st>>>(
-      xb, static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta), m,
-      rs, nullptr, static_cast<__nv_bfloat16*>(y), nullptr, nullptr, nullptr,
-      ci, co, h, wd, ci / groups, groups);
-  return static_cast<int>(cudaGetLastError());
+                                void* z, void* mean, void* rsig, void* sums,
+                                void* part, int b, int h, int wd, int ci,
+                                int co, int groups, float eps, int nwg,
+                                int bn, int bw, int bh, int bb, int splits,
+                                void* stream) {
+  const int plan[6] = {nwg, bn, bw, bh, bb, splits};
+  return gnconv::fwd<__nv_bfloat16, gn::VEC, 2>(
+      x, gamma, beta, w, y, z, mean, rsig, sums, part, b, h, wd, ci, co,
+      groups, eps, plan, static_cast<cudaStream_t>(stream));
 }
 
 // x, w, gamma, beta as gn_conv_fwd_bf16; mean, rsig: its statistics; dy:
-// [b, co, h, wd] bf16; dx: [b, ci, h, wd] bf16 out; dxh: fp32 scratch like
-// x; part: fp32 scratch of 2*b*ceil(h*wd/64)*ci; t12: of 2*b*groups.
-// Returns the launches' cudaError_t.
+// [b, h, wd, co] bf16 (NHWC); dx: [b, h, wd, ci] bf16 out. Scratch: part,
+// splits*b*h*wd*ci fp32 (the GEMM's output); dxh, b*h*wd*ci fp32; sums,
+// 2*b*ceil(h*wd/8)*ci fp32; t12, 2*b*groups fp32. The plan is K7's dx
+// plan. Returns the launches' cudaError_t, or one of conv.cuh's errors.
 extern "C" int gn_conv_dx_bf16(const void* x, const void* gamma,
                                const void* beta, const void* w,
                                const void* mean, const void* rsig,
-                               const void* dy, void* dx, void* dxh,
-                               void* part, void* t12, int b, int ci, int co,
-                               int h, int wd, int groups, void* stream) {
-  using namespace gnconv;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hw = h * wd, mtiles = (hw + BM - 1) / BM, cg = ci / groups;
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const float* m = static_cast<const float*>(mean);
-  const float* rs = static_cast<const float*>(rsig);
-  float* dxhf = static_cast<float*>(dxh);
-  float* part1 = static_cast<float*>(part);
-  float* part2 = part1 + (size_t)b * mtiles * ci;
-  float* t1 = static_cast<float*>(t12);
-  float* t2 = t1 + b * groups;
-  const dim3 grid(mtiles, (ci + BN - 1) / BN, b);
-  conv3x3_kernel<true><<<grid, NTHREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), m, rs, xb, nullptr, dxhf, part1,
-      part2, ci, co, h, wd, cg, groups);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int bg = b * groups;
-  dx_groups_kernel<<<(bg + 127) / 128, 128, 0, st>>>(
-      part1, part2, t1, t2, bg, groups, ci, cg, mtiles,
-      (float)cg * (float)hw);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vecs = (long long)b * ci * hw / gn::VEC;
-  dx_apply_kernel<<<(unsigned)((vecs + APPLY_THREADS - 1) / APPLY_THREADS),
-                    APPLY_THREADS, 0, st>>>(
-      xb, dxhf, m, rs, t1, t2, static_cast<__nv_bfloat16*>(dx), hw, cg, vecs);
-  return static_cast<int>(cudaGetLastError());
+                               const void* dy, void* dx, void* part,
+                               void* dxh, void* sums, void* t12, int b, int h,
+                               int wd, int ci, int co, int groups, int nwg,
+                               int bn, int bw, int bh, int bb, int splits,
+                               void* stream) {
+  const int plan[6] = {nwg, bn, bw, bh, bb, splits};
+  return gnconv::dx<__nv_bfloat16, gn::VEC, 2>(
+      x, gamma, beta, w, mean, rsig, dy, dx, part, dxh, sums, t12, b, h, wd,
+      ci, co, groups, plan, static_cast<cudaStream_t>(stream));
+}
+
+// The fp16 instances of gn_conv_fwd_bf16 and gn_conv_dx_bf16: x, w, y, z,
+// dy and dx in fp16, K7's fp16 GEMM.
+extern "C" int gn_conv_fwd_f16(const void* x, const void* gamma,
+                               const void* beta, const void* w, void* y,
+                               void* z, void* mean, void* rsig, void* sums,
+                               void* part, int b, int h, int wd, int ci,
+                               int co, int groups, float eps, int nwg, int bn,
+                               int bw, int bh, int bb, int splits,
+                               void* stream) {
+  const int plan[6] = {nwg, bn, bw, bh, bb, splits};
+  return gnconv::fwd<__half, gn::VEC, 2>(
+      x, gamma, beta, w, y, z, mean, rsig, sums, part, b, h, wd, ci, co,
+      groups, eps, plan, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gn_conv_dx_f16(const void* x, const void* gamma,
+                              const void* beta, const void* w,
+                              const void* mean, const void* rsig,
+                              const void* dy, void* dx, void* part, void* dxh,
+                              void* sums, void* t12, int b, int h, int wd,
+                              int ci, int co, int groups, int nwg, int bn,
+                              int bw, int bh, int bb, int splits,
+                              void* stream) {
+  const int plan[6] = {nwg, bn, bw, bh, bb, splits};
+  return gnconv::dx<__half, gn::VEC, 2>(
+      x, gamma, beta, w, mean, rsig, dy, dx, part, dxh, sums, t12, b, h, wd,
+      ci, co, groups, plan, static_cast<cudaStream_t>(stream));
+}
+
+// The general instances (any ci and co, groups dividing ci): x, w, y, z,
+// dy and dx of dtype code dt (elem.cuh), dense channels-last; the same
+// passes one channel a thread around the general GEMM (conv_general.cu),
+// which has no split: part is b*h*wd*ci fp32 for dx and unused forward.
+extern "C" int gn_conv_fwd_general(int dt, const void* x, const void* gamma,
+                                   const void* beta, const void* w, void* y,
+                                   void* z, void* mean, void* rsig,
+                                   void* sums, int b, int h, int wd, int ci,
+                                   int co, int groups, float eps,
+                                   void* stream) {
+  return elem::dispatch(dt, [&](auto t) {
+    return gnconv::fwd<decltype(t), 1, 1>(
+        x, gamma, beta, w, y, z, mean, rsig, sums, nullptr, b, h, wd, ci, co,
+        groups, eps, nullptr, static_cast<cudaStream_t>(stream));
+  });
+}
+
+extern "C" int gn_conv_dx_general(int dt, const void* x, const void* gamma,
+                                  const void* beta, const void* w,
+                                  const void* mean, const void* rsig,
+                                  const void* dy, void* dx, void* part,
+                                  void* dxh, void* sums, void* t12, int b,
+                                  int h, int wd, int ci, int co, int groups,
+                                  void* stream) {
+  return elem::dispatch(dt, [&](auto t) {
+    return gnconv::dx<decltype(t), 1, 1>(
+        x, gamma, beta, w, mean, rsig, dy, dx, part, dxh, sums, t12, b, h, wd,
+        ci, co, groups, nullptr, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -219,8 +219,12 @@ class ResnetBlock2D(nn.Module):
         self.dtype = dtype
         self.fused_gn_conv, self.fused_gn = fused_gn_conv, fused_gn
         self.norm1 = GroupNorm(groups, in_ch, eps=eps, dtype=param_dtype)
+        # the fused halves hand conv1/conv2's weights to the GN+SiLU+conv
+        # kernels, which read them channels-last as the conv kernel does
+        # (their forward is not called then)
+        kernel_layout = conv3x3_kernel or fused_gn_conv
         self.conv1 = Conv3x3(in_ch, out_ch, dtype=dtype,
-                             param_dtype=param_dtype, kernel=conv3x3_kernel)
+                             param_dtype=param_dtype, kernel=kernel_layout)
         if temb_ch is not None:
             self.time_emb_proj = Linear(temb_ch, out_ch, dtype=dtype,
                                         param_dtype=param_dtype)
@@ -228,7 +232,7 @@ class ResnetBlock2D(nn.Module):
             self.time_emb_proj = None
         self.norm2 = GroupNorm(groups, out_ch, eps=eps, dtype=param_dtype)
         self.conv2 = Conv3x3(out_ch, out_ch, dtype=dtype,
-                             param_dtype=param_dtype, kernel=conv3x3_kernel)
+                             param_dtype=param_dtype, kernel=kernel_layout)
         self.conv_shortcut = (Conv2d(in_ch, out_ch, 1, dtype=dtype,
                                      param_dtype=param_dtype)
                               if in_ch != out_ch else None)

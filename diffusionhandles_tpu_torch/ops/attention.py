@@ -23,11 +23,16 @@ TMA + wgmma), built at first use (`utils/cuda_build.py`). They read q, k, v,
 O and dO in the [B, S, H, D] layout where they lie and write O, dq, dk and
 dv in it, with the 1/sqrt(d) scale applied inside: one ctypes call per
 direction and no torch op around it. K1 and K4/K5 are instantiations of one
-forward kernel (a bf16 or an fp32 row sum) whose query tile and key step
-come from `plan_flash`; K2, K3 and K6 launch the same backward kernels (K3
-at head dim 64, where its extra rounding of dq is exact; K6 with delta
-formed from its bf16 hi/lo pair). A wrapper runs the plain version only for
-tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
+forward kernel (a row sum over the rounded or the fp32 p) whose query tile
+and key step come from `plan_flash`; K2, K3 and K6 launch the same
+backward kernels (K3 at head dim 64, where its extra rounding of dq is
+exact; K6 with delta formed from its bf16 hi/lo pair). A call takes the route `flash_route`
+names from its device, dtype and head dim: the plain version on the CPU; on
+the card these kernels for bf16 or fp16 (an instance each) at head dim 64,
+else the general kernels
+(`csrc/flash_general.cu`: fp32, fp16 or bf16, any head dim, on the CUDA
+cores, each variant's rounding points), counted as `<route>_general` (e.g.
+`flash_fwd_general`).
 """
 
 from __future__ import annotations
@@ -43,16 +48,22 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from diffusionhandles_tpu_torch.utils.cuda_build import (check_cuda_bf16,
+from diffusionhandles_tpu_torch.utils.cuda_build import (ELEM_CODES,
+                                                         HALF_SUFFIX,
+                                                         check_cuda,
+                                                         elem_code, general,
                                                          load_library,
-                                                         raise_on, stream_of)
+                                                         raise_on, route,
+                                                         run_route, stream_of)
 
-# Launches of each kernel wrapper since the last reset_launch_counts().
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_unfolded": 0,
-                            "flash_fwd_stream": 0, "flash_bwd": 0,
-                            "flash_bwd_twopass": 0, "flash_bwd_fold": 0}
+# Launches of each kernel wrapper, the Hopper kernels' and the general
+# kernels' (`<name>_general`), since the last reset_launch_counts().
+LAUNCHES: Dict[str, int] = {
+    n: 0 for k in ("flash_fwd", "flash_fwd_unfolded", "flash_fwd_stream",
+                   "flash_bwd", "flash_bwd_twopass", "flash_bwd_fold")
+    for n in (k, general(k))}
 
-KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_general.cu")
 HEAD_DIM = 64  # the kernels' compiled head dim (flash_common.cuh: D)
 # Inputs the wrappers copied to a dense layout because TMA could not read
 # them in place (a strided head dim, or a base or stride off 16 bytes).
@@ -107,6 +118,13 @@ def flash_ok(sq: int, sk: int, head_dim: int = 64) -> bool:
     """True where the JAX package routes attention to its flash kernels:
     at least 512 keys, and shapes its kernels tile."""
     return sk >= 512 and _flash_supported(sq, sk, head_dim=head_dim)
+
+
+def flash_route(device, dtype, head_dim: int) -> str:
+    """The route (`utils.cuda_build.route`) of a flash call with q, k,
+    v in `dtype` on `device`: the Hopper kernels take bf16 or fp16 at head
+    dim 64, the general kernels the rest."""
+    return route(device, dtype in HALF_SUFFIX and head_dim == HEAD_DIM)
 
 
 # ---------------------------------------------------------------------------
@@ -324,19 +342,27 @@ def kernel_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = load_library("flash_attention", KERNEL_SOURCES)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd_bf16.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
-        lib.flash_fwd_bf16.restype = i32
-        lib.flash_bwd_bf16.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
-        lib.flash_bwd_bf16.restype = i32
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for sfx in HALF_SUFFIX.values():
+            fwd, bwd = (getattr(lib, f"flash_{d}_{sfx}")
+                        for d in ("fwd", "bwd"))
+            fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+            bwd.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+            fwd.restype = bwd.restype = i32
+        lib.flash_general_fwd.argtypes = ([i32] + [ptr] * 6 + [i32] * 6
+                                          + [f32, ptr])
+        lib.flash_general_bwd.argtypes = ([i32] + [ptr] * 11 + [i32] * 6
+                                          + [f32, ptr])
+        for fn in (lib.flash_general_fwd, lib.flash_general_bwd):
+            fn.restype = i32
         _LIB = lib
     return _LIB
 
 
 def _check_cuda(q, *rest: torch.Tensor) -> None:
-    """q [B,Sq,H,64] and k, v (and o, dO) [B,Sk,H,64] (o, dO: Sq) bf16 on
-    one CUDA device."""
-    check_cuda_bf16("flash kernels", q, *rest)
+    """q [B,Sq,H,64] and k, v (and o, dO) [B,Sk,H,64] (o, dO: Sq) on one
+    CUDA device, all bf16 or all fp16."""
+    check_cuda("flash kernels", q, *rest, dtypes=tuple(HALF_SUFFIX))
     b, _, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"flash kernels are built for head dim {HEAD_DIM}, "
@@ -377,7 +403,7 @@ def _fwd_launch(q, k, v, f32_sum: bool, name: str,
                 plan: Optional[FlashPlan] = None):
     """Run the forward kernel with `plan` or the planner's (the CUDA tests
     force plans through here to reach every kernel instance): (o
-    [B,Sq,H,D] bf16, dense, lse [B*H,Sq] fp32)."""
+    [B,Sq,H,D] in q's dtype, dense, lse [B*H,Sq] fp32)."""
     _check_cuda(q, k, v)
     if k.shape[1] != v.shape[1]:
         raise ValueError(f"flash kernels: k and v lengths differ "
@@ -391,18 +417,18 @@ def _fwd_launch(q, k, v, f32_sum: bool, name: str,
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     strides = _strides_arg((sq_, sk_, sv_))
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(),
-                                 strides.buffer_info()[0], b, sq, sk, h,
-                                 *plan.launch_args(), int(f32_sum),
-                                 stream_of(q))
+        err = getattr(lib, f"flash_fwd_{HALF_SUFFIX[q.dtype]}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), strides.buffer_info()[0], b, sq, sk, h,
+            *plan.launch_args(), int(f32_sum), stream_of(q))
     raise_on(err, name)
     LAUNCHES[name] += 1
     return o, lse
 
 
 def flash_fwd_cuda(q, k, v):
-    """K1 on the card: (o [B,Sq,H,D] bf16, lse [B*H,Sq] fp32)."""
+    """K1 on the card: (o [B,Sq,H,D] in q's dtype, bf16 or fp16, lse
+    [B*H,Sq] fp32)."""
     return _fwd_launch(q, k, v, False, "flash_fwd")
 
 
@@ -445,19 +471,18 @@ def _bwd_cuda(q, k, v, o, lse, do, name: str, fold_delta: bool = False):
                           device=q.device)
     strides = _strides_arg([st for _, st in operands])
     with torch.cuda.device(q.device):
-        err = lib.flash_bwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                 scratch.data_ptr(),
-                                 strides.buffer_info()[0],
-                                 b, sq, sk, h, int(fold_delta), stream_of(q))
+        err = getattr(lib, f"flash_bwd_{HALF_SUFFIX[q.dtype]}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), scratch.data_ptr(), strides.buffer_info()[0], b,
+            sq, sk, h, int(fold_delta), stream_of(q))
     raise_on(err, name)
     LAUNCHES[name] += 1
     return dq, dk, dv
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do):
-    """K2 on the card: (dq, dk, dv) bf16."""
+    """K2 on the card: (dq, dk, dv) in q's dtype, bf16 or fp16."""
     return _bwd_cuda(q, k, v, o, lse, do, "flash_bwd")
 
 
@@ -474,48 +499,146 @@ def flash_bwd_fold_cuda(q, k, v, o, lse, do):
     return _bwd_cuda(q, k, v, o, lse, do, "flash_bwd_fold", fold_delta=True)
 
 
-def _on_cpu(x: torch.Tensor) -> bool:
-    return x.device.type == "cpu"
+def _check_general(q, k, v, *rest) -> None:
+    """q [B,Sq,H,D], k, v [B,Sk,H,D] (O, dO: q's shape) on one CUDA device
+    in one dtype the general kernels take."""
+    check_cuda("flash general kernels", q, k, v, *rest,
+               dtypes=tuple(ELEM_CODES))
+    b, _, h, d = q.shape
+    if (k.dim() != 4 or tuple(v.shape) != tuple(k.shape)
+            or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d)
+            or any(tuple(t.shape) != tuple(q.shape) for t in rest)):
+        raise ValueError(f"flash general kernels: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         f"[{b}, S, {h}, {d}]")
+
+
+def _fwd_general(q, k, v, f32_sum: bool, name: str):
+    """The general forward kernel (K1, or K4/K5 with `f32_sum`): (o
+    [B,Sq,H,D] in q's dtype, dense, lse [B*H,Sq] fp32). q, k and v are
+    read in place through their strides."""
+    _check_general(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    strides = _strides_arg(x.stride() for x in (q, k, v))
+    with torch.cuda.device(q.device):
+        err = kernel_library().flash_general_fwd(
+            elem_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), strides.buffer_info()[0], b, sq,
+            sk, h, d, int(f32_sum), 1.0 / math.sqrt(d), stream_of(q))
+    raise_on(err, general(name))
+    LAUNCHES[general(name)] += 1
+    return o, lse
+
+
+def _bwd_general(q, k, v, o, lse, do, name: str, mode: int):
+    """The general backward kernels: (dq, dk, dv) in q's dtype, dense.
+    mode 0: K2, 1: K3 (dq rounded before the scale), 2: K6 (delta from
+    its hi/lo pair)."""
+    _check_general(q, k, v, o, do)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b * h, sq):
+        raise ValueError(f"lse must be fp32 [{b * h}, {sq}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    lse = lse.contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b * h * sq,), dtype=torch.float32, device=q.device)
+    strides = _strides_arg(x.stride() for x in (q, k, v, o, do))
+    with torch.cuda.device(q.device):
+        err = kernel_library().flash_general_bwd(
+            elem_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            strides.buffer_info()[0], b, sq, sk, h, d, mode,
+            1.0 / math.sqrt(d), stream_of(q))
+    raise_on(err, general(name))
+    LAUNCHES[general(name)] += 1
+    return dq, dk, dv
+
+
+def flash_fwd_general(q, k, v):
+    """K1's general kernel on the card (any dtype it takes, any head
+    dim)."""
+    return _fwd_general(q, k, v, False, "flash_fwd")
+
+
+def flash_fwd_unfolded_general(q, k, v):
+    """K5's general kernel: the fp32 row sum."""
+    return _fwd_general(q, k, v, True, "flash_fwd_unfolded")
+
+
+def flash_fwd_stream_general(q, k, v):
+    """K4's general kernel: the fp32 row sum over its own key steps
+    (block_k only moves where the plain version rounds p)."""
+    return _fwd_general(q, k, v, True, "flash_fwd_stream")
+
+
+def flash_bwd_general(q, k, v, o, lse, do):
+    """K2's general kernels on the card."""
+    return _bwd_general(q, k, v, o, lse, do, "flash_bwd", 0)
+
+
+def flash_bwd_twopass_general(q, k, v, o, lse, do):
+    """K3's general kernels: dq rounded before the scale as well."""
+    return _bwd_general(q, k, v, o, lse, do, "flash_bwd_twopass", 1)
+
+
+def flash_bwd_fold_general(q, k, v, o, lse, do):
+    """K6's general kernels: delta = -(d_hi + d_lo) of its hi/lo pair."""
+    return _bwd_general(q, k, v, o, lse, do, "flash_bwd_fold", 2)
+
+
+def _routed(q, plain, kernel, general_kernel):
+    """Call `plain`, `kernel` or `general_kernel` by flash_route of q."""
+    return run_route(flash_route(q.device, q.dtype, q.shape[-1]), plain,
+                     kernel, general_kernel)
 
 
 def flash_fwd(q, k, v):
-    """K1 for CUDA tensors; its plain version for CPU ones."""
-    return flash_fwd_ref(q, k, v) if _on_cpu(q) else flash_fwd_cuda(q, k, v)
+    """K1 by flash_route."""
+    return _routed(q, lambda: flash_fwd_ref(q, k, v),
+                   lambda: flash_fwd_cuda(q, k, v),
+                   lambda: flash_fwd_general(q, k, v))
 
 
 def flash_fwd_unfolded(q, k, v):
-    """K5 for CUDA tensors; its plain version for CPU ones."""
-    if _on_cpu(q):
-        return flash_fwd_unfolded_ref(q, k, v)
-    return flash_fwd_unfolded_cuda(q, k, v)
+    """K5 by flash_route."""
+    return _routed(q, lambda: flash_fwd_unfolded_ref(q, k, v),
+                   lambda: flash_fwd_unfolded_cuda(q, k, v),
+                   lambda: flash_fwd_unfolded_general(q, k, v))
 
 
 def flash_fwd_stream(q, k, v, block_k: int):
-    """K4 for CUDA tensors; its plain version for CPU ones."""
-    if _on_cpu(q):
-        return flash_fwd_stream_ref(q, k, v, block_k)
-    return flash_fwd_stream_cuda(q, k, v)
+    """K4 by flash_route."""
+    return _routed(q, lambda: flash_fwd_stream_ref(q, k, v, block_k),
+                   lambda: flash_fwd_stream_cuda(q, k, v),
+                   lambda: flash_fwd_stream_general(q, k, v))
 
 
 def flash_bwd(q, k, v, o, lse, do):
-    """K2 for CUDA tensors; its plain version for CPU ones."""
-    if _on_cpu(q):
-        return flash_bwd_ref(q, k, v, o, lse, do)
-    return flash_bwd_cuda(q, k, v, o, lse, do)
+    """K2 by flash_route."""
+    return _routed(q, lambda: flash_bwd_ref(q, k, v, o, lse, do),
+                   lambda: flash_bwd_cuda(q, k, v, o, lse, do),
+                   lambda: flash_bwd_general(q, k, v, o, lse, do))
 
 
 def flash_bwd_twopass(q, k, v, o, lse, do):
-    """K3 for CUDA tensors; its plain version for CPU ones."""
-    if _on_cpu(q):
-        return flash_bwd_twopass_ref(q, k, v, o, lse, do)
-    return flash_bwd_twopass_cuda(q, k, v, o, lse, do)
+    """K3 by flash_route."""
+    return _routed(q, lambda: flash_bwd_twopass_ref(q, k, v, o, lse, do),
+                   lambda: flash_bwd_twopass_cuda(q, k, v, o, lse, do),
+                   lambda: flash_bwd_twopass_general(q, k, v, o, lse, do))
 
 
 def flash_bwd_fold(q, k, v, o, lse, do):
-    """K6 for CUDA tensors; its plain version for CPU ones."""
-    if _on_cpu(q):
-        return flash_bwd_fold_ref(q, k, v, o, lse, do)
-    return flash_bwd_fold_cuda(q, k, v, o, lse, do)
+    """K6 by flash_route."""
+    return _routed(q, lambda: flash_bwd_fold_ref(q, k, v, o, lse, do),
+                   lambda: flash_bwd_fold_cuda(q, k, v, o, lse, do),
+                   lambda: flash_bwd_fold_general(q, k, v, o, lse, do))
 
 
 # ---------------------------------------------------------------------------

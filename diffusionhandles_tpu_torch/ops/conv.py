@@ -19,8 +19,12 @@ the nine taps summed in fp32, the sum rounded once to x's dtype. dx is the
 same conv of dy (cast to x's dtype) with the flipped, in/out-transposed
 kernel. dw is a plain fp32 recomputation (the JAX package's `_dw_taps` is
 XLA, not Pallas), made only when autograd asks for it: the pipeline's
-weights are frozen. A wrapper runs the plain version only for tensors on
-the CPU; for a CUDA tensor it launches the kernel or raises.
+weights are frozen. A call takes the route `conv3x3_route` names from its
+device, dtype and channels: the plain version on the CPU; on the card this
+kernel for bf16 or fp16 (an instance each) with Ci and Co multiples of 8,
+else the general kernel (`csrc/conv_general.cu`: fp32, fp16 or bf16, any
+channel count, on the CUDA cores), counted as `conv3x3_fwd_general` /
+`conv3x3_dx_general`.
 """
 
 from __future__ import annotations
@@ -34,14 +38,22 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from diffusionhandles_tpu_torch.utils.cuda_build import (check_cuda_bf16,
+from diffusionhandles_tpu_torch.utils.cuda_build import (ELEM_CODES,
+                                                         HALF_SUFFIX,
+                                                         check_cuda,
+                                                         elem_code, general,
                                                          load_library,
-                                                         raise_on, stream_of)
+                                                         raise_on, route,
+                                                         run_route, stream_of)
 
-# Launches of each kernel wrapper since the last reset_launch_counts().
-LAUNCHES: Dict[str, int] = {"conv3x3_fwd": 0, "conv3x3_dx": 0}
+# Launches of each kernel wrapper, the Hopper kernel's and the general
+# kernel's (`<name>_general`), since the last reset_launch_counts().
+LAUNCHES: Dict[str, int] = {
+    n: 0 for k in ("conv3x3_fwd", "conv3x3_dx") for n in (k, general(k))}
 
-KERNEL_SOURCES = ("conv.cu",)
+# One library for the conv kernels and the fused GN+SiLU+conv kernels
+# (ops/gn_conv.py), which run these GEMMs (csrc/conv.cuh).
+KERNEL_SOURCES = ("conv.cu", "conv_general.cu", "gn_conv.cu")
 # Ci and Co divide by it: TMA takes global strides in 16-byte units
 CHANNEL_MULTIPLE = 8
 
@@ -93,6 +105,15 @@ def conv3x3_ok(x_shape: Sequence[int], w_shape: Sequence[int],
             < budget)
 
 
+def conv3x3_route(device, dtype, ci: int, co: int) -> str:
+    """The route (`utils.cuda_build.route`) of a conv of Ci -> Co
+    channels in `dtype` on `device`: the Hopper kernel takes bf16 or fp16
+    with Ci and Co multiples of 8, the general kernel the rest."""
+    return route(device, dtype in HALF_SUFFIX
+                 and ci % CHANNEL_MULTIPLE == 0
+                 and co % CHANNEL_MULTIPLE == 0)
+
+
 # ---------------------------------------------------------------------------
 # The planner: tile and K split of one launch, from the shape alone
 # ---------------------------------------------------------------------------
@@ -112,8 +133,9 @@ MIN_SPLIT_STEPS = 4              # K steps a split keeps at least
 # consumer warpgroups reach, the copies at what one SM draws from L2.
 # Whole waves of CTAs run in turn; the call takes at least its unique
 # bytes over device memory, and a split adds its fp32 partials (written
-# and read back) and the second pass's launch. Estimates, set against
-# chip_smoke.py's per-site times.
+# and read back) and the second pass's launch. With fp32 output (K9's dx,
+# whose epilogue pass sums the splits) every plan writes and reads its
+# partials. Estimates, set against chip_smoke.py's per-site times.
 _SM_FLOPS = 989e12 / SMS
 _MMA_SHARE = {1: 0.6, 2: 0.8}
 _SM_COPY_BPS = 60e9
@@ -165,20 +187,23 @@ def pixel_box(b: int, h: int, w: int, warpgroups: int) -> Tuple[int, int,
     return bw, bh, rest // bh
 
 
-def _estimate(b, h, w, kch, nch, nwg, bn, splits, m_tiles, k_steps):
+def _estimate(b, h, w, kch, nch, nwg, bn, splits, m_tiles, k_steps,
+              f32_out):
     bm = 64 * nwg
     step = max(2.0 * bm * bn * K_STEP / (_SM_FLOPS * _MMA_SHARE[nwg]),
                (bm + bn) * 2 * K_STEP / _SM_COPY_BPS)
     ctas = m_tiles * math.ceil(nch / bn) * splits
     main = math.ceil(ctas / SMS) * math.ceil(k_steps / splits) * step
     unique = 2.0 * (b * h * w * (kch + nch) + 9 * kch * nch)
-    extra = (0.0 if splits == 1 else
-             8.0 * splits * b * h * w * nch / _HBM_BPS + _SPLIT_PASS_S)
+    partials = 8.0 * splits * b * h * w * nch / _HBM_BPS
+    extra = (partials if f32_out else 0.0 if splits == 1
+             else partials + _SPLIT_PASS_S)
     return max(main, unique / _HBM_BPS) + extra
 
 
 def fixed_plan(b: int, h: int, w: int, kch: int, nch: int,
-               warpgroups: int, block_n: int, splits: int) -> ConvPlan:
+               warpgroups: int, block_n: int, splits: int,
+               f32_out: bool = False) -> ConvPlan:
     """The plan with the given tile and split (the planner's candidates;
     tests use it to reach every kernel instance)."""
     box = pixel_box(b, h, w, warpgroups)
@@ -186,16 +211,18 @@ def fixed_plan(b: int, h: int, w: int, kch: int, nch: int,
                * math.ceil(w / box[0]))
     k_steps = 9 * math.ceil(kch / K_STEP)
     est = _estimate(b, h, w, kch, nch, warpgroups, block_n, splits, m_tiles,
-                    k_steps)
+                    k_steps, f32_out)
     return ConvPlan(warpgroups, block_n, box, splits, m_tiles,
                     math.ceil(nch / block_n), k_steps, est)
 
 
 @functools.lru_cache(maxsize=None)
-def plan_conv3x3(b: int, h: int, w: int, kch: int, nch: int) -> ConvPlan:
+def plan_conv3x3(b: int, h: int, w: int, kch: int, nch: int,
+                 f32_out: bool = False) -> ConvPlan:
     """The plan of the conv GEMM with `kch` channels along K (Ci forward,
     Co for dx) and `nch` along N, over B x H x W pixels: the candidate
-    tiles and splits ranked by the cost model above."""
+    tiles and splits ranked by the cost model above. `f32_out`: the GEMM
+    writes fp32 partials at every split (K9's dx)."""
     k_steps = 9 * math.ceil(kch / K_STEP)
     best = None
     for nwg, bn in TILES:
@@ -203,7 +230,7 @@ def plan_conv3x3(b: int, h: int, w: int, kch: int, nch: int) -> ConvPlan:
         max_splits = max(1, min(k_steps // MIN_SPLIT_STEPS,
                                 math.ceil(2 * SMS / tiles)))
         for splits in range(1, max_splits + 1):
-            cand = fixed_plan(b, h, w, kch, nch, nwg, bn, splits)
+            cand = fixed_plan(b, h, w, kch, nch, nwg, bn, splits, f32_out)
             key = (cand.est_s, splits, -nwg, -bn)
             if best is None or key < best[0]:
                 best = (key, cand)
@@ -256,13 +283,32 @@ _LIB = None
 
 
 def kernel_library() -> ctypes.CDLL:
-    """Build (first call) and load the conv kernels."""
+    """Build (first call) and load the conv and fused GN+SiLU+conv
+    kernels."""
     global _LIB
     if _LIB is None:
         lib = load_library("conv3x3", KERNEL_SOURCES)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.conv3x3_fwd_bf16, lib.conv3x3_dx_bf16):
-            fn.argtypes = [ptr] * 4 + [i32] * 11 + [ptr]
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fast = [getattr(lib, f"{e}_{sfx}") for sfx in HALF_SUFFIX.values()
+                for e in ("conv3x3_fwd", "conv3x3_dx", "gn_conv_fwd",
+                          "gn_conv_dx")]
+        for sfx in HALF_SUFFIX.values():
+            for e in ("conv3x3_fwd", "conv3x3_dx"):
+                getattr(lib, f"{e}_{sfx}").argtypes = ([ptr] * 4 + [i32] * 11
+                                                       + [ptr])
+            getattr(lib, f"gn_conv_fwd_{sfx}").argtypes = (
+                [ptr] * 10 + [i32] * 6 + [f32] + [i32] * 6 + [ptr])
+            getattr(lib, f"gn_conv_dx_{sfx}").argtypes = ([ptr] * 12
+                                                          + [i32] * 12
+                                                          + [ptr])
+        lib.conv3x3_general.argtypes = ([i32] * 2 + [ptr] * 3 + [i32] * 5
+                                        + [ptr])
+        lib.gn_conv_fwd_general.argtypes = ([i32] + [ptr] * 9 + [i32] * 6
+                                            + [f32, ptr])
+        lib.gn_conv_dx_general.argtypes = ([i32] + [ptr] * 12 + [i32] * 6
+                                           + [ptr])
+        for fn in (*fast, lib.conv3x3_general, lib.gn_conv_fwd_general,
+                   lib.gn_conv_dx_general):
             fn.restype = i32
         _LIB = lib
     return _LIB
@@ -281,7 +327,7 @@ def to_kernel_layout(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check(src, w, ci: int, co: int) -> Tuple[int, int, int]:
-    check_cuda_bf16("conv3x3", src, w)
+    check_cuda("conv3x3", src, w, dtypes=tuple(HALF_SUFFIX))
     if tuple(w.shape) != (co, ci, 3, 3):
         raise ValueError(f"conv3x3: w {tuple(w.shape)} is not "
                          f"[{co}, {ci}, 3, 3]")
@@ -299,19 +345,20 @@ def _check(src, w, ci: int, co: int) -> Tuple[int, int, int]:
 
 def _launch(name, src, w, plan: Optional[ConvPlan] = None):
     """Run K7's `name` kernel ("conv3x3_fwd" or "conv3x3_dx") on the
-    channels-last bf16 `src` (x, or dy for dx) and w [Co, Ci, 3, 3],
-    writing a channels-last bf16 output, with `plan` or the planner's (the
-    CUDA tests force plans through here to reach every kernel instance)."""
+    channels-last bf16 or fp16 `src` (x, or dy for dx) and w [Co, Ci, 3,
+    3], writing a channels-last output of their type, with `plan` or the
+    planner's (the CUDA tests force plans through here to reach every
+    kernel instance)."""
     co, ci = w.shape[:2]
     kch, nch = (co, ci) if name == "conv3x3_dx" else (ci, co)
     b, h, wd = _check(src, w, ci, co)
     plan = plan or plan_conv3x3(b, h, wd, kch, nch)
-    out = torch.empty((b, nch, h, wd), dtype=torch.bfloat16,
+    out = torch.empty((b, nch, h, wd), dtype=src.dtype,
                       device=src.device, memory_format=torch.channels_last)
     part = (torch.empty((plan.splits * b * h * wd * nch,),
                         dtype=torch.float32, device=src.device)
             if plan.splits > 1 else None)
-    entry = getattr(kernel_library(), f"{name}_bf16")
+    entry = getattr(kernel_library(), f"{name}_{HALF_SUFFIX[src.dtype]}")
     with torch.cuda.device(src.device):
         err = entry(src.data_ptr(), w.data_ptr(), out.data_ptr(),
                     None if part is None else part.data_ptr(), b, h, wd, ci,
@@ -322,10 +369,10 @@ def _launch(name, src, w, plan: Optional[ConvPlan] = None):
 
 
 def conv3x3_fwd_cuda(x, w):
-    """The kernel on the card: y [B, Co, H, W] bf16 in channels-last
-    memory. x and w in another memory format are copied to channels-last
-    first (the conv U-Net holds its weights there, so its calls copy
-    none)."""
+    """The kernel on the card: y [B, Co, H, W] in x's dtype (bf16 or fp16)
+    in channels-last memory. x and w in another memory format are copied
+    to channels-last first (the conv U-Net holds its weights there, so its
+    calls copy none)."""
     ci = w.shape[1]
     if x.dim() != 4 or x.shape[1] != ci:
         raise ValueError(f"conv3x3: x {tuple(x.shape)} is not [B, {ci}, H, W]")
@@ -334,11 +381,12 @@ def conv3x3_fwd_cuda(x, w):
 
 
 def conv3x3_dx_cuda(dy, w, dtype):
-    """The dx kernel on the card: dx [B, Ci, H, W] bf16 in channels-last
-    memory (`dtype` must be bf16, x's dtype). dy and w in another memory
-    format are copied to channels-last first."""
-    if dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3 dx kernel writes bfloat16, asked {dtype}")
+    """The dx kernel on the card: dx [B, Ci, H, W] in `dtype` (x's: bf16
+    or fp16) in channels-last memory. dy and w in another memory format
+    are copied to channels-last first."""
+    if dtype not in HALF_SUFFIX:
+        raise TypeError(f"conv3x3 dx kernel writes bfloat16 or float16, "
+                        f"asked {dtype}")
     co = w.shape[0]
     if dy.dim() != 4 or dy.shape[1] != co:
         raise ValueError(f"conv3x3: dy {tuple(dy.shape)} is not "
@@ -347,18 +395,64 @@ def conv3x3_dx_cuda(dy, w, dtype):
                    to_kernel_layout(w.to(dtype)))
 
 
+def _general_launch(name, src, w, dtype):
+    """Run K7's general kernel ("conv3x3_fwd" or "conv3x3_dx") on `src`
+    (x, or dy for dx) and w [Co, Ci, 3, 3], both cast to `dtype` and
+    copied to channels-last where they are not: the output channels-last
+    in `dtype`."""
+    co, ci = w.shape[:2]
+    kch, nch = (co, ci) if name == "conv3x3_dx" else (ci, co)
+    if src.dim() != 4 or src.shape[1] != kch:
+        raise ValueError(f"conv3x3: input {tuple(src.shape)} is not "
+                         f"[B, {kch}, H, W]")
+    if tuple(w.shape) != (co, ci, 3, 3):
+        raise ValueError(f"conv3x3: w {tuple(w.shape)} is not "
+                         f"[{co}, {ci}, 3, 3]")
+    src = to_kernel_layout(src.to(dtype))
+    w = to_kernel_layout(w.to(dtype))
+    check_cuda("conv3x3 general kernel", src, w,
+               dtypes=tuple(ELEM_CODES))
+    b, _, h, wd = src.shape
+    out = torch.empty((b, nch, h, wd), dtype=dtype, device=src.device,
+                      memory_format=torch.channels_last)
+    with torch.cuda.device(src.device):
+        err = kernel_library().conv3x3_general(
+            elem_code(dtype), int(name == "conv3x3_dx"), src.data_ptr(),
+            w.data_ptr(), out.data_ptr(), b, h, wd, ci, co, stream_of(src))
+    raise_on(err, general(name))
+    LAUNCHES[general(name)] += 1
+    return out
+
+
+def conv3x3_fwd_general(x, w):
+    """K7's general kernel on the card: y [B, Co, H, W] in x's dtype, in
+    channels-last memory."""
+    return _general_launch("conv3x3_fwd", x, w, x.dtype)
+
+
+def conv3x3_dx_general(dy, w, dtype):
+    """K7's general dx kernel on the card: dx [B, Ci, H, W] in `dtype`
+    (x's), in channels-last memory."""
+    return _general_launch("conv3x3_dx", dy, w, dtype)
+
+
+def _fwd_route(x, w) -> str:
+    return conv3x3_route(x.device, x.dtype, w.shape[1], w.shape[0])
+
+
 def conv3x3_fwd(x, w):
-    """The kernel for CUDA tensors; the plain version for CPU ones."""
-    if x.device.type == "cpu":
-        return conv3x3_fwd_ref(x, w)
-    return conv3x3_fwd_cuda(x, w)
+    """The forward by conv3x3_route."""
+    return run_route(_fwd_route(x, w), lambda: conv3x3_fwd_ref(x, w),
+                     lambda: conv3x3_fwd_cuda(x, w),
+                     lambda: conv3x3_fwd_general(x, w))
 
 
 def conv3x3_dx(dy, w, dtype):
-    """The dx kernel for CUDA tensors; the plain version for CPU ones."""
-    if dy.device.type == "cpu":
-        return conv3x3_dx_ref(dy, w, dtype)
-    return conv3x3_dx_cuda(dy, w, dtype)
+    """dx by conv3x3_route of x's dtype."""
+    return run_route(conv3x3_route(dy.device, dtype, w.shape[1], w.shape[0]),
+                     lambda: conv3x3_dx_ref(dy, w, dtype),
+                     lambda: conv3x3_dx_cuda(dy, w, dtype),
+                     lambda: conv3x3_dx_general(dy, w, dtype))
 
 
 class Conv3x3Function(torch.autograd.Function):
@@ -368,8 +462,8 @@ class Conv3x3Function(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
-        if x.is_cuda:
-            x = to_kernel_layout(x)  # saved as the kernel takes it
+        if _fwd_route(x, w) != "cpu":
+            x = to_kernel_layout(x)  # saved as the kernels take it
         ctx.save_for_backward(x, w)
         return conv3x3_fwd(x, w)
 

@@ -5,8 +5,7 @@
 
 x is NCHW ([B, C, *spatial]); a group of one image is one contiguous run
 of (C / G) * H * W values. The kernels are CUDA C++ for Hopper
-(`csrc/gn.cu`), built at first use (`utils/cuda_build.py`) into one
-library with the fused GN+SiLU+conv kernels of `ops/gn_conv.py`.
+(`csrc/gn.cu`), built at first use (`utils/cuda_build.py`).
 
 Numerics are the TPU kernel's recipe, reproduced by the plain versions
 (`gn_silu_fwd_ref`, `gn_silu_bwd_ref`):
@@ -18,8 +17,12 @@ Numerics are the TPU kernel's recipe, reproduced by the plain versions
             dgamma = sum_b v, dbeta = sum_b u;
             dx = rsig * (gamma * dz - t1 - xh * t2), t1 and t2 the group
             means of u * gamma and v * gamma.
-A wrapper runs the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+A call takes the route `gn_route` names from its device and dtypes: the
+plain version on the CPU; on the card the kernel's bf16 instance for bf16
+in and out, else its general instances (the same kernels over fp32, fp16
+or bf16 x and y, rounding to x's dtype where the bf16 instance rounds to
+bf16), counted as `gn_silu_fwd_general` / `gn_silu_bwd_general`. Both take
+C divisible by the groups and H*W by 8, as the gate requires.
 """
 
 from __future__ import annotations
@@ -30,16 +33,19 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from diffusionhandles_tpu_torch.utils.cuda_build import (check_cuda_bf16,
+from diffusionhandles_tpu_torch.utils.cuda_build import (ELEM_CODES,
+                                                         check_cuda,
+                                                         elem_code, general,
                                                          load_library,
-                                                         raise_on, stream_of)
+                                                         raise_on, route,
+                                                         run_route, stream_of)
 
-# Launches of each kernel wrapper since the last reset_launch_counts().
-LAUNCHES: Dict[str, int] = {"gn_silu_fwd": 0, "gn_silu_bwd": 0}
+# Launches of each kernel wrapper, the bf16 instance's and the general
+# instances' (`<name>_general`), since the last reset_launch_counts().
+LAUNCHES: Dict[str, int] = {
+    n: 0 for k in ("gn_silu_fwd", "gn_silu_bwd") for n in (k, general(k))}
 
-# One library for the GroupNorm kernels and the fused GN+SiLU+conv kernels
-# (ops/gn_conv.py): they share the statistics pass (csrc/gn_common.cuh).
-KERNEL_SOURCES = ("gn.cu", "gn_conv.cu")
+KERNEL_SOURCES = ("gn.cu",)
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +70,14 @@ def gn_ok(x_shape: Sequence[int], groups: int, dtype_bytes: int = 2) -> bool:
     if s % 8:
         return False
     return s * c * dtype_bytes < 512 * 1024 * 1024
+
+
+def gn_route(device, dtype, out_dtype) -> str:
+    """The route (`utils.cuda_build.route`) of a GroupNorm of x in
+    `dtype`, written in `out_dtype`, on `device`: the bf16 instance for
+    bf16 in and out, the general instances the rest."""
+    return route(device, dtype == torch.bfloat16
+                 and out_dtype == torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -135,27 +149,24 @@ _LIB = None
 
 
 def kernel_library() -> ctypes.CDLL:
-    """Build (first call) and load the GroupNorm and GN+SiLU+conv kernels."""
+    """Build (first call) and load the GroupNorm kernels."""
     global _LIB
     if _LIB is None:
         lib = load_library("groupnorm", KERNEL_SOURCES)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gn_fwd_bf16.argtypes = [ptr] * 7 + [i32] * 4 + [f32, i32, ptr]
         lib.gn_bwd_bf16.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
-        lib.gn_conv_fwd_bf16.argtypes = ([ptr] * 8 + [i32] * 6
-                                         + [f32, ptr])
-        lib.gn_conv_dx_bf16.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
-        for fn in (lib.gn_fwd_bf16, lib.gn_bwd_bf16, lib.gn_conv_fwd_bf16,
-                   lib.gn_conv_dx_bf16):
+        lib.gn_fwd_general.argtypes = ([i32] * 2 + [ptr] * 7 + [i32] * 4
+                                       + [f32, i32, ptr])
+        lib.gn_bwd_general.argtypes = [i32] + [ptr] * 11 + [i32] * 5 + [ptr]
+        for fn in (lib.gn_fwd_bf16, lib.gn_bwd_bf16, lib.gn_fwd_general,
+                   lib.gn_bwd_general):
             fn.restype = i32
         _LIB = lib
     return _LIB
 
 
-def _check_gn(x, groups: int, out_dtype) -> Tuple[int, int, int]:
-    check_cuda_bf16("gn_silu", x, aligned=True)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"gn_silu kernel writes bfloat16, asked {out_dtype}")
+def _check_shape(x, groups: int) -> Tuple[int, int, int]:
     b, c = x.shape[:2]
     hw = x[0, 0].numel()
     if c % groups or hw % 8:
@@ -164,37 +175,41 @@ def _check_gn(x, groups: int, out_dtype) -> Tuple[int, int, int]:
     return b, c, hw
 
 
-def gn_silu_fwd_cuda(x, gamma, beta, groups: int, eps: float, act: bool,
-                     out_dtype):
-    """Forward kernel on the card: (y bf16 like x, mean [B, G], rsig
-    [B, G]). x in another memory format is copied to NCHW first."""
-    x = x.contiguous()
-    b, c, hw = _check_gn(x, groups, out_dtype)
-    lib = kernel_library()
+def _check_gn(x, groups: int, out_dtype) -> Tuple[int, int, int]:
+    check_cuda("gn_silu", x, aligned=True)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"gn_silu kernel writes bfloat16, asked {out_dtype}")
+    return _check_shape(x, groups)
+
+
+def _check_general(x, out_dtype, *rest) -> None:
+    check_cuda("gn_silu general kernel", x, *rest, aligned=True,
+               dtypes=tuple(ELEM_CODES))
+    elem_code(out_dtype)
+
+
+def _launch_fwd(entry, codes, x, gamma, beta, groups, eps, act, out_dtype):
+    """Run a forward entry (the bf16 one, or the general one with the
+    dtype codes `codes`) on contiguous x: (y, mean, rsig)."""
+    b, c, hw = _check_shape(x, groups)
     g32 = gamma.float().contiguous()
     b32 = beta.float().contiguous()
-    y = torch.empty_like(x)
+    y = torch.empty_like(x, dtype=out_dtype)
     mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
     rsig = torch.empty_like(mean)
     sums = torch.empty((2, b * c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.gn_fwd_bf16(x.data_ptr(), g32.data_ptr(), b32.data_ptr(),
-                              y.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
-                              sums.data_ptr(), b, c, hw, groups, eps,
-                              int(act), stream_of(x))
-    raise_on(err, "gn_silu_fwd")
-    LAUNCHES["gn_silu_fwd"] += 1
-    return y, mean, rsig
+        err = entry(*codes, x.data_ptr(), g32.data_ptr(), b32.data_ptr(),
+                    y.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
+                    sums.data_ptr(), b, c, hw, groups, eps, int(act),
+                    stream_of(x))
+    return err, (y, mean, rsig)
 
 
-def gn_silu_bwd_cuda(x, dy, gamma, beta, mean, rsig, groups: int,
-                     act: bool):
-    """Backward kernel on the card: (dx bf16, u [B, C], v [B, C])."""
-    x = x.contiguous()
-    b, c, hw = _check_gn(x, groups, torch.bfloat16)
-    dy = dy.to(torch.bfloat16).contiguous()
-    check_cuda_bf16("gn_silu", x, dy, aligned=True)
-    lib = kernel_library()
+def _launch_bwd(entry, codes, x, dy, gamma, beta, mean, rsig, groups, act):
+    """Run a backward entry on contiguous x and dy in x's dtype: (dx, u,
+    v)."""
+    b, c, hw = _check_shape(x, groups)
     g32 = gamma.float().contiguous()
     b32 = beta.float().contiguous()
     mean, rsig = mean.contiguous(), rsig.contiguous()
@@ -203,31 +218,89 @@ def gn_silu_bwd_cuda(x, dy, gamma, beta, mean, rsig, groups: int,
     v = torch.empty_like(u)
     t12 = torch.empty((2, b * groups), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.gn_bwd_bf16(x.data_ptr(), dy.data_ptr(), g32.data_ptr(),
-                              b32.data_ptr(), mean.data_ptr(),
-                              rsig.data_ptr(), dx.data_ptr(), u.data_ptr(),
-                              v.data_ptr(), t12.data_ptr(),
-                              t12[1].data_ptr(), b, c, hw, groups, int(act),
-                              stream_of(x))
+        err = entry(*codes, x.data_ptr(), dy.data_ptr(), g32.data_ptr(),
+                    b32.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
+                    dx.data_ptr(), u.data_ptr(), v.data_ptr(),
+                    t12.data_ptr(), t12[1].data_ptr(), b, c, hw, groups,
+                    int(act), stream_of(x))
+    return err, (dx, u, v)
+
+
+def gn_silu_fwd_cuda(x, gamma, beta, groups: int, eps: float, act: bool,
+                     out_dtype):
+    """Forward kernel on the card: (y bf16 like x, mean [B, G], rsig
+    [B, G]). x in another memory format is copied to NCHW first."""
+    x = x.contiguous()
+    _check_gn(x, groups, out_dtype)
+    err, out = _launch_fwd(kernel_library().gn_fwd_bf16, (), x, gamma, beta,
+                           groups, eps, act, out_dtype)
+    raise_on(err, "gn_silu_fwd")
+    LAUNCHES["gn_silu_fwd"] += 1
+    return out
+
+
+def gn_silu_bwd_cuda(x, dy, gamma, beta, mean, rsig, groups: int,
+                     act: bool):
+    """Backward kernel on the card: (dx bf16, u [B, C], v [B, C])."""
+    x = x.contiguous()
+    _check_gn(x, groups, torch.bfloat16)
+    dy = dy.to(torch.bfloat16).contiguous()
+    check_cuda("gn_silu", x, dy, aligned=True)
+    err, out = _launch_bwd(kernel_library().gn_bwd_bf16, (), x, dy, gamma,
+                           beta, mean, rsig, groups, act)
     raise_on(err, "gn_silu_bwd")
     LAUNCHES["gn_silu_bwd"] += 1
-    return dx, u, v
+    return out
+
+
+def gn_silu_fwd_general(x, gamma, beta, groups: int, eps: float, act: bool,
+                        out_dtype):
+    """The kernel's general instances on the card: x and y of any dtype
+    in ELEM_CODES (y in out_dtype, like x)."""
+    x = x.contiguous()
+    _check_general(x, out_dtype)
+    err, out = _launch_fwd(kernel_library().gn_fwd_general,
+                           (ELEM_CODES[x.dtype], ELEM_CODES[out_dtype]), x,
+                           gamma, beta, groups, eps, act, out_dtype)
+    raise_on(err, "gn_silu_fwd_general")
+    LAUNCHES["gn_silu_fwd_general"] += 1
+    return out
+
+
+def gn_silu_bwd_general(x, dy, gamma, beta, mean, rsig, groups: int,
+                        act: bool):
+    """The backward's general instances: dx in x's dtype, dy cast to it."""
+    x = x.contiguous()
+    dy = dy.to(x.dtype).contiguous()
+    _check_general(x, x.dtype, dy)
+    err, out = _launch_bwd(kernel_library().gn_bwd_general,
+                           (ELEM_CODES[x.dtype],), x, dy, gamma, beta, mean,
+                           rsig, groups, act)
+    raise_on(err, "gn_silu_bwd_general")
+    LAUNCHES["gn_silu_bwd_general"] += 1
+    return out
 
 
 def gn_silu_fwd(x, gamma, beta, groups, eps, act, out_dtype):
-    """The forward kernel for CUDA tensors; its plain version for CPU
-    ones."""
-    if x.device.type == "cpu":
-        return gn_silu_fwd_ref(x, gamma, beta, groups, eps, act, out_dtype)
-    return gn_silu_fwd_cuda(x, gamma, beta, groups, eps, act, out_dtype)
+    """The forward by gn_route."""
+    return run_route(
+        gn_route(x.device, x.dtype, out_dtype),
+        lambda: gn_silu_fwd_ref(x, gamma, beta, groups, eps, act, out_dtype),
+        lambda: gn_silu_fwd_cuda(x, gamma, beta, groups, eps, act,
+                                 out_dtype),
+        lambda: gn_silu_fwd_general(x, gamma, beta, groups, eps, act,
+                                    out_dtype))
 
 
 def gn_silu_bwd(x, dy, gamma, beta, mean, rsig, groups, act):
-    """The backward kernel for CUDA tensors; its plain version for CPU
-    ones."""
-    if x.device.type == "cpu":
-        return gn_silu_bwd_ref(x, dy, gamma, beta, mean, rsig, groups, act)
-    return gn_silu_bwd_cuda(x, dy, gamma, beta, mean, rsig, groups, act)
+    """The backward by gn_route (dx is written in x's dtype)."""
+    return run_route(
+        gn_route(x.device, x.dtype, x.dtype),
+        lambda: gn_silu_bwd_ref(x, dy, gamma, beta, mean, rsig, groups, act),
+        lambda: gn_silu_bwd_cuda(x, dy, gamma, beta, mean, rsig, groups,
+                                 act),
+        lambda: gn_silu_bwd_general(x, dy, gamma, beta, mean, rsig, groups,
+                                    act))
 
 
 class GNSiLUFunction(torch.autograd.Function):

@@ -6,8 +6,8 @@ source, from the sources under `diffusionhandles_tpu_torch/csrc/` into
 loaded with `ctypes`: the sources expose a plain C interface, so no PyTorch
 header is compiled. The file name carries a hash of the sources and flags,
 so an edited source is rebuilt and a stale library is never loaded. A
-failed build raises. The launch helpers at the end are shared by the
-kernel wrappers of `ops/`.
+failed build raises. The launch and routing helpers at the end are shared
+by the kernel wrappers of `ops/`.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence, TypeVar
 
 import torch
 
@@ -120,17 +120,61 @@ def raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def check_cuda_bf16(what: str, *tensors: torch.Tensor,
-                    aligned: bool = False) -> None:
-    """Raise unless all `tensors` are bfloat16 on one CUDA device and, with
-    `aligned`, contiguous and 16-byte aligned (for vector loads)."""
+def check_cuda(what: str, *tensors: torch.Tensor, aligned: bool = False,
+               dtypes: Sequence[torch.dtype] = (torch.bfloat16,)) -> None:
+    """Raise unless all `tensors` are on one CUDA device in one dtype, one
+    of `dtypes` (bfloat16 by default) and, with `aligned`, contiguous and
+    16-byte aligned (for vector loads)."""
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{what}: all tensors must be on one CUDA "
                              f"device, got {[x.device for x in tensors]}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what} takes bfloat16, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != tensors[0].dtype:
+            raise TypeError(f"{what} takes "
+                            f"{' or '.join(map(str, dtypes))}, got "
+                            f"{[x.dtype for x in tensors]}")
         if aligned and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{what} takes contiguous, 16-byte aligned "
                              "tensors")
+
+
+# The 16-bit types of the Hopper kernels' instances, and their entries'
+# name suffixes (`<entry>_bf16`, `<entry>_f16`)
+HALF_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
+# The dtype codes of the kernels' element types (csrc/elem.cuh: ELEM_*)
+ELEM_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def elem_code(dtype: torch.dtype) -> int:
+    """The dtype code the general entries take for `dtype`."""
+    if dtype not in ELEM_CODES:
+        raise TypeError(f"the kernels take float32, float16 or bfloat16, "
+                        f"got {dtype}")
+    return ELEM_CODES[dtype]
+
+
+def route(device, kernel_takes: bool) -> str:
+    """The route of a call on `device`: "cpu" (the plain version, on the
+    CPU); else "kernel" where `kernel_takes` (the call's dtype and shape
+    are ones the op's Hopper kernel is built for), or "general" (the op's
+    general kernel, for the other dtypes and shapes its gate admits). The
+    kernel wrappers refuse tensors off a CUDA device."""
+    if torch.device(device).type == "cpu":
+        return "cpu"
+    return "kernel" if kernel_takes else "general"
+
+
+def general(name: str) -> str:
+    """The launch counter of kernel `name`'s general route."""
+    return f"{name}_general"
+
+
+T = TypeVar("T")
+
+
+def run_route(r: str, cpu: Callable[[], T], kernel: Callable[[], T],
+              general_kernel: Callable[[], T]) -> T:
+    """Call the function of route `r` (each wrapper counts its own
+    launches)."""
+    return {"cpu": cpu, "kernel": kernel, "general": general_kernel}[r]()

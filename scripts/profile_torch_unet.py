@@ -9,12 +9,16 @@ forward + backward to the latents (guidance; null-text differentiates to
 the embedding instead), and the batch-2 CFG forward. Then one batch-1
 forward + backward under torch.profiler: device time by kernel, the count
 of device ops (kernels and copies) in the call, the flash kernels' device
-ms (each kernel, and their sum) and the conv kernel's (K7), the copy
-kernels (PyTorch's copies, which layout changes and dtype casts both run,
-and cuDNN's NCHW <-> NHWC transposes) and their share of the device time,
-and the device's busy share of the wall time (profiled, and against the
-unprofiled call). With --fused, the U-Net with the fused
-GroupNorm kernels (UNetConfig.fused_gn_conv, fused_gn; same weights), and
+ms (each kernel, and their sum), the conv GEMM's (conv.cu: K7, or K9's
+GEMMs in the fused U-Net), the GroupNorm kernels' (K8) and, for the fused
+U-Net, K9's (its GEMMs and passes, each kernel) and K9's share of the
+device time, the copy kernels (PyTorch's copies, which layout changes and
+dtype casts both run, and cuDNN's NCHW <-> NHWC transposes) and their
+share of the device time, the inputs K9's wrappers copied into its
+channels-last layout, and the device's busy share of the wall time
+(profiled, and against the unprofiled call). With --fused, the U-Net with
+the fused GroupNorm kernels (UNetConfig.fused_gn_conv, fused_gn; same
+weights), and
 with --conv, the U-Net with the conv kernel (UNetConfig.conv3x3_kernel;
 same weights), are timed in turns with the default one and profiled after
 it. Prints JSON lines; needs CUDA.
@@ -72,10 +76,14 @@ def _calls(unet, x, t, ctx, tag: str) -> dict:
 
 def _profile(fwd_bwd, call_ms: float, label: str) -> None:
     """One fwd+bwd under torch.profiler: device time by kernel, and the
-    device's busy share."""
+    device's busy share. In the fused U-Net (label "fused_...") conv.cu's
+    GEMM runs only inside K9."""
     from torch.profiler import ProfilerActivity, profile
+
+    from diffusionhandles_tpu_torch.ops import gn_conv
     fwd_bwd()
     torch.cuda.synchronize()
+    copies0 = gn_conv.LAYOUT_COPIES["gn_conv"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -95,9 +103,15 @@ def _profile(fwd_bwd, call_ms: float, label: str) -> None:
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     flash = [r for r in rows if "flash" in r[1]]
-    # K7: conv.cu's kernels (K9's are gnconv::conv3x3_kernel)
+    # conv.cu's GEMM and split-K sum (K7's, or K9's GEMMs); K9's own passes
+    # are gnconv::, K8's gn::
     conv_us = sum(r[0] for r in rows
                   if re.search(r"\bconv::(conv3x3|splitk_sum)_kernel", r[1]))
+    gnconv = [r for r in rows if re.search(r"\bgnconv::", r[1])]
+    gn_us = sum(r[0] for r in rows if re.search(r"\bgn::", r[1]))
+    k9 = gnconv + ([r for r in rows if re.search(r"\bconv::", r[1])]
+                   if label.startswith("fused_") else [])
+    k9_us = sum(r[0] for r in k9)
     # copy kernels: PyTorch's (layout changes and dtype casts alike) and
     # cuDNN's own NCHW <-> NHWC transposes
     layout = [r for r in rows if any(k in r[1].lower() for k in (
@@ -114,6 +128,14 @@ def _profile(fwd_bwd, call_ms: float, label: str) -> None:
             "flash_kernels": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                               for us, k, n in flash],
             "conv3x3_kernels_ms": conv_us / 1e3,
+            "gn_kernels_ms": gn_us / 1e3,
+            "gn_conv_kernels_ms": k9_us / 1e3,
+            "gn_conv_share": k9_us / total_us,
+            "gn_conv_kernels": [{"kernel": k[:90], "ms": us / 1e3,
+                                 "count": n} for us, k, n in k9],
+            # inputs K9's wrappers copied into its layout (channels-last)
+            "gn_conv_layout_copies": (gn_conv.LAYOUT_COPIES["gn_conv"]
+                                      - copies0),
             "layout_copies_ms": layout_us / 1e3,
             "layout_copies_share": layout_us / total_us,
             "layout_copies": [{"kernel": k[:90], "ms": us / 1e3, "count": n}

@@ -11,6 +11,7 @@ JAX, so it also runs on the GPU machine:
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
 """
 
+import itertools
 import math
 import pathlib
 import re
@@ -69,9 +70,8 @@ def test_plain_versions_match_dense_autograd_fp32(shape):
                                    atol=1e-5 * w.abs().max().item())
 
 
-NO_FLASH_LAUNCH = dict.fromkeys(
-    ("flash_fwd", "flash_fwd_unfolded", "flash_fwd_stream", "flash_bwd",
-     "flash_bwd_twopass", "flash_bwd_fold"), 0)
+# every flash counter, kernel launches and plain routes alike, at 0
+NO_FLASH_LAUNCH = dict.fromkeys(tatt.LAUNCHES, 0)
 
 
 def test_cpu_path_launches_no_kernel(monkeypatch):
@@ -173,9 +173,10 @@ def test_cuda_alternates_match_plain(cuda, sq, sk):
                               plain(q, k, v, o, lse, do), "qkv"):
             assert g.shape == w.shape
             _assert_within(g, w, 2.0 ** -6, f"{route.__name__} d{name}")
-    assert tatt.LAUNCHES == {"flash_fwd": 1, "flash_fwd_unfolded": 1,
-                             "flash_fwd_stream": 2, "flash_bwd": 1,
-                             "flash_bwd_twopass": 1, "flash_bwd_fold": 1}
+    assert tatt.LAUNCHES == {**NO_FLASH_LAUNCH, "flash_fwd": 1,
+                             "flash_fwd_unfolded": 1, "flash_fwd_stream": 2,
+                             "flash_bwd": 1, "flash_bwd_twopass": 1,
+                             "flash_bwd_fold": 1}
 
 
 @pytest.mark.cuda
@@ -217,12 +218,14 @@ def test_cuda_forward_entries_count_their_routes(cuda):
 
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_other_inputs(cuda):
+    """The kernel wrapper raises for what the kernels are not built for
+    (the routed entries send such calls to the general route)."""
     q = torch.zeros((1, 512, 2, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        tatt.flash_fwd(q, q, q)
+        tatt.flash_fwd_cuda(q, q, q)
     q = torch.zeros((1, 512, 2, 64), device=cuda)
     with pytest.raises(TypeError):
-        tatt.flash_fwd(q, q, q)
+        tatt.flash_fwd_cuda(q, q, q)
 
 
 # The forward planner and the layout the kernels read (CPU: shapes only).
@@ -427,9 +430,8 @@ def test_gn_cpu_path_launches_no_kernel():
     y = tgn.gn_silu(x, g, b, 32, 1e-5, True, torch.float32)
     tgc.gn_silu_conv3x3(y, g, b, w, 32, 1e-5).sum().backward()
     assert x.grad is not None and torch.isfinite(x.grad).all()
-    assert tgn.LAUNCHES == {"gn_silu_fwd": 0, "gn_silu_bwd": 0}
-    assert tgc.LAUNCHES == {"gn_silu_conv3x3_fwd": 0,
-                            "gn_silu_conv3x3_dx": 0}
+    assert tgn.LAUNCHES == dict.fromkeys(tgn.LAUNCHES, 0)
+    assert tgc.LAUNCHES == dict.fromkeys(tgc.LAUNCHES, 0)
 
 
 def test_gn_library_name_tracks_sources():
@@ -460,7 +462,8 @@ def test_cuda_gn_matches_plain(cuda, b, hw, c, act):
     want = tgn.gn_silu_bwd_ref(x, dy, g, beta, mean_ref, rsig_ref, 32, act)
     for gt, wt, what in zip(got, want, ("dx", "u", "v")):
         _assert_close(gt, wt, what)
-    assert tgn.LAUNCHES == {"gn_silu_fwd": 1, "gn_silu_bwd": 1}
+    assert tgn.LAUNCHES == {**dict.fromkeys(tgn.LAUNCHES, 0),
+                            "gn_silu_fwd": 1, "gn_silu_bwd": 1}
 
 
 @pytest.mark.cuda
@@ -484,7 +487,8 @@ def test_cuda_gn_conv_matches_plain(cuda, b, hw, ci, co):
     dx_ref = tgc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean_ref, rsig_ref,
                                         dy, 32)
     _assert_close(dx, dx_ref, "dx")
-    assert tgc.LAUNCHES == {"gn_silu_conv3x3_fwd": 1,
+    assert tgc.LAUNCHES == {**dict.fromkeys(tgc.LAUNCHES, 0),
+                            "gn_silu_conv3x3_fwd": 1,
                             "gn_silu_conv3x3_dx": 1}
 
 
@@ -519,22 +523,26 @@ def test_cuda_gn_autograd_runs_the_kernels(cuda):
     y = tgn.gn_silu(x, g, beta, 32, 1e-6, False, torch.bfloat16)
     tgc.gn_silu_conv3x3(y, g, beta, w, 32, 1e-5).float().sum().backward()
     assert torch.isfinite(x.grad.float()).all()
-    assert tgn.LAUNCHES == {"gn_silu_fwd": 1, "gn_silu_bwd": 1}
-    assert tgc.LAUNCHES == {"gn_silu_conv3x3_fwd": 1,
+    assert tgn.LAUNCHES == {**dict.fromkeys(tgn.LAUNCHES, 0),
+                            "gn_silu_fwd": 1, "gn_silu_bwd": 1}
+    assert tgc.LAUNCHES == {**dict.fromkeys(tgc.LAUNCHES, 0),
+                            "gn_silu_conv3x3_fwd": 1,
                             "gn_silu_conv3x3_dx": 1}
 
 
 @pytest.mark.cuda
 def test_cuda_gn_kernels_refuse_other_inputs(cuda):
+    """The kernel wrappers raise for what the kernels are not built for
+    (the routed entries send such calls to the general route)."""
     x = torch.zeros((1, 64, 8, 8), device=cuda)
     g, beta = _gn_params(64, cuda, 0)
     with pytest.raises(TypeError):
-        tgn.gn_silu_fwd(x, g, beta, 32, 1e-5, True, torch.float32)
+        tgn.gn_silu_fwd_cuda(x, g, beta, 32, 1e-5, True, torch.float32)
     xb = x.to(torch.bfloat16)
     w = torch.zeros((64, 64, 3, 3), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        tgc.gn_silu_conv3x3_fwd(xb[:, :40].contiguous(), g[:40], beta[:40],
-                                w[:, :40].contiguous(), 8, 1e-5)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tgc.gn_silu_conv3x3_fwd_cuda(xb[:, :36], g[:36], beta[:36],
+                                     w[:, :36], 4, 1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +558,7 @@ def test_conv_cpu_path_launches_no_kernel():
     w = _rand((64, 64, 3, 3), 1, 0.05)
     tconv.conv3x3(x, w).sum().backward()
     assert x.grad is not None and torch.isfinite(x.grad).all()
-    assert tconv.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_dx": 0}
+    assert tconv.LAUNCHES == dict.fromkeys(tconv.LAUNCHES, 0)
 
 
 # (side, Ci, Co) of the 16 distinct 3x3 convs of the SD-2-depth conv U-Net
@@ -570,38 +578,48 @@ def _site_plans(b, side, ci, co):
             "dx": (co, tconv.plan_conv3x3(b, side, side, co, ci))}
 
 
-@pytest.mark.parametrize("b", [1, 2])
-@pytest.mark.parametrize("side,ci,co", SD2_CONV_SITES)
-def test_conv_plan_pixel_boxes_tile_each_image(b, side, ci, co):
+def _assert_boxes_tile_each_image(plan, b, side, what):
     """The M tiles, decomposed from the grid index as the kernel does
     (column tile fastest, then row tile, then image tile), cover every
     pixel of every image exactly once (boxes clipped at the edge)."""
+    bw, bh, bb = plan.box
+    assert bw * bh * bb == 64 * plan.warpgroups, what
+    tiles_w, tiles_h = math.ceil(side / bw), math.ceil(side / bh)
+    assert plan.m_tiles == tiles_w * tiles_h * math.ceil(b / bb), what
+    covered = torch.zeros((b, side, side), dtype=torch.int32)
+    for t in range(plan.m_tiles):
+        w0, h0 = t % tiles_w * bw, t // tiles_w % tiles_h * bh
+        b0 = t // (tiles_w * tiles_h) * bb
+        covered[b0:b0 + bb, h0:h0 + bh, w0:w0 + bw] += 1
+    assert bool((covered == 1).all()), what
+
+
+def _assert_splits_cover_k(plan, kch, what):
+    """K is 9 taps x ceil(channels / 64) steps; the splits' step ranges
+    (as the kernel cuts them) are contiguous, each at least one step, and
+    together exactly K."""
+    assert plan.k_steps == 9 * math.ceil(kch / tconv.K_STEP), what
+    ranges = plan.split_ranges()
+    assert len(ranges) == plan.splits >= 1, what
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_steps, what
+    assert all(end - start >= 1 for start, end in ranges), what
+    assert all(a[1] == z[0] for a, z in zip(ranges, ranges[1:])), what
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("side,ci,co", SD2_CONV_SITES)
+def test_conv_plan_pixel_boxes_tile_each_image(b, side, ci, co):
+    """Each plan's M tiles cover every pixel of every image exactly once."""
     for what, (_, plan) in _site_plans(b, side, ci, co).items():
-        bw, bh, bb = plan.box
-        assert bw * bh * bb == 64 * plan.warpgroups, what
-        tiles_w, tiles_h = math.ceil(side / bw), math.ceil(side / bh)
-        assert plan.m_tiles == tiles_w * tiles_h * math.ceil(b / bb), what
-        covered = torch.zeros((b, side, side), dtype=torch.int32)
-        for t in range(plan.m_tiles):
-            w0, h0 = t % tiles_w * bw, t // tiles_w % tiles_h * bh
-            b0 = t // (tiles_w * tiles_h) * bb
-            covered[b0:b0 + bb, h0:h0 + bh, w0:w0 + bw] += 1
-        assert bool((covered == 1).all()), what
+        _assert_boxes_tile_each_image(plan, b, side, what)
 
 
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("side,ci,co", SD2_CONV_SITES)
 def test_conv_plan_splits_cover_k_exactly(b, side, ci, co):
-    """K is 9 taps x ceil(channels / 64) steps; the splits' step ranges
-    (as the kernel cuts them) are contiguous, each at least one step, and
-    together exactly K."""
+    """Each plan's K splits cover K exactly."""
     for what, (kch, plan) in _site_plans(b, side, ci, co).items():
-        assert plan.k_steps == 9 * math.ceil(kch / tconv.K_STEP), what
-        ranges = plan.split_ranges()
-        assert len(ranges) == plan.splits >= 1, what
-        assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_steps, what
-        assert all(end - start >= 1 for start, end in ranges), what
-        assert all(a[1] == z[0] for a, z in zip(ranges, ranges[1:])), what
+        _assert_splits_cover_k(plan, kch, what)
 
 
 @pytest.mark.parametrize("b", [1, 2])
@@ -630,6 +648,117 @@ def test_conv_tiles_are_the_planners_picks():
     assert cases == set(tconv.TILES)
 
 
+# (side, Ci, Co) of the fused U-Net's K9 sites at 64x64 latents (34 of its
+# 44 resnet halves; chip_smoke.py's CONV_SHAPES)
+SD2_GN_CONV_SITES = [(64, 320, 320), (32, 320, 640), (32, 640, 640),
+                     (32, 960, 640), (32, 1280, 640), (16, 640, 1280),
+                     (16, 1280, 1280), (8, 1280, 1280)]
+
+
+def _gn_conv_plans(b, side, ci, co):
+    """K9's forward plan (K7's: K = 9 Ci, N = Co, bf16 out) and dx plan
+    (K = 9 Co, N = Ci, fp32 out: its epilogue pass sums the splits)."""
+    return {"fwd": (ci, tconv.plan_conv3x3(b, side, side, ci, co)),
+            "dx": (co, tconv.plan_conv3x3(b, side, side, co, ci,
+                                          f32_out=True))}
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("side,ci,co", SD2_GN_CONV_SITES)
+def test_gn_conv_plans_tile_cover_k_and_use_built_tiles(b, side, ci, co):
+    """K9's plans at the fused U-Net's sites: pixel boxes tile each image,
+    the splits cover K, and every picked tile is one csrc/conv.cu builds
+    (TILES); its grid fills a wave or its note says why."""
+    for what, (kch, plan) in _gn_conv_plans(b, side, ci, co).items():
+        _assert_boxes_tile_each_image(plan, b, side, what)
+        _assert_splits_cover_k(plan, kch, what)
+        assert (plan.warpgroups, plan.block_n) in tconv.TILES, what
+        assert plan.grid >= tconv.SMS or plan.note, (what, plan)
+
+
+def test_gn_conv_prologue_plain_version_is_the_forwards_z():
+    """The prologue's plain version gives, bit for bit, the z the forward's
+    plain version convolves (the JAX kernel's rounding point: the fp32
+    normalize, affine and SiLU rounded once to x's dtype); and the
+    forward's y is the conv of it."""
+    b, ci, co, hw, groups = 2, 48, 32, 6, 8
+    x = _rand((b, ci, hw, hw), 0, 1.5).to(torch.bfloat16)
+    w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5).to(torch.bfloat16)
+    g, beta = _gn_params(ci, "cpu", 2)
+    y, mean, rsig = tgc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, groups, 1e-5)
+    z = tgc.gn_silu_z_ref(x, mean, rsig, g, beta, groups)
+    xg = x.float().reshape(b, groups, ci // groups, hw * hw)
+    xh = (xg - mean[:, :, None, None]) * rsig[:, :, None, None]
+    want = torch.nn.functional.silu(
+        xh * g.reshape(1, groups, -1, 1) + beta.reshape(1, groups, -1, 1))
+    assert z.dtype == torch.bfloat16
+    assert torch.equal(z, want.reshape(x.shape).to(torch.bfloat16))
+    assert torch.equal(y, tconv.conv3x3_fwd_ref(z, w))
+
+
+# ---------------------------------------------------------------------------
+# Routes: every call a copied gate admits has a kernel on the card (the
+# Hopper kernel, or the op's general kernel, counted as its general route).
+# ---------------------------------------------------------------------------
+
+DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+HALF = (torch.float16, torch.bfloat16)  # the Hopper kernels' instances
+DEVICES = (torch.device("cpu"), torch.device("cuda"))
+
+
+def _assert_routed(r, device, kernel_takes, what):
+    if device.type == "cpu":
+        assert r == "cpu", what
+    else:
+        assert r == ("kernel" if kernel_takes else "general"), what
+
+
+def test_routes_cover_every_gate_admitted_call():
+    """For every op, each dtype x shape its gate admits gets a route on
+    each device: "cpu" on the CPU; on the card "kernel" exactly where the
+    Hopper kernel is built for the dtype and shape (bf16 and fp16 at head
+    dim 64, or channels multiples of 8; K8 bf16 in and out), else
+    "general"."""
+    admitted = {"flash": 0, "conv": 0, "gn": 0, "gn_conv": 0}
+    for dev in DEVICES:
+        for dt in DTYPES:
+            nbytes = torch.finfo(dt).bits // 8
+            for sq, sk, hd in itertools.product(
+                    (512, 1000, 1024, 4096), (512, 1024, 4096),
+                    (32, 40, 64, 80, 128)):
+                if not tatt.flash_ok(sq, sk, head_dim=hd):
+                    continue
+                admitted["flash"] += 1
+                _assert_routed(tatt.flash_route(dev, dt, hd), dev,
+                               dt in HALF and hd == 64, (sq, sk, hd, dt))
+            for side, ci, co in itertools.product(
+                    (6, 8, 16, 64), (64, 100, 320, 1280, 2560),
+                    (64, 100, 320, 1280)):
+                x_shape, w_shape = (2, side, side, ci), (3, 3, ci, co)
+                if tconv.conv3x3_ok(x_shape, w_shape, dtype_bytes=nbytes):
+                    admitted["conv"] += 1
+                    _assert_routed(
+                        tconv.conv3x3_route(dev, dt, ci, co), dev,
+                        dt in HALF and ci % 8 == 0 and co % 8 == 0,
+                        (side, ci, co, dt))
+                for groups in (32, 4):
+                    if tgc.gn_silu_conv3x3_ok(x_shape, w_shape, groups):
+                        admitted["gn_conv"] += 1
+                        _assert_routed(
+                            tgc.gn_conv_route(dev, dt, ci, co), dev,
+                            dt in HALF and ci % 8 == 0 and co % 8 == 0,
+                            (side, ci, co, groups, dt))
+                    for out in DTYPES:
+                        if not tgn.gn_ok((2, side, side, ci), groups,
+                                         dtype_bytes=nbytes):
+                            continue
+                        admitted["gn"] += 1
+                        _assert_routed(tgn.gn_route(dev, dt, out), dev,
+                                       dt == out == torch.bfloat16,
+                                       (side, ci, dt, out))
+    assert all(n > 0 for n in admitted.values()), admitted
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("hw,ci,co", [(64, 320, 320), (8, 2560, 1280),
@@ -650,7 +779,8 @@ def test_cuda_conv_matches_plain(cuda, b, hw, ci, co):
     _assert_within(y, tconv.conv3x3_fwd_ref(x, w), GN_RTOL, "y")
     _assert_within(dx, tconv.conv3x3_dx_ref(dy, w, x.dtype), GN_RTOL, "dx")
     assert tconv.in_kernel_layout(y) and tconv.in_kernel_layout(dx)
-    assert tconv.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_dx": 1}
+    assert tconv.LAUNCHES == {**dict.fromkeys(tconv.LAUNCHES, 0),
+                              "conv3x3_fwd": 1, "conv3x3_dx": 1}
 
 
 def _conv_launch(name, src, w, plan):
@@ -691,7 +821,8 @@ def test_cuda_conv_autograd_and_channels_last(cuda):
     _assert_within(y, tconv.conv3x3_fwd_ref(x, w), GN_RTOL, "y")
     y.float().sum().backward()
     assert torch.isfinite(xl.grad.float()).all()
-    assert tconv.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_dx": 1}
+    assert tconv.LAUNCHES == {**dict.fromkeys(tconv.LAUNCHES, 0),
+                              "conv3x3_fwd": 1, "conv3x3_dx": 1}
 
 
 @pytest.mark.cuda
@@ -736,10 +867,360 @@ def test_cuda_conv_split_k_is_deterministic(cuda, hw, ci, co):
 
 @pytest.mark.cuda
 def test_cuda_conv_refuses_other_inputs(cuda):
+    """The kernel wrapper raises for what the kernel is not built for
+    (the routed entries send such calls to the general route)."""
     x = torch.zeros((1, 64, 8, 8), device=cuda)
     w = torch.zeros((64, 64, 3, 3), device=cuda)
     with pytest.raises(TypeError):
-        tconv.conv3x3_fwd(x, w)
+        tconv.conv3x3_fwd_cuda(x, w)
     xb = torch.zeros((1, 36, 8, 8), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
-        tconv.conv3x3_fwd(xb, w[:, :36])
+        tconv.conv3x3_fwd_cuda(xb, w[:, :36])
+
+
+def _counted(launches, **moved):
+    """`launches` with every counter at 0 except `moved`."""
+    return {**dict.fromkeys(launches, 0), **moved}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64),
+                                            (torch.float16, 80),
+                                            (torch.bfloat16, 40),
+                                            (torch.float32, 128)])
+def test_cuda_flash_general_route_matches_cpu(cuda, dtype, head_dim):
+    """A flash call the gate admits in a dtype or head dim the Hopper
+    kernels are not built for runs the general kernels on the card,
+    counted as their route, forward and backward, and agrees with the same
+    call on the CPU (chip_smoke.py's tolerances: O 2**-7, gradients 2**-6
+    of the largest value)."""
+    shape = (1, 512, 2, head_dim)
+    assert tatt.flash_ok(512, 512, head_dim=head_dim)
+    outs = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (_rand(shape, i, 1.5, dev, dtype).requires_grad_(True)
+                   for i in range(3))
+        tatt.reset_launch_counts()
+        o = tatt.dot_product_attention(q, k, v, use_flash=True)
+        o.float().square().sum().backward()
+        outs[str(dev)] = (o, q.grad, k.grad, v.grad)
+    assert tatt.LAUNCHES == _counted(tatt.LAUNCHES, flash_fwd_general=1,
+                                     flash_bwd_general=1)
+    o, *grads = outs["cuda"]
+    o_cpu, *grads_cpu = outs["cpu"]
+    assert o.dtype == dtype
+    _assert_within(o.cpu(), o_cpu, 2.0 ** -7, "o")
+    for g, w in zip(grads, grads_cpu):
+        _assert_within(g.cpu(), w, 2.0 ** -6, "grad")
+
+
+GENERAL_FWD = (("flash_fwd", tatt.flash_fwd_ref),
+               ("flash_fwd_unfolded", tatt.flash_fwd_unfolded_ref),
+               ("flash_fwd_stream",
+                lambda q, k, v: tatt.flash_fwd_stream_ref(q, k, v, 512)))
+GENERAL_BWD = (("flash_bwd", tatt.flash_bwd_ref),
+               ("flash_bwd_twopass", tatt.flash_bwd_twopass_ref),
+               ("flash_bwd_fold", tatt.flash_bwd_fold_ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_cuda_flash_general_variants_match_plain(cuda, dtype):
+    """Each general forward (K1, K5, K4) and backward (K2, K3, K6) entry,
+    at ragged lengths (sq 200, sk 300), head dim 72 (two column tiles)
+    and q, k, v sliced from one [B, S, 3, H, D] tensor, against its plain
+    version on the same card inputs: O 2**-7 and lse 2**-8 of the largest
+    value, gradients 2**-6."""
+    b, sq, sk, h, d = 2, 200, 300, 3, 72
+    q = _rand((b, sq, h, d), 0, 1.5, cuda, dtype)
+    kv = _rand((b, sk, 3, h, d), 1, 1.5, cuda, dtype)
+    k, v = kv[:, :, 0], kv[:, :, 2]
+    do = _rand((b, sq, h, d), 2, 1.0, cuda, dtype)
+    for name, ref in GENERAL_FWD:
+        tatt.reset_launch_counts()
+        o, lse = getattr(tatt, f"{name}_general")(q, k, v)
+        assert tatt.LAUNCHES == _counted(tatt.LAUNCHES,
+                                         **{f"{name}_general": 1})
+        o_ref, lse_ref = ref(q, k, v)
+        assert o.dtype == dtype and o.shape == q.shape
+        _assert_within(o, o_ref, 2.0 ** -7, f"{name} o")
+        _assert_within(lse, lse_ref, 2.0 ** -8, f"{name} lse")
+    o, lse = tatt.flash_fwd_ref(q, k, v)
+    for name, ref in GENERAL_BWD:
+        got = getattr(tatt, f"{name}_general")(q, k, v, o, lse, do)
+        want = ref(q, k, v, o, lse, do)
+        for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+            assert g.dtype == dtype and g.shape == w.shape
+            _assert_within(g, w, 2.0 ** -6, f"{name} {what}")
+
+
+@pytest.mark.cuda
+def test_cuda_fp16_calls_take_the_hopper_kernels(cuda):
+    """fp16 at the kernels' shapes (head dim 64, channels multiples of 8)
+    runs their fp16 instances: a flash call forward and backward, a K7
+    conv and a K9 half, each counted on its kernel route and none on a
+    general one, and agreeing with the same calls on the CPU (O 2**-7,
+    gradients 2**-6, convs GN_RTOL of the largest value)."""
+    f16 = torch.float16
+    outs = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (_rand((1, 512, 2, 64), i, 1.5, dev,
+                         f16).requires_grad_(True) for i in range(3))
+        x = _rand((1, 64, 16, 16), 3, 1.0, dev, f16).requires_grad_(True)
+        w = _rand((96, 64, 3, 3), 4, 0.05, dev, f16)
+        g, beta = _gn_params(96, dev, 5)
+        w2 = _rand((64, 96, 3, 3), 6, 0.05, dev, f16)
+        for mod in (tatt, tconv, tgc):
+            mod.reset_launch_counts()
+        o = tatt.dot_product_attention(q, k, v, use_flash=True)
+        y = tconv.conv3x3(x, w)
+        z = tgc.gn_silu_conv3x3(y, g, beta, w2, 32, 1e-5)
+        (o.float().square().sum() + z.float().square().sum()).backward()
+        outs[str(dev)] = (o, q.grad, k.grad, v.grad, y, z, x.grad)
+    assert tatt.LAUNCHES == _counted(tatt.LAUNCHES, flash_fwd=1, flash_bwd=1)
+    assert tconv.LAUNCHES == _counted(tconv.LAUNCHES, conv3x3_fwd=1,
+                                      conv3x3_dx=1)
+    assert tgc.LAUNCHES == _counted(tgc.LAUNCHES, gn_silu_conv3x3_fwd=1,
+                                    gn_silu_conv3x3_dx=1)
+    got, want = outs["cuda"], outs["cpu"]
+    assert all(t.dtype == f16 for t in got)
+    _assert_within(got[0].cpu(), want[0], 2.0 ** -7, "o")
+    for i in (1, 2, 3):
+        _assert_within(got[i].cpu(), want[i], 2.0 ** -6, "grad")
+    for i, what in ((4, "y"), (5, "z"), (6, "dx")):
+        _assert_within(got[i].cpu(), want[i], GN_RTOL, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("warpgroups,block_n", tconv.TILES)
+def test_cuda_fp16_conv_instances_match_plain(cuda, warpgroups, block_n,
+                                              splits):
+    """Every fp16 K7 instance, whole and split, and K9 on it (forward and
+    dx), against the plain versions on the same inputs (GN_RTOL)."""
+    b, hw, ci, co = 2, 16, 128, 320
+    x = _rand((b, ci, hw, hw), 0, 1.0, cuda, torch.float16)
+    w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5, cuda, torch.float16)
+    dy = _rand((b, co, hw, hw), 2, 1.0, cuda, torch.float16)
+    g, beta = _gn_params(ci, cuda, 3)
+    xl, wl, dyl = (tconv.to_kernel_layout(t) for t in (x, w, dy))
+    fwd = tconv.fixed_plan(b, hw, hw, ci, co, warpgroups, block_n, splits)
+    dxp = tconv.fixed_plan(b, hw, hw, co, ci, warpgroups, block_n, splits)
+    y = tconv._launch("conv3x3_fwd", xl, wl, fwd)
+    dx = tconv._launch("conv3x3_dx", dyl, wl, dxp)
+    _assert_within(y, tconv.conv3x3_fwd_ref(x, w), GN_RTOL, "y")
+    _assert_within(dx, tconv.conv3x3_dx_ref(dy, w, torch.float16), GN_RTOL,
+                   "dx")
+    y, mean, rsig = tgc._fwd_launch(xl, g, beta, wl, 32, 1e-5, fwd)
+    y_ref, mean_ref, rsig_ref = tgc.gn_silu_conv3x3_fwd_ref(x, g, beta, w,
+                                                            32, 1e-5)
+    _assert_close(y, y_ref, "k9 y")
+    dxp = tconv.fixed_plan(b, hw, hw, co, ci, warpgroups, block_n, splits,
+                           f32_out=True)
+    dx = tgc._dx_launch(xl, g, beta, wl, mean_ref, rsig_ref, dyl, 32, dxp)
+    _assert_close(dx, tgc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean_ref,
+                                                 rsig_ref, dy, 32), "k9 dx")
+    assert y.dtype == dx.dtype == torch.float16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32_sum", [False, True])
+def test_cuda_fp16_flash_instances_match_plain(cuda, f32_sum):
+    """The fp16 flash instances, forward (K1's row sum or the fp32 one)
+    and backward (K2, K3, K6), at ragged lengths, against the plain
+    versions on the same inputs: O 2**-7 and lse 2**-8 of the largest
+    value, gradients 2**-6."""
+    f16 = torch.float16
+    q = _rand((2, 1000, 3, 64), 0, 1.5, cuda, f16)
+    k, v = (_rand((2, 1500, 3, 64), i, 1.5, cuda, f16) for i in (1, 2))
+    do = _rand((2, 1000, 3, 64), 3, 1.0, cuda, f16)
+    kernel = (tatt.flash_fwd_unfolded_cuda if f32_sum
+              else tatt.flash_fwd_cuda)
+    plain = tatt.flash_fwd_unfolded_ref if f32_sum else tatt.flash_fwd_ref
+    o, lse = kernel(q, k, v)
+    o_ref, lse_ref = plain(q, k, v)
+    assert o.dtype == f16
+    _assert_within(o, o_ref, 2.0 ** -7, "o")
+    _assert_within(lse, lse_ref, 2.0 ** -8, "lse")
+    for name in ("flash_bwd", "flash_bwd_twopass", "flash_bwd_fold"):
+        got = getattr(tatt, f"{name}_cuda")(q, k, v, o_ref, lse_ref, do)
+        want = getattr(tatt, f"{name}_ref")(q, k, v, o_ref, lse_ref, do)
+        for g_, w_, what in zip(got, want, ("dq", "dk", "dv")):
+            assert g_.dtype == f16
+            _assert_within(g_, w_, 2.0 ** -6, f"{name} {what}")
+
+
+@pytest.mark.cuda
+def test_cuda_conv_general_route_at_100_channels(cuda):
+    """A conv of 100 -> 100 channels passes the gate but not the Hopper
+    kernel's multiples of 8: forward and dx run the general kernel on the
+    card, counted, and agree with the CPU (2**-7 of the largest value)."""
+    assert tconv.conv3x3_ok((1, 16, 16, 100), (3, 3, 100, 100))
+    outs = {}
+    for dev in ("cpu", cuda):
+        x = _rand((1, 100, 16, 16), 0, 1.0, dev,
+                  torch.bfloat16).requires_grad_(True)
+        w = _rand((100, 100, 3, 3), 1, 0.03, dev, torch.bfloat16)
+        tconv.reset_launch_counts()
+        y = tconv.conv3x3(x, w)
+        y.float().square().sum().backward()
+        outs[str(dev)] = (y, x.grad)
+    assert tconv.LAUNCHES == _counted(tconv.LAUNCHES, conv3x3_fwd_general=1,
+                                      conv3x3_dx_general=1)
+    for got, want, what in zip(outs["cuda"], outs["cpu"], ("y", "dx")):
+        _assert_within(got.cpu(), want, GN_RTOL, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("b,hw,ci,co", [(2, 8, 1280, 640), (1, 20, 72, 100)])
+def test_cuda_conv_general_kernel_matches_plain(cuda, dtype, b, hw, ci, co):
+    """The general conv kernel, forward and dx, in fp32 and fp16 on NCHW
+    inputs, against the plain versions on the same card inputs (GN_RTOL of
+    the largest value); its outputs are channels-last in x's dtype."""
+    x = _rand((b, ci, hw, hw), 0, 1.0, cuda, dtype)
+    w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5, cuda, dtype)
+    dy = _rand((b, co, hw, hw), 2, 1.0, cuda, dtype)
+    y = tconv.conv3x3_fwd_general(x, w)
+    dx = tconv.conv3x3_dx_general(dy, w, dtype)
+    for got, want, what in ((y, tconv.conv3x3_fwd_ref(x, w), "y"),
+                            (dx, tconv.conv3x3_dx_ref(dy, w, dtype), "dx")):
+        assert got.dtype == dtype and tconv.in_kernel_layout(got)
+        _assert_within(got, want, GN_RTOL, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_cuda_gn_general_routes(cuda, dtype):
+    """fp32 and fp16 GroupNorm+SiLU (K8's op) at U-Net shapes runs its
+    general instances on the card, counted, forward and backward; GN+SiLU+
+    conv (K9's op) its general instances in fp32 and its Hopper kernels'
+    fp16 instances in fp16; all agree with the CPU (GN_RTOL of the largest
+    value)."""
+    outs = {}
+    for dev in ("cpu", cuda):
+        x = _rand((1, 320, 16, 16), 0, 1.5, dev,
+                  dtype).requires_grad_(True)
+        g, beta = _gn_params(320, dev, 1)
+        w = _rand((640, 320, 3, 3), 2, (9 * 320) ** -0.5, dev, dtype)
+        tgn.reset_launch_counts()
+        tgc.reset_launch_counts()
+        h = tgn.gn_silu(x, g, beta, 32, 1e-6, True, dtype)
+        y = tgc.gn_silu_conv3x3(h, g, beta, w, 32, 1e-5)
+        y.float().square().sum().backward()
+        outs[str(dev)] = (h, y, x.grad)
+    assert tgn.LAUNCHES == _counted(tgn.LAUNCHES, gn_silu_fwd_general=1,
+                                    gn_silu_bwd_general=1)
+    k9 = "" if dtype == torch.float16 else "_general"
+    assert tgc.LAUNCHES == _counted(tgc.LAUNCHES,
+                                    **{f"gn_silu_conv3x3_fwd{k9}": 1,
+                                       f"gn_silu_conv3x3_dx{k9}": 1})
+    for got, want, what in zip(outs["cuda"], outs["cpu"], ("h", "y", "dx")):
+        assert got.dtype == dtype
+        _assert_close(got.cpu(), want, what)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_conv_general_at_ragged_channels(cuda):
+    """K9's op at 100 -> 36 channels (4 groups): its general instances in
+    bf16, forward and dx, against the plain versions on the same inputs
+    (GN_RTOL); dx is bitwise repeatable."""
+    x = _rand((2, 100, 12, 12), 0, 1.5, cuda, torch.bfloat16)
+    w = _rand((36, 100, 3, 3), 1, 0.03, cuda, torch.bfloat16)
+    dy = _rand((2, 36, 12, 12), 2, 1.0, cuda, torch.bfloat16)
+    g, beta = _gn_params(100, cuda, 3)
+    assert tgc.gn_conv_route(cuda, torch.bfloat16, 100, 36) == "general"
+    y, mean, rsig = tgc.gn_silu_conv3x3_fwd_general(x, g, beta, w, 4, 1e-5)
+    y_ref, mean_ref, rsig_ref = tgc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, 4,
+                                                            1e-5)
+    _assert_close(y, y_ref, "y")
+    _assert_close(mean, mean_ref, "mean")
+    _assert_close(rsig, rsig_ref, "rsig")
+    dx = tgc.gn_silu_conv3x3_dx_general(x, g, beta, w, mean, rsig, dy, 4)
+    again = tgc.gn_silu_conv3x3_dx_general(x, g, beta, w, mean, rsig, dy, 4)
+    assert torch.equal(dx, again)
+    _assert_close(dx, tgc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean, rsig,
+                                                 dy, 4), "dx")
+
+
+def _gn_conv_inputs(b, hw, ci, co, device, seed=0):
+    x = _rand((b, ci, hw, hw), seed, 1.5, device, torch.bfloat16)
+    w = _rand((co, ci, 3, 3), seed + 1, (9 * ci) ** -0.5, device,
+              torch.bfloat16)
+    dy = _rand((b, co, hw, hw), seed + 2, 1.0, device, torch.bfloat16)
+    g, beta = _gn_params(ci, device, seed + 3)
+    return x, w, dy, g, beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("warpgroups,block_n", tconv.TILES)
+def test_cuda_gn_conv_every_instance_matches_plain(cuda, warpgroups, block_n,
+                                                   splits):
+    """K9 forward and dx on each K7 instance (consumer warpgroups x N
+    tile), whole and split-K, forced through a fixed plan, against the
+    plain versions; 640 output channels leave a ragged N tile at 128 and
+    256, and 10 channels a group straddle the prologue's 8-channel
+    vectors."""
+    b, hw, ci, co, groups = 2, 16, 320, 640, 32
+    x, w, dy, g, beta = _gn_conv_inputs(b, hw, ci, co, cuda)
+    xl, wl, dyl = (tconv.to_kernel_layout(t) for t in (x, w, dy))
+    fwd = tconv.fixed_plan(b, hw, hw, ci, co, warpgroups, block_n, splits)
+    bwd = tconv.fixed_plan(b, hw, hw, co, ci, warpgroups, block_n, splits,
+                           f32_out=True)
+    y, mean, rsig = tgc._fwd_launch(xl, g, beta, wl, groups, 1e-5, fwd)
+    y_ref, mean_ref, rsig_ref = tgc.gn_silu_conv3x3_fwd_ref(x, g, beta, w,
+                                                            groups, 1e-5)
+    _assert_close(y, y_ref, "y")
+    _assert_close(rsig, rsig_ref, "rsig")
+    dx = tgc._dx_launch(xl, g, beta, wl, mean_ref, rsig_ref, dyl, groups,
+                        bwd)
+    _assert_close(dx, tgc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean_ref,
+                                                 rsig_ref, dy, groups), "dx")
+    assert tconv.in_kernel_layout(y) and tconv.in_kernel_layout(dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,ci,co", [(1, 64, 320, 320),
+                                        (2, 8, 1280, 1280)])
+def test_cuda_gn_conv_dx_is_bitwise_repeatable(cuda, b, hw, ci, co):
+    """dx sums its splits, its slots and its groups in a fixed order (no
+    atomics): two calls give the same bits, with the planner's plan (whole
+    at 64x64, split at 8x8) and with a forced split of 6."""
+    x, w, dy, g, beta = _gn_conv_inputs(b, hw, ci, co, cuda)
+    xl, wl, dyl = (tconv.to_kernel_layout(t) for t in (x, w, dy))
+    _, mean, rsig = tgc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, 32, 1e-5)
+    forced = tconv.fixed_plan(b, hw, hw, co, ci, 2, 128, 6, f32_out=True)
+    for plan in (None, forced):
+        runs = [tgc._dx_launch(xl, g, beta, wl, mean, rsig, dyl, 32, plan)
+                for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+        _assert_close(runs[0], tgc.gn_silu_conv3x3_dx_ref(
+            x, g, beta, w, mean, rsig, dy, 32), "dx")
+
+
+@pytest.mark.cuda
+def test_cuda_gn_conv_nchw_and_channels_last_inputs_agree(cuda):
+    """An NCHW x, w or dy is copied to channels-last (counted in
+    LAYOUT_COPIES), never read through the wrong strides: the results are
+    the channels-last inputs' bit for bit, and channels-last either way."""
+    x, w, dy, g, beta = _gn_conv_inputs(2, 32, 320, 640, cuda)
+    xl, wl, dyl = (tconv.to_kernel_layout(t) for t in (x, w, dy))
+    before = tgc.LAYOUT_COPIES["gn_conv"]
+    y_l, mean, rsig = tgc.gn_silu_conv3x3_fwd_cuda(xl, g, beta, wl, 32, 1e-5)
+    dx_l = tgc.gn_silu_conv3x3_dx_cuda(xl, g, beta, wl, mean, rsig, dyl, 32)
+    assert tgc.LAYOUT_COPIES["gn_conv"] == before
+    y_n, mean_n, rsig_n = tgc.gn_silu_conv3x3_fwd_cuda(x, g, beta, w, 32,
+                                                       1e-5)
+    dx_n = tgc.gn_silu_conv3x3_dx_cuda(x, g, beta, w, mean, rsig, dy, 32)
+    assert tgc.LAYOUT_COPIES["gn_conv"] == before + 5
+    assert torch.equal(y_n, y_l) and torch.equal(dx_n, dx_l)
+    assert torch.equal(mean_n, mean) and torch.equal(rsig_n, rsig)
+    assert all(tconv.in_kernel_layout(t) for t in (y_n, y_l, dx_n, dx_l))
+    # a channels-last channel slice (a concat's gradient) is not dense:
+    # copied, not read through its strides
+    wide = tconv.to_kernel_layout(torch.cat([dy, dy], dim=1))[:, :640]
+    dx_s = tgc.gn_silu_conv3x3_dx_cuda(xl, g, beta, wl, mean, rsig, wide, 32)
+    assert tgc.LAYOUT_COPIES["gn_conv"] == before + 6
+    assert torch.equal(dx_s, dx_l)
