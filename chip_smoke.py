@@ -20,7 +20,9 @@ Phases, each reported on its own line:
      call, those times summed over the 47 convs of one U-Net forward, and a
      check at two ragged shapes; for the GroupNorm kernels (K8, K9) also
      back-to-back times beside F.group_norm's and the unfused default
-     path's, and K9's plans;
+     path's, and their plans; K8 on channels-last and NCHW x, with a check
+     that a second call gives the same bits and nothing is copied into
+     another layout;
   4. edit: one 512x512 DiffusionHandles(variant="sd2") edit through the four
      public steps with the default U-Net (seeded random weights),
      EDIT_TIMESTEPS timesteps, with per-step seconds, the kernels' launch
@@ -36,7 +38,8 @@ Phases, each reported on its own line:
      attention;
   8. edit_fused: the same edit, FUSED_EDIT_TIMESTEPS timesteps, through the
      U-Net with the fused GroupNorm kernels (UNetConfig.fused_gn_conv and
-     fused_gn) on the same seeded weights; all six kernels must launch;
+     fused_gn) on the same seeded weights; all six kernels must launch, and
+     K8's wrappers copy no input into another layout;
   9. unet_fused_reference: the fused U-Net and a default one with the same
      weights on one input: eps and the gradient to the latents must agree;
  10. edit_conv: the EDIT_TIMESTEPS edit through the U-Net whose resnet and
@@ -159,6 +162,8 @@ CONV3_SITE_COUNTS = {
 # U-Net's sums): (side, Ci, Co)
 CONV3_RAGGED_SHAPES = [(12, 48, 80), (5, 64, 96)]
 BATCHES = (1, 2)
+# K8's two layouts: channels-last (the fused U-Net's) first, then NCHW
+GN_LAYOUTS = ("channels_last", "nchw")
 
 KERNELS = {
     "flash_fwd": ("diffusionhandles_tpu_torch/csrc/flash_fwd.cu",
@@ -300,6 +305,13 @@ def launch_counts() -> dict:
     for mod in _kernel_modules():
         counts.update(mod.LAUNCHES)
     return counts
+
+
+def layout_copies() -> dict:
+    """Inputs K8's (`gn`) and K9's (`gn_conv`) wrappers copied into their
+    kernels' layouts so far."""
+    _, gn, gc, _ = _kernel_modules()
+    return {**gn.LAYOUT_COPIES, **gc.LAYOUT_COPIES}
 
 
 def phase_device():
@@ -551,11 +563,22 @@ def _flash_per_unet(per_site):
               **sums, **ratios)
 
 
+def _gn_plan_fields(plan) -> dict:
+    return {"slab": plan.slab, "cluster": plan.cluster, "ppc": plan.ppc,
+            "chunk": plan.chunk, "streaming": plan.streaming,
+            "smem": plan.smem, "grid": plan.grid}
+
+
 def _kernels_gn(res, rand):
     """K8 forward and backward against their plain versions at every
-    GroupNorm site; device and back-to-back times of the kernel, of
-    F.group_norm (its one-call library where there is no SiLU) and of the
-    default path's composition (fp32 GroupNorm, SiLU, cast)."""
+    GroupNorm site, B 1 and 2, on channels-last x (the fused U-Net's
+    layout) and on NCHW x, with bf16 parameters (the U-Net's): each
+    direction's plan, a check that a second call gives the same bits and
+    that nothing was copied into another layout, device and back-to-back
+    times of the kernel, of its one-call library on NCHW where there is no
+    SiLU (F.group_norm; native_group_norm_backward), of the default path's
+    composition (fp32 GroupNorm, SiLU, cast; forward) and of the plain
+    version. (Every plan's time: scripts/sweep_gn_plans.py.)"""
     import torch
     import torch.nn.functional as F
     gn = _kernel_modules()[1]
@@ -564,76 +587,110 @@ def _kernels_gn(res, rand):
         for b in BATCHES:
             shape = (b, c, side, side)
             n = b * c * side * side
-            x = rand(shape, 1.5, 0.5)
-            dy = rand(shape)
-            g = 1.0 + 0.1 * rand((c,), dtype=torch.float32)
-            beta = 0.1 * rand((c,), dtype=torch.float32)
-            y, mean, rsig = gn.gn_silu_fwd_cuda(x, g, beta, 32, eps, act, bf16)
-            y_ref, mean_ref, rsig_ref = gn.gn_silu_fwd_ref(x, g, beta, 32,
-                                                           eps, act, bf16)
-            got = gn.gn_silu_bwd_cuda(x, dy, g, beta, mean_ref, rsig_ref, 32,
-                                      act)
-            want = gn.gn_silu_bwd_ref(x, dy, g, beta, mean_ref, rsig_ref, 32,
-                                      act)
-            torch.cuda.synchronize()
-            errs, tols = zip(_rel_err(y, y_ref, GN_RTOL),
-                             _rel_err(rsig, rsig_ref, GN_RTOL))
-
-            def kernel_fwd():
-                return gn.gn_silu_fwd_cuda(x, g, beta, 32, eps, act, bf16)
-
-            def default_fwd():
-                return F.silu(F.group_norm(x.float(), 32, g, beta,
-                                           eps)).to(bf16)
-
-            gb, bb = g.to(bf16), beta.to(bf16)
+            x_nchw = rand(shape, 1.5, 0.5)
+            dy_nchw = rand(shape)
+            g = (1.0 + 0.1 * rand((c,), dtype=torch.float32)).to(bf16)
+            beta = (0.1 * rand((c,), dtype=torch.float32)).to(bf16)
             # one PyTorch call computes the same function where there is
-            # no SiLU: F.group_norm (its CUDA kernel reduces in fp32)
-            lib_fwd = (None if act else
-                       lambda: F.group_norm(x, 32, gb, bb, eps))
-            ms = _device_ms(kernel_fwd)
-            plain_ms = _device_ms(lambda: gn.gn_silu_fwd_ref(
-                x, g, beta, 32, eps, act, bf16))
-            lib_ms = None if lib_fwd is None else _device_ms(lib_fwd)
-            # read x, write y; ~9 fp32 operations an element
-            bound = _bound(9.0 * n, 4 * n + 8 * c, PEAK_FP32)
-            _check("gn_silu_fwd", shape + (act,), list(errs), list(tols),
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   default_ms=_device_ms(default_fwd), bound_ms=bound[0],
-                   wall_ms=_wall_ms(kernel_fwd),
-                   library_wall_ms=(None if lib_fwd is None
-                                    else _wall_ms(lib_fwd)),
-                   default_wall_ms=_wall_ms(default_fwd))
-            res.add("gn_silu_fwd", max(errs), ms, plain_ms, bound, lib_ms)
-
-            errs, tols = zip(*(_rel_err(g_, w_, GN_RTOL)
-                               for g_, w_ in zip(got, want)))
-
-            def kernel_bwd():
-                return gn.gn_silu_bwd_cuda(x, dy, g, beta, mean_ref,
-                                           rsig_ref, 32, act)
-
-            ms = _device_ms(kernel_bwd)
-            plain_ms = _device_ms(lambda: gn.gn_silu_bwd_ref(
-                x, dy, g, beta, mean_ref, rsig_ref, 32, act))
-            lib_bwd = None
+            # no SiLU: F.group_norm (its CUDA kernel reduces in fp32), on
+            # NCHW, its layout
+            lib_fwd = lib_bwd = None
             if not act:
+                def lib_fwd():
+                    return F.group_norm(x_nchw, 32, g, beta, eps)
                 _, m_, r_ = torch.ops.aten.native_group_norm(
-                    x, gb, bb, b, c, side * side, 32, eps)
+                    x_nchw, g, beta, b, c, side * side, 32, eps)
 
                 def lib_bwd():
                     return torch.ops.aten.native_group_norm_backward(
-                        dy, x, m_, r_, gb, b, c, side * side, 32,
+                        dy_nchw, x_nchw, m_, r_, g, b, c, side * side, 32,
                         [True, True, True])
-            lib_ms = None if lib_bwd is None else _device_ms(lib_bwd)
-            # read x and dy, write dx; ~17 fp32 operations an element
-            bound = _bound(17.0 * n, 6 * n + 8 * c, PEAK_FP32)
-            _check("gn_silu_bwd", shape + (act,), list(errs), list(tols),
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound[0], wall_ms=_wall_ms(kernel_bwd),
-                   library_wall_ms=(None if lib_bwd is None
-                                    else _wall_ms(lib_bwd)))
-            res.add("gn_silu_bwd", max(errs), ms, plain_ms, bound, lib_ms)
+            lib = {"fwd": (None, None), "bwd": (None, None)}
+            if not act:
+                lib = {"fwd": (_device_ms(lib_fwd), _wall_ms(lib_fwd)),
+                       "bwd": (_device_ms(lib_bwd), _wall_ms(lib_bwd))}
+            for layout in GN_LAYOUTS:
+                fmt = (torch.channels_last if layout == "channels_last"
+                       else torch.contiguous_format)
+                x = x_nchw.contiguous(memory_format=fmt)
+                dy = dy_nchw.contiguous(memory_format=fmt)
+                copies = gn.LAYOUT_COPIES["gn"]
+                y, mean, rsig = gn.gn_silu_fwd_cuda(x, g, beta, 32, eps, act,
+                                                    bf16)
+                y_ref, mean_ref, rsig_ref = gn.gn_silu_fwd_ref(
+                    x, g, beta, 32, eps, act, bf16)
+                got = gn.gn_silu_bwd_cuda(x, dy, g, beta, mean_ref,
+                                          rsig_ref, 32, act)
+                want = gn.gn_silu_bwd_ref(x, dy, g, beta, mean_ref, rsig_ref,
+                                          32, act)
+                repeat = (all(torch.equal(p, q) for p, q in zip(
+                    (y, mean, rsig), gn.gn_silu_fwd_cuda(
+                        x, g, beta, 32, eps, act, bf16)))
+                    and all(torch.equal(p, q) for p, q in zip(
+                        got, gn.gn_silu_bwd_cuda(x, dy, g, beta, mean_ref,
+                                                 rsig_ref, 32, act))))
+                torch.cuda.synchronize()
+                in_layout = (y.is_contiguous(memory_format=fmt)
+                             and got[0].is_contiguous(memory_format=fmt)
+                             and gn.LAYOUT_COPIES["gn"] == copies)
+                case = shape + (act, layout)
+
+                def kernel_fwd():
+                    return gn.gn_silu_fwd_cuda(x, g, beta, 32, eps, act,
+                                               bf16)
+
+                def default_fwd():
+                    return F.silu(F.group_norm(x.float(), 32, g.float(),
+                                               beta.float(), eps)).to(bf16)
+
+                def kernel_bwd():
+                    return gn.gn_silu_bwd_cuda(x, dy, g, beta, mean_ref,
+                                               rsig_ref, 32, act)
+
+                errs, tols = zip(*(_rel_err(p, q, GN_RTOL) for p, q in
+                                   zip((y, mean, rsig),
+                                       (y_ref, mean_ref, rsig_ref))))
+                ms = _device_ms(kernel_fwd)
+                plain_ms = _device_ms(lambda: gn.gn_silu_fwd_ref(
+                    x, g, beta, 32, eps, act, bf16))
+                # read x, write y; ~9 fp32 operations an element
+                bound = _bound(9.0 * n, 4 * n + 4 * c, PEAK_FP32)
+                plan = gn.plan_gn(b, c, side * side, 32, bf16, bf16,
+                                  layout == "channels_last", False,
+                                  card=True)
+                _check("gn_silu_fwd", case, list(errs), list(tols), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib["fwd"][0],
+                       default_ms=_device_ms(default_fwd), bound_ms=bound[0],
+                       bound_by=bound[1], wall_ms=_wall_ms(kernel_fwd),
+                       library_wall_ms=lib["fwd"][1],
+                       default_wall_ms=_wall_ms(default_fwd),
+                       plan=_gn_plan_fields(plan),
+                       bitwise_repeatable=repeat, in_layout=in_layout)
+                res.add("gn_silu_fwd", max(errs), ms, plain_ms, bound,
+                        lib["fwd"][0])
+
+                errs, tols = zip(*(_rel_err(p, q, GN_RTOL)
+                                   for p, q in zip(got, want)))
+                ms = _device_ms(kernel_bwd)
+                plain_ms = _device_ms(lambda: gn.gn_silu_bwd_ref(
+                    x, dy, g, beta, mean_ref, rsig_ref, 32, act))
+                # read x and dy, write dx; ~17 fp32 operations an element
+                bound = _bound(17.0 * n, 6 * n + 4 * c, PEAK_FP32)
+                plan = gn.plan_gn(b, c, side * side, 32, bf16, bf16,
+                                  layout == "channels_last", True, card=True)
+                _check("gn_silu_bwd", case, list(errs), list(tols), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib["bwd"][0],
+                       bound_ms=bound[0], bound_by=bound[1],
+                       wall_ms=_wall_ms(kernel_bwd),
+                       library_wall_ms=lib["bwd"][1],
+                       plan=_gn_plan_fields(plan),
+                       bitwise_repeatable=repeat, in_layout=in_layout)
+                res.add("gn_silu_bwd", max(errs), ms, plain_ms, bound,
+                        lib["bwd"][0])
+                if not (repeat and in_layout):
+                    raise AssertionError(
+                        f"K8 at {case}: bitwise_repeatable={repeat}, "
+                        f"in_layout={in_layout}")
 
 
 def _kernels_gn_conv(res, rand):
@@ -930,8 +987,8 @@ def _kernels_general_flash(res, rand):
 def _kernels_general_gn_conv(res, rand):
     """The general instances of K7 (conv_general.cu), K8 and K9 against
     their plain versions on the same card tensors; the library calls are
-    cuDNN's conv (forward, input gradient) and F.group_norm where there is
-    no SiLU, in the same dtype."""
+    cuDNN's conv (forward, input gradient) and, for K8 (run without SiLU),
+    F.group_norm and native_group_norm_backward, in the same dtype."""
     import torch
     import torch.nn.functional as F
     _, gn, gc, conv = _kernel_modules()
@@ -979,21 +1036,39 @@ def _kernels_general_gn_conv(res, rand):
             None, _bound(flops, es * (px * (2 * ci + co) + 9 * ci * co),
                          PEAK_FP32)))
         if side * side % 8 == 0:
+            # K8 without SiLU (the transformer norms), so that one PyTorch
+            # call computes the same function: F.group_norm and its
+            # backward in the same dtype
             gn_bytes = es * b * ci * side * side
+            gm, gr = gn.gn_silu_fwd_ref(x, g, beta, groups, 1e-6, False,
+                                        dtype)[1:]
+            lib_fwd = lib_bwd = None
+            if timed:
+                _, m_, r_ = torch.ops.aten.native_group_norm(
+                    x, g, beta, b, ci, side * side, groups, 1e-6)
+
+                def lib_fwd():
+                    return F.group_norm(x, groups, g, beta, 1e-6)
+
+                def lib_bwd():
+                    return torch.ops.aten.native_group_norm_backward(
+                        dxin, x, m_, r_, g, b, ci, side * side, groups,
+                        [True, True, True])
             cases += [
                 ("gn_silu_fwd_general",
                  lambda: gn.gn_silu_fwd_general(x, g, beta, groups, 1e-6,
-                                                True, dtype)[0],
-                 lambda: gn.gn_silu_fwd_ref(x, g, beta, groups, 1e-6, True,
+                                                False, dtype)[0],
+                 lambda: gn.gn_silu_fwd_ref(x, g, beta, groups, 1e-6, False,
                                             dtype)[0],
-                 None, _bound(9.0 * gn_bytes / es, 2 * gn_bytes, PEAK_FP32)),
+                 lib_fwd, _bound(9.0 * gn_bytes / es, 2 * gn_bytes,
+                                 PEAK_FP32)),
                 ("gn_silu_bwd_general",
-                 lambda: gn.gn_silu_bwd_general(x, dxin, g, beta, mean, rsig,
-                                                groups, True)[0],
-                 lambda: gn.gn_silu_bwd_ref(x, dxin, g, beta, mean, rsig,
-                                            groups, True)[0],
-                 None, _bound(17.0 * gn_bytes / es, 3 * gn_bytes,
-                              PEAK_FP32))]
+                 lambda: gn.gn_silu_bwd_general(x, dxin, g, beta, gm, gr,
+                                                groups, False)[0],
+                 lambda: gn.gn_silu_bwd_ref(x, dxin, g, beta, gm, gr,
+                                            groups, False)[0],
+                 lib_bwd, _bound(17.0 * gn_bytes / es, 3 * gn_bytes,
+                                 PEAK_FP32))]
         for name, kernel, plain, lib, bound in cases:
             got = kernel()
             err, tol = _rel_err(got, plain(), GN_RTOL)
@@ -1201,8 +1276,9 @@ def _count_unet_calls(unet) -> dict:
 
 def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
     """One edit through the four public steps; returns the handles, the
-    kernels' launch counts of that run (each of `kernels` must be > 0) and
-    the U-Net's call counts."""
+    kernels' launch counts of that run (each of `kernels` must be > 0),
+    the U-Net's call counts and the inputs the GroupNorm wrappers copied
+    into their kernels' layouts in that run."""
     import numpy as np
     import torch
 
@@ -1220,6 +1296,7 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
 
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
+    copies0 = layout_copies()
     reset_launch_counts()
     steps = {}
 
@@ -1246,6 +1323,7 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
             activations=acts, rot_angle=20.0, rot_axis=[0.0, 1.0, 0.0],
             translation=[0.0, 0.0, 0.1]))
     launches = launch_counts()
+    copies = {k: n - copies0[k] for k, n in layout_copies().items()}
     peak = torch.cuda.max_memory_allocated()
 
     res = handles.img_res
@@ -1265,11 +1343,11 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
                                     if k.endswith("_general")),
     }
     _line(name, seconds=steps, total_seconds=sum(steps.values()),
-          launches=launches, unet_calls=calls, peak_bytes=peak,
-          resident_bytes=resident, checks=checks)
+          launches=launches, layout_copies=copies, unet_calls=calls,
+          peak_bytes=peak, resident_bytes=resident, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"{name} checks failed: {checks}")
-    return handles, launches, calls
+    return handles, launches, calls, copies
 
 
 # 3x3 convs of the conv-kernel U-Net at 512x512 that pass the conv gate: 44
@@ -1307,12 +1385,14 @@ FUSED_HALVES_BEFORE_CONTEXT = 2
 FUSED_NORMS = 17
 
 
-def check_fused_launches(launches, calls):
+def check_fused_launches(launches, calls, copies):
     """K9's forward and K8's forward launch at each fused site once per
     U-Net forward; K9's dx at each half a backward reaches (all of them
     for a gradient to the latents, all but those before the first
     cross-attention for one to the text embedding), K8's backward at most
-    once per fused GroupNorm and backward."""
+    once per fused GroupNorm and backward; K8's wrappers copy nothing into
+    another layout (every site reads its channels-last x, and the
+    gradient, in place)."""
     fwd, grads = calls["forward"], calls["with_grad"]
     checks = {
         "k9_fwd_per_call": launches["gn_silu_conv3x3_fwd"]
@@ -1323,8 +1403,9 @@ def check_fused_launches(launches, calls):
         "k8_fwd_per_call": launches["gn_silu_fwd"] == FUSED_NORMS * fwd,
         "k8_bwd_per_backward": (0 < launches["gn_silu_bwd"]
                                 <= FUSED_NORMS * grads),
+        "k8_no_layout_copy": copies["gn"] == 0,
     }
-    _line("edit_fused_launches", unet_calls=calls,
+    _line("edit_fused_launches", unet_calls=calls, layout_copies=copies,
           **{k: launches[k] for k in ("gn_silu_conv3x3_fwd",
                                       "gn_silu_conv3x3_dx", "gn_silu_fwd",
                                       "gn_silu_bwd")}, checks=checks)
@@ -1634,8 +1715,8 @@ def main() -> int:
         phase_device()
         phase_build()
         kernels = phase_kernels()
-        default, _, _ = phase_edit("edit", EDIT_TIMESTEPS,
-                                   ("flash_fwd", "flash_bwd"))
+        default, _, _, _ = phase_edit("edit", EDIT_TIMESTEPS,
+                                      ("flash_fwd", "flash_bwd"))
         phase_unet_reference(default)
         launches = phase_unet_flash_bwd_modes(default)
         default_config = default.diffuser.models.unet_config
@@ -1645,16 +1726,16 @@ def main() -> int:
         launches.update({n: entries[n] for n in ("flash_fwd_unfolded",
                                                  "flash_fwd_stream")})
         general = {k: n for k, n in entries.items() if k.endswith("_general")}
-        fused, fused_launches, fused_calls = phase_edit(
+        fused, fused_launches, fused_calls, fused_copies = phase_edit(
             "edit_fused", FUSED_EDIT_TIMESTEPS, FUSED_EDIT_KERNELS,
             fused_gn_conv=True, fused_gn=True)
-        check_fused_launches(fused_launches, fused_calls)
+        check_fused_launches(fused_launches, fused_calls, fused_copies)
         launches.update({n: fused_launches[n] for n in FUSED_EDIT_KERNELS})
         phase_unet_switch_reference("unet_fused_reference", fused,
                                     default_config)
         del fused
         _free_device_memory()
-        conv, conv_launches, calls = phase_edit(
+        conv, conv_launches, calls, _ = phase_edit(
             "edit_conv", EDIT_TIMESTEPS,
             ("flash_fwd", "flash_bwd", "conv3x3_fwd", "conv3x3_dx"),
             conv3x3_kernel=True)

@@ -10,12 +10,12 @@ the embedding instead), and the batch-2 CFG forward. Then one batch-1
 forward + backward under torch.profiler: device time by kernel, the count
 of device ops (kernels and copies) in the call, the flash kernels' device
 ms (each kernel, and their sum), the conv GEMM's (conv.cu: K7, or K9's
-GEMMs in the fused U-Net), the GroupNorm kernels' (K8) and, for the fused
-U-Net, K9's (its GEMMs and passes, each kernel) and K9's share of the
-device time, the copy kernels (PyTorch's copies, which layout changes and
+GEMMs in the fused U-Net), the GroupNorm kernel's (K8: device ms and
+launches) and, for the fused U-Net, K9's (its GEMMs and passes, each
+kernel) and K9's share of the device time, the copy kernels (PyTorch's copies, which layout changes and
 dtype casts both run, and cuDNN's NCHW <-> NHWC transposes) and their
-share of the device time, the inputs K9's wrappers copied into its
-channels-last layout, and the device's busy share of the wall time
+share of the device time, the inputs K9's and K8's wrappers copied into
+their kernels' layouts, and the device's busy share of the wall time
 (profiled, and against the unprofiled call). With --fused, the U-Net with
 the fused GroupNorm kernels (UNetConfig.fused_gn_conv, fused_gn; same
 weights), and
@@ -80,10 +80,11 @@ def _profile(fwd_bwd, call_ms: float, label: str) -> None:
     GEMM runs only inside K9."""
     from torch.profiler import ProfilerActivity, profile
 
-    from diffusionhandles_tpu_torch.ops import gn_conv
+    from diffusionhandles_tpu_torch.ops import gn_conv, groupnorm
     fwd_bwd()
     torch.cuda.synchronize()
     copies0 = gn_conv.LAYOUT_COPIES["gn_conv"]
+    gn_copies0 = groupnorm.LAYOUT_COPIES["gn"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -108,7 +109,8 @@ def _profile(fwd_bwd, call_ms: float, label: str) -> None:
     conv_us = sum(r[0] for r in rows
                   if re.search(r"\bconv::(conv3x3|splitk_sum)_kernel", r[1]))
     gnconv = [r for r in rows if re.search(r"\bgnconv::", r[1])]
-    gn_us = sum(r[0] for r in rows if re.search(r"\bgn::", r[1]))
+    gn = [r for r in rows if re.search(r"\bgn::", r[1])]
+    gn_us = sum(r[0] for r in gn)
     k9 = gnconv + ([r for r in rows if re.search(r"\bconv::", r[1])]
                    if label.startswith("fused_") else [])
     k9_us = sum(r[0] for r in k9)
@@ -129,6 +131,7 @@ def _profile(fwd_bwd, call_ms: float, label: str) -> None:
                               for us, k, n in flash],
             "conv3x3_kernels_ms": conv_us / 1e3,
             "gn_kernels_ms": gn_us / 1e3,
+            "gn_kernel_launches": sum(r[2] for r in gn),
             "gn_conv_kernels_ms": k9_us / 1e3,
             "gn_conv_share": k9_us / total_us,
             "gn_conv_kernels": [{"kernel": k[:90], "ms": us / 1e3,
@@ -136,6 +139,8 @@ def _profile(fwd_bwd, call_ms: float, label: str) -> None:
             # inputs K9's wrappers copied into its layout (channels-last)
             "gn_conv_layout_copies": (gn_conv.LAYOUT_COPIES["gn_conv"]
                                       - copies0),
+            # inputs K8's wrappers copied into its layout
+            "gn_layout_copies": groupnorm.LAYOUT_COPIES["gn"] - gn_copies0,
             "layout_copies_ms": layout_us / 1e3,
             "layout_copies_share": layout_us / total_us,
             "layout_copies": [{"kernel": k[:90], "ms": us / 1e3, "count": n}

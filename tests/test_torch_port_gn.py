@@ -81,16 +81,24 @@ def _gn_inputs(rng, b, h, w, c):
 # K8: GroupNorm(+SiLU)
 # ---------------------------------------------------------------------------
 
+LAYOUTS = {"nchw": torch.contiguous_format,
+           "channels_last": torch.channels_last}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("b,hw,c,groups,act,eps", [
     (1, 8, 64, 8, True, 1e-5),
     (2, 8, 320, 32, False, 1e-6),   # SD-2 widths: group width 10
     (1, 4, 96, 32, True, 1e-5),     # group width 3
 ])
-def test_gn_silu_matches_jax_kernel(dtype, b, hw, c, groups, act, eps):
+def test_gn_silu_matches_jax_kernel(dtype, b, hw, c, groups, act, eps,
+                                    layout):
     """y, dx, dgamma and dbeta of the port's plain K8 against the JAX
-    Pallas kernel (interpret mode)."""
+    Pallas kernel (interpret mode), on NCHW and on channels-last x (the
+    fused U-Net's layout); y and dx keep x's memory format."""
     tdt, jdt, rtol = DTYPES[dtype]
+    fmt = LAYOUTS[layout]
     rng = np.random.RandomState(c + b)
     x, gamma, beta = _gn_inputs(rng, b, hw, hw, c)
     dy = rng.randn(*x.shape).astype(np.float32)
@@ -104,13 +112,16 @@ def test_gn_silu_matches_jax_kernel(dtype, b, hw, c, groups, act, eps):
                            jnp.asarray(beta))
         dx_j, dg_j, db_j = vjp(jnp.asarray(dy, jdt))
 
-    xt = torch.from_numpy(_nchw(x)).to(tdt).requires_grad_(True)
+    xt = torch.from_numpy(_nchw(x)).to(tdt).contiguous(
+        memory_format=fmt).requires_grad_(True)
     gt = torch.from_numpy(gamma).requires_grad_(True)
     bt = torch.from_numpy(beta).requires_grad_(True)
     y_t = tgn.gn_silu(xt, gt, bt, groups, eps, act, tdt)
-    assert y_t.dtype == tdt
+    assert y_t.dtype == tdt and y_t.is_contiguous(memory_format=fmt)
     dx_t, dg_t, db_t = torch.autograd.grad(
-        y_t, (xt, gt, bt), torch.from_numpy(_nchw(dy)).to(tdt))
+        y_t, (xt, gt, bt),
+        torch.from_numpy(_nchw(dy)).to(tdt).contiguous(memory_format=fmt))
+    assert dx_t.is_contiguous(memory_format=fmt)
     _close(y_t, _nchw(_np(y_j)), rtol, "y")
     _close(dx_t, _nchw(_np(dx_j)), rtol, "dx")
     _close(dg_t, dg_j, rtol, "dgamma")

@@ -539,10 +539,330 @@ def test_cuda_gn_kernels_refuse_other_inputs(cuda):
     with pytest.raises(TypeError):
         tgn.gn_silu_fwd_cuda(x, g, beta, 32, 1e-5, True, torch.float32)
     xb = x.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="writes bfloat16"):
+        tgn.gn_silu_fwd_cuda(xb, g, beta, 32, 1e-5, True, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tgn.gn_silu_fwd_cuda(xb[:, :, :3, :3], g, beta, 32, 1e-5, True,
+                             torch.bfloat16)
+    with pytest.raises(ValueError, match="groups"):
+        tgn.gn_silu_fwd_general(x[:, :60], g[:60], beta[:60], 32, 1e-5,
+                                True, torch.float32)
+    mean = torch.zeros((1, 32), device=cuda)
+    with pytest.raises(ValueError, match="dy"):
+        tgn.gn_silu_bwd_cuda(xb, xb[:, :32], g, beta, mean, mean, 32, True)
     w = torch.zeros((64, 64, 3, 3), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
         tgc.gn_silu_conv3x3_fwd_cuda(xb[:, :36], g[:36], beta[:36],
                                      w[:, :36], 4, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K8's planner and layouts (CPU), and the kernel at the U-Net's sites (card)
+# ---------------------------------------------------------------------------
+
+# (side, channels) of the U-Net's 17 GroupNorm sites at 512x512: five
+# transformer norms at 64x64x320 and conv_norm_out (SiLU) there, five at
+# 32x32x640, five at 16x16x1280, one at 8x8x1280 (the mid block)
+GN_SITES = [(64, 320)] * 6 + [(32, 640)] * 5 + [(16, 1280)] * 5 + [(8, 1280)]
+GN_SITE_SHAPES = sorted(set(GN_SITES), reverse=True)
+# Shapes gn_ok admits whose slab no cluster's shared memory holds: (B, C,
+# side) of a 512x512 latent at 320 channels, and a 1024x1024 one at 64
+LARGE_GN_SHAPES = [(1, 320, 512), (1, 64, 1024)]
+LAYOUTS = {"channels_last": torch.channels_last,
+           "nchw": torch.contiguous_format}
+
+
+def _assert_plan_fits(plan, c, groups, es, channels_last, bwd):
+    cg = c // groups
+    assert plan.slab % cg == 0 and c % plan.slab == 0, plan
+    if channels_last:
+        assert plan.slab * es % 16 == 0, plan
+    assert plan.smem <= 227 * 1024, plan
+    assert plan.smem == tgn.smem_bytes(es, channels_last, bwd, plan.slab,
+                                       plan.chunk, plan.cluster)
+    assert 1 <= plan.cluster <= 16 and plan.ppc % 8 == 0, plan
+    assert plan.chunk % 8 == 0 and plan.chunk <= plan.ppc, plan
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("side,c", GN_SITE_SHAPES)
+def test_gn_plan_at_unet_sites(side, c, b, dtype, layout):
+    """At each GroupNorm site shape of the U-Net, both directions: the slab
+    is whole groups (channels-last: a multiple of 16 bytes a pixel), a CTA
+    takes at most 227 KB of shared memory, the cluster at most 16 CTAs, no
+    CTA of a cluster is idle, and the plan is one launch."""
+    cl = layout == "channels_last"
+    es = dtype.itemsize
+    for bwd in (False, True):
+        plan = tgn.plan_gn(b, c, side * side, 32, dtype, dtype, cl, bwd)
+        _assert_plan_fits(plan, c, 32, es, cl, bwd)
+        assert not plan.streaming and plan.launches == 1, plan
+        assert (plan.cluster - 1) * plan.ppc < side * side <= (
+            plan.cluster * plan.ppc), plan
+        assert plan.grid == b * (c // plan.slab) * plan.cluster
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,side", LARGE_GN_SHAPES)
+def test_gn_plan_streams_what_no_cluster_holds(b, c, side, dtype, layout):
+    """A shape the gate admits but no cluster holds takes the streaming
+    plan (two launches, chunks within shared memory) in both directions."""
+    cl = layout == "channels_last"
+    es = dtype.itemsize
+    assert tgn.gn_ok((b, side, side, c), 32, es)
+    for bwd in (False, True):
+        plan = tgn.plan_gn(b, c, side * side, 32, dtype, dtype, cl, bwd)
+        _assert_plan_fits(plan, c, 32, es, cl, bwd)
+        assert plan.streaming and plan.launches == 2, plan
+        assert plan.cluster * plan.ppc >= side * side > plan.chunk, plan
+
+
+def test_gn_plan_forced_options():
+    """`cluster` forces a fused plan of that size (refused where it cannot
+    hold the slab), `stream` the streaming plan at any shape; a
+    channels-last slab that is not 16 bytes wide has no plan."""
+    plan = tgn.plan_gn(1, 320, 4096, 32, torch.bfloat16, None, True, False,
+                       cluster=16)
+    assert (plan.cluster, plan.ppc, plan.streaming) == (16, 256, False)
+    with pytest.raises(ValueError, match="cannot hold"):
+        tgn.plan_gn(1, 320, 4096, 32, torch.bfloat16, None, True, True,
+                    cluster=1)
+    with pytest.raises(ValueError, match="not one of"):
+        tgn.plan_gn(1, 320, 4096, 32, torch.bfloat16, None, True, False,
+                    cluster=3)
+    plan = tgn.plan_gn(1, 1280, 64, 32, torch.bfloat16, None, False, True,
+                       stream=True)
+    assert plan.streaming and plan.launches == 2
+    assert tgn.slab_of(100, 4, 2, True) is None  # lcm(25, 8) > 100
+    with pytest.raises(ValueError, match="no plan"):
+        tgn.plan_gn(1, 100, 64, 4, torch.bfloat16, None, True, False)
+
+
+def test_gn_memory_format_of():
+    x = torch.zeros((2, 64, 4, 4))
+    assert tgn.memory_format_of(x) == torch.contiguous_format
+    xl = x.contiguous(memory_format=torch.channels_last)
+    assert tgn.memory_format_of(xl) == torch.channels_last
+    # a channel slice of a channels-last concat: not dense, still its
+    # channels innermost
+    cat = torch.zeros((2, 96, 4, 4)).contiguous(
+        memory_format=torch.channels_last)
+    assert tgn.memory_format_of(cat[:, :64]) == torch.channels_last
+    assert tgn.memory_format_of(torch.zeros((2, 64, 1, 1))) == (
+        torch.contiguous_format)
+    assert tgn.memory_format_of(torch.zeros((2, 64, 16))) == (
+        torch.contiguous_format)
+
+
+def test_gn_autograd_keeps_memory_format():
+    """On the CPU, gn_silu on a channels-last x copies nothing into another
+    layout (LAYOUT_COPIES stays 0), returns y and dx channels-last, and
+    gives the values of the same call on NCHW x (fp32, to 1e-5 of the
+    largest value: the group sums run over the view in another order)."""
+    x = _rand((2, 96, 8, 8), 0, 1.5)
+    g, beta = _gn_params(96, "cpu", 1)
+    dy = _rand((2, 96, 8, 8), 3)
+    outs = {}
+    copies = tgn.LAYOUT_COPIES["gn"]
+    for name, fmt in LAYOUTS.items():
+        xt = x.contiguous(memory_format=fmt).requires_grad_(True)
+        y = tgn.gn_silu(xt, g, beta, 32, 1e-5, True, torch.float32)
+        dx, = torch.autograd.grad(y, xt, dy.contiguous(memory_format=fmt))
+        assert y.is_contiguous(memory_format=fmt), name
+        assert dx.is_contiguous(memory_format=fmt), name
+        outs[name] = (y, dx)
+    assert tgn.LAYOUT_COPIES["gn"] == copies
+    for got, want in zip(outs["channels_last"], outs["nchw"]):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+def _gn_case(b, side, c, device, dtype, fmt, seed=0):
+    x = _rand((b, c, side, side), seed, 1.5, device, dtype) + 0.5
+    dy = _rand((b, c, side, side), seed + 1, 1.0, device, dtype)
+    g, beta = _gn_params(c, device, seed + 2)
+    return (x.contiguous(memory_format=fmt), dy.contiguous(memory_format=fmt),
+            g, beta)
+
+
+def _gn_check(x, dy, g, beta, groups, eps, act, out_dtype, fwd, bwd,
+              what):
+    """Forward and backward kernel calls (`fwd`, `bwd`) against the plain
+    versions, each output in x's memory format; a repeated call gives the
+    same bits."""
+    y, mean, rsig = fwd(x, g, beta, groups, eps, act, out_dtype)
+    y_ref, mean_ref, rsig_ref = tgn.gn_silu_fwd_ref(x, g, beta, groups, eps,
+                                                    act, out_dtype)
+    fmt = tgn.memory_format_of(x)
+    assert y.dtype == out_dtype and y.is_contiguous(memory_format=fmt), what
+    _assert_close(y, y_ref, f"{what} y")
+    _assert_close(mean, mean_ref, f"{what} mean")
+    _assert_close(rsig, rsig_ref, f"{what} rsig")
+    got = bwd(x, dy, g, beta, mean_ref, rsig_ref, groups, act)
+    want = tgn.gn_silu_bwd_ref(x, dy, g, beta, mean_ref, rsig_ref, groups,
+                               act)
+    assert got[0].dtype == x.dtype, what
+    assert got[0].is_contiguous(memory_format=fmt), what
+    for gt, wt, name in zip(got, want, ("dx", "u", "v")):
+        _assert_close(gt, wt, f"{what} {name}")
+    again = fwd(x, g, beta, groups, eps, act, out_dtype)
+    assert all(torch.equal(a, b_) for a, b_ in zip((y, mean, rsig), again))
+    again = bwd(x, dy, g, beta, mean_ref, rsig_ref, groups, act)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), what
+
+
+def _forced(**force):
+    """K8's bf16 launches with plans forced through plan_gn(**force), by
+    the wrappers' inner calls, returning what the public wrappers return."""
+    def plan(x, bwd_, out_dtype):
+        b, c = x.shape[:2]
+        return tgn.plan_gn(b, c, x[0, 0].numel(), 32, x.dtype, out_dtype,
+                           tgn.memory_format_of(x) == torch.channels_last,
+                           bwd_, card=True, **force)
+
+    def f(x, g, beta, groups, eps, act, out_dtype):
+        y, stats = tgn._fwd_stats(x, g, beta, groups, eps, act, out_dtype,
+                                  "gn_silu_fwd", plan(x, False, out_dtype))
+        return y, stats[0], stats[1]
+
+    def b_(x, dy, g, beta, mean, rsig, groups, act):
+        dx, uv = tgn._bwd_uv(x, dy, g, beta, mean.data_ptr(),
+                             rsig.data_ptr(), groups, act, "gn_silu_bwd",
+                             plan(x, True, x.dtype))
+        return dx, uv[0], uv[1]
+    return f, b_
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["planner", "stream"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("side,c,act", [(64, 320, True), (64, 320, False),
+                                        (32, 640, False), (16, 1280, False),
+                                        (8, 1280, False)])
+def test_cuda_gn_sites_match_plain(cuda, side, c, act, b, layout, plan):
+    """K8 at every GroupNorm site shape of the U-Net, in both layouts, with
+    the planner's plan and with the streaming plan forced: forward (y,
+    mean, rsig) and backward (dx, u, v) within GN_RTOL of the plain
+    versions, outputs in x's layout, bitwise repeatable; one launch a
+    direction (two when streaming) and no layout copy."""
+    x, dy, g, beta = _gn_case(b, side, c, cuda, torch.bfloat16,
+                              LAYOUTS[layout])
+    fwd, bwd = tgn.gn_silu_fwd_cuda, tgn.gn_silu_bwd_cuda
+    if plan == "stream":
+        fwd, bwd = _forced(stream=True)
+    copies = tgn.LAYOUT_COPIES["gn"]
+    _gn_check(x, dy, g, beta, 32, 1e-5 if act else 1e-6, act,
+              torch.bfloat16, fwd, bwd, (side, c, b, layout, plan))
+    assert tgn.LAYOUT_COPIES["gn"] == copies
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("cluster", tgn.CLUSTERS)
+def test_cuda_gn_every_cluster_size(cuda, cluster, layout):
+    """Each cluster size (distributed shared memory across 1-16 CTAs) at
+    32x32x320, B=2, where every size holds the slab in both directions."""
+    x, dy, g, beta = _gn_case(2, 32, 320, cuda, torch.bfloat16,
+                              LAYOUTS[layout], seed=4)
+    fwd, bwd = _forced(cluster=cluster)
+    _gn_check(x, dy, g, beta, 32, 1e-5, True, torch.bfloat16, fwd, bwd,
+              (cluster, layout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.float16, torch.float16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_cuda_gn_general_instances_match_plain(cuda, dtype, out_dtype,
+                                               layout):
+    """The fp32 and fp16 instances (and mixed x / y types) of the same
+    kernel in both layouts, at 32x32x640 and group width 3, against the
+    plain versions with fp16 or bf16 parameters read as they are."""
+    for side, c, groups in ((32, 640, 32), (8, 96, 32)):
+        x, dy, g, beta = _gn_case(1, side, c, cuda, dtype, LAYOUTS[layout])
+        g, beta = g.to(torch.float16), beta.to(torch.float16)
+        tgn.reset_launch_counts()
+        _gn_check(x, dy, g, beta, groups, 1e-5, True, out_dtype,
+                  tgn.gn_silu_fwd_general, tgn.gn_silu_bwd_general,
+                  (side, c, dtype, out_dtype, layout))
+        assert tgn.LAUNCHES == _counted(tgn.LAUNCHES, gn_silu_fwd_general=2,
+                                        gn_silu_bwd_general=2)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_layout_copies_only_where_counted(cuda):
+    """A channels-last slice of a concat is copied once into the kernel's
+    layout, a channels-last x whose groups make no 16-byte slab is read as
+    NCHW (x in, y back: two copies), each counted; the results agree with
+    the plain versions and keep x's memory format."""
+    cat = _rand((1, 96, 16, 16), 0, 1.0, cuda, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    g, beta = _gn_params(64, cuda, 1)
+    copies = tgn.LAYOUT_COPIES["gn"]
+    y = tgn.gn_silu_fwd_cuda(cat[:, :64], g, beta, 32, 1e-5, True,
+                             torch.bfloat16)[0]
+    assert tgn.LAYOUT_COPIES["gn"] == copies + 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    _assert_close(y, tgn.gn_silu_fwd_ref(cat[:, :64], g, beta, 32, 1e-5,
+                                         True, torch.bfloat16)[0], "slice")
+    x = _rand((1, 100, 8, 8), 2, 1.0, cuda, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    g, beta = _gn_params(100, cuda, 3)
+    y = tgn.gn_silu_fwd_cuda(x, g, beta, 4, 1e-5, False, torch.bfloat16)[0]
+    assert tgn.LAYOUT_COPIES["gn"] == copies + 3
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    _assert_close(y, tgn.gn_silu_fwd_ref(x, g, beta, 4, 1e-5, False,
+                                         torch.bfloat16)[0], "no slab")
+
+
+@pytest.mark.cuda
+def test_cuda_gn_transformer_gradient_is_read_in_place(cuda):
+    """The transformer's pattern: y of a channels-last x viewed as [B, HW,
+    C]; its gradient comes back as a permuted view, channels-last, and the
+    backward reads it in place: no layout copy either way, dx
+    channels-last."""
+    x = _rand((1, 640, 32, 32), 0, 1.0, cuda, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    g, beta = _gn_params(640, cuda, 1)
+    w = _rand((640, 640), 2, 0.03, cuda, torch.bfloat16)
+    copies = tgn.LAYOUT_COPIES["gn"]
+    tgn.reset_launch_counts()
+    y = tgn.gn_silu(x, g, beta, 32, 1e-6, False, torch.bfloat16)
+    h = y.permute(0, 2, 3, 1).reshape(1, 32 * 32, 640)
+    assert h.is_contiguous() and h.data_ptr() == y.data_ptr()  # a view
+    (h @ w).float().square().sum().backward()
+    assert tgn.LAYOUT_COPIES["gn"] == copies
+    assert x.grad.is_contiguous(memory_format=torch.channels_last)
+    assert tgn.LAUNCHES == _counted(tgn.LAUNCHES, gn_silu_fwd=1,
+                                    gn_silu_bwd=1)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_library_agrees_with_the_planner(cuda):
+    """The library's shared-memory size of a plan is the planner's copy's
+    (smem_bytes, which plans off the card), and the card schedules every
+    plan the planner picks at the sites."""
+    lib = tgn.kernel_library()
+    for side, c in GN_SITE_SHAPES + [(s_, c_) for _, c_, s_ in
+                                     LARGE_GN_SHAPES]:
+        for dt, cl, bwd in itertools.product(
+                (torch.bfloat16, torch.float32), (True, False),
+                (False, True)):
+            plan = tgn.plan_gn(1, c, side * side, 32, dt, dt, cl, bwd,
+                               card=True)
+            es = dt.itemsize
+            assert lib.gn_smem_bytes(es, int(cl), int(bwd), plan.slab,
+                                     plan.chunk, plan.cluster) == plan.smem
+            assert tgn.smem_bytes(es, cl, bwd, plan.slab, plan.chunk,
+                                  plan.cluster) == plan.smem
+            code = cuda_build.ELEM_CODES[dt]
+            assert lib.gn_max_clusters(int(bwd), code, code, int(cl),
+                                       plan.cluster, plan.smem) >= 1
 
 
 # ---------------------------------------------------------------------------
