@@ -63,8 +63,13 @@ holds K9's and K8's launches to their sites per U-Net call, as the conv
 edit holds K7's. The kernels phase also checks the Hopper kernels' fp16
 instances and every general route against its plain version (fp32, timed,
 at a U-Net site; fp16; bf16 at a head dim or channel count the Hopper
-kernels are not built for), and the forward entries (7) run once more in
-fp32, on the general kernels.
+kernels are not built for; the flash routes also fp32 at head dim 160),
+the fp32 flash routes within the fp32 tolerance their 3xTF32 products
+meet (F32_O_RTOL), with back-to-back times of kernel and SDPA, also
+timed at head dim 80 in fp32 and bf16 (two head-dim chunks), the fp32
+bound the smaller of the CUDA cores' time and three TF32 passes on the
+tensor cores (the CUDA cores' kept as `bound_fp32_cores_ms`), and the
+forward entries (7) run once more in fp32, on the general kernels.
 Each edit runs with only its own models on the card, so that its peak
 memory is its own. Each path's launch counts are set to 0 just before it
 and read just after.
@@ -105,6 +110,18 @@ FWD_O_RTOL = 2.0 ** -7
 FWD_LSE_ATOL = 2.0 ** -8
 FWD_F32_LSE_ATOL = 2.0 ** -12
 BWD_RTOL = 2.0 ** -6
+# The fp32 general flash routes against their plain versions (fp32, full
+# fp32 products): the kernels multiply on the tensor cores as 3xTF32 (x =
+# hi + lo, both tf32, each product lo.hi' + hi.lo' + hi.hi' in fp32),
+# which drops below 2**-21 of a product; a logit (40-160 products, q
+# pre-scaled) moves by < 2**-17, p and lse by as much, O and the gradients
+# by ~2**-17 of their largest value. 2**-14 leaves 8x, and one TF32 pass
+# (2**-11 a product) misses it: lse by ~2**-11, the gradients through
+# dp by ~2**-11 of their largest value (tests/test_torch_flash_tf32_recipe.py,
+# where the emulated recipes land at <= 0.07x and >= 12x of it).
+F32_O_RTOL = 2.0 ** -14
+F32_LSE_ATOL = 2.0 ** -14
+F32_BWD_RTOL = 2.0 ** -14
 # The forward-only entries against dense attention, which rounds the
 # normalized probabilities to bf16 where the kernels round the unnormalized
 # p: O may differ by a few bf16 ulps (2**-8) of its largest value.
@@ -127,9 +144,10 @@ DEVICE_AHEAD_CYCLES = 10_000_000
 MAX_AHEAD_CYCLES = 40 * DEVICE_AHEAD_CYCLES
 
 # The card's published peaks (H100 SXM, dense): bf16 tensor cores, fp32
-# outside them, device memory.
+# outside them, TF32 tensor cores, device memory.
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 FWD_SHAPES = [(1, 4096, 5, 64), (2, 4096, 5, 64), (1, 1024, 10, 64),
@@ -195,9 +213,10 @@ KERNELS = {
 # shapes the Hopper kernels are not built for, through the general kernels
 GENERAL_SOURCES = {
     "flash_fwd": "flash_general.cu", "flash_fwd_unfolded": "flash_general.cu",
-    "flash_fwd_stream": "flash_general.cu", "flash_bwd": "flash_general.cu",
-    "flash_bwd_twopass": "flash_general.cu",
-    "flash_bwd_fold": "flash_general.cu", "conv3x3_fwd": "conv_general.cu",
+    "flash_fwd_stream": "flash_general.cu",
+    "flash_bwd": "flash_general_bwd.cu",
+    "flash_bwd_twopass": "flash_general_bwd.cu",
+    "flash_bwd_fold": "flash_general_bwd.cu", "conv3x3_fwd": "conv_general.cu",
     "conv3x3_dx": "conv_general.cu", "gn_silu_fwd": "gn.cu",
     "gn_silu_bwd": "gn.cu", "gn_silu_conv3x3_fwd": "gn_conv.cu",
     "gn_silu_conv3x3_dx": "gn_conv.cu"}
@@ -891,65 +910,101 @@ def _kernels_conv(res, rand):
                                         / acc["library_wall_ms"]))
 
 
-# Shapes of the general routes' checks: (dtype, shape) with the first,
-# fp32 at a U-Net site at B=1, also timed; the others (fp16, and bf16 at a
-# head dim or channel count the Hopper kernels are not built for) checked
-GENERAL_FLASH = [("float32", (1, 4096, 4096, 5, 64)),
-                 ("float16", (2, 1024, 1024, 10, 64)),
-                 ("bfloat16", (1, 1000, 1500, 8, 40))]
+# The general flash routes' checks: (dtype, (B, Sq, Sk, H, D), timed).
+# The first, fp32 at a U-Net site at B=1, gives the kernels line its row;
+# fp16, bf16 and fp32 at head dims the Hopper kernels are not built for
+# (160 in three head-dim chunks) are checked; SD-1.x's 32x32 site (head
+# dim 80, two chunks, where the backward spills) is also timed in fp32
+# and bf16.
+GENERAL_FLASH = [("float32", (1, 4096, 4096, 5, 64), True),
+                 ("float16", (2, 1024, 1024, 10, 64), False),
+                 ("bfloat16", (1, 1000, 1500, 8, 40), False),
+                 ("float32", (2, 300, 700, 2, 160), False),
+                 ("float32", (1, 1024, 1024, 8, 80), True),
+                 ("bfloat16", (1, 1024, 1024, 8, 80), True)]
 # (dtype, (B, side, Ci, Co, groups))
 GENERAL_CONV = [("float32", (1, 64, 320, 320, 32)),
                 ("float16", (2, 32, 640, 640, 32)),
                 ("bfloat16", (2, 12, 100, 36, 4))]
 
 
+def _general_flash_tols(dtype):
+    """(O rtol, lse atol, gradient rtol) of a general flash route in
+    `dtype`: fp32's (its 3xTF32 products), or the half dtypes' (K1's lse
+    tolerance; K4/K5 sum fp32 p and are held to FWD_F32_LSE_ATOL)."""
+    import torch
+    if dtype == torch.float32:
+        return F32_O_RTOL, F32_LSE_ATOL, F32_BWD_RTOL
+    return FWD_O_RTOL, FWD_LSE_ATOL, BWD_RTOL
+
+
+def _general_flash_bound(flops, nbytes, dtype):
+    """(bound, fields) of a general flash call: fp32 work at the smaller
+    of the CUDA cores' fp32 time and the tensor cores' time for three TF32
+    passes (the kernels' recipe), the CUDA cores' figure kept in fields as
+    `bound_fp32_cores_ms`; a half dtype's at one pass of its own."""
+    import torch
+    if dtype != torch.float32:
+        return _bound(flops, nbytes, PEAK_BF16), {}
+    cores = _bound(flops, nbytes, PEAK_FP32)
+    return (min(cores, _bound(3 * flops, nbytes, PEAK_TF32)),
+            {"bound_fp32_cores_ms": cores[0]})
+
+
 def _kernels_general_flash(res, rand):
     """The general flash kernels (every forward and backward variant)
     against their plain versions on the same card tensors; SDPA (forward,
-    and forward + backward) in the same dtype is the library call."""
+    and forward + backward) in the same dtype is the library call. A timed
+    check also takes back-to-back host-clock times of kernel and SDPA."""
     import torch
     import torch.nn.functional as F
     att = _kernel_modules()[0]
-    fwd = [("flash_fwd", att.flash_fwd_ref, FWD_LSE_ATOL),
-           ("flash_fwd_unfolded", att.flash_fwd_unfolded_ref,
-            FWD_F32_LSE_ATOL),
+    fwd = [("flash_fwd", att.flash_fwd_ref, False),
+           ("flash_fwd_unfolded", att.flash_fwd_unfolded_ref, True),
            ("flash_fwd_stream",
             lambda q, k, v: att.flash_fwd_stream_ref(q, k, v, STREAM_BLOCK_K),
-            FWD_F32_LSE_ATOL)]
+            True)]
     bwd = [("flash_bwd", att.flash_bwd_ref),
            ("flash_bwd_twopass", att.flash_bwd_twopass_ref),
            ("flash_bwd_fold", att.flash_bwd_fold_ref)]
-    for i, (dt, (b, sq, sk, h, d)) in enumerate(GENERAL_FLASH):
+    for dt, (b, sq, sk, h, d), timed in GENERAL_FLASH:
         dtype = getattr(torch, dt)
-        timed = i == 0
+        o_tol, lse_tol, g_tol = _general_flash_tols(dtype)
         q, k, v = (rand(sh, dtype=dtype) for sh in
                    ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d)))
         do = rand((b, sq, h, d), dtype=dtype)
         es = torch.finfo(dtype).bits // 8
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         shape = (dt, b, sq, sk, h, d)
-        lib_ms = (_device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt)) if timed else None)
-        bound = _bound(4.0 * b * h * sq * sk * d,
-                       (2 * sq + 2 * sk) * b * h * d * es + b * h * sq * 4,
-                       PEAK_FP32)
-        for name, plain, lse_tol in fwd:
+        lib_fields = {}
+        if timed:
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt)
+            lib_fields = dict(library_ms=_device_ms(sdpa),
+                              library_wall_ms=_wall_ms(sdpa))
+        bound, bound_fields = _general_flash_bound(
+            4.0 * b * h * sq * sk * d,
+            (2 * sq + 2 * sk) * b * h * d * es + b * h * sq * 4, dtype)
+        for name, plain, f32_sum in fwd:
             kernel = getattr(att, f"{name}_general")
             o, lse = kernel(q, k, v)
             o_ref, lse_ref = plain(q, k, v)
-            err_o, tol_o = _rel_err(o, o_ref, FWD_O_RTOL)
+            err_o, tol_o = _rel_err(o, o_ref, o_tol)
             err_l = (lse - lse_ref).abs().max().item()
+            l_tol = (FWD_F32_LSE_ATOL if f32_sum and dtype != torch.float32
+                     else lse_tol)
             fields = {}
             if timed:
                 fields = dict(ms=_device_ms(lambda: kernel(q, k, v)),
+                              wall_ms=_wall_ms(lambda: kernel(q, k, v)),
                               plain_ms=_device_ms(lambda: plain(q, k, v)),
-                              library_ms=lib_ms, bound_ms=bound[0])
+                              bound_ms=bound[0], **bound_fields,
+                              **lib_fields)
             _check(f"{name}_general", shape, [err_o, err_l],
-                   [tol_o, lse_tol], **fields)
+                   [tol_o, l_tol], **fields)
             _add_general(res, f"{name}_general", max(err_o, err_l), fields,
                          bound)
         o, lse = att.flash_fwd_ref(q, k, v)
-        lib_ms = None
         if timed:
             qg, kg, vg = (x.detach().requires_grad_(True)
                           for x in (qt, kt, vt))
@@ -958,15 +1013,16 @@ def _kernels_general_flash(res, rand):
                 out = F.scaled_dot_product_attention(qg, kg, vg)
                 torch.autograd.grad(out, (qg, kg, vg), do.transpose(1, 2))
 
-            lib_ms = _device_ms(sdpa_fwd_bwd)
-        bound = _bound(10.0 * b * h * sq * sk * d,
-                       (4 * sq + 4 * sk) * b * h * d * es + b * h * sq * 4,
-                       PEAK_FP32)
+            lib_fields = dict(library_ms=_device_ms(sdpa_fwd_bwd),
+                              library_wall_ms=_wall_ms(sdpa_fwd_bwd))
+        bound, bound_fields = _general_flash_bound(
+            10.0 * b * h * sq * sk * d,
+            (4 * sq + 4 * sk) * b * h * d * es + b * h * sq * 4, dtype)
         for name, plain in bwd:
             kernel = getattr(att, f"{name}_general")
             got = kernel(q, k, v, o, lse, do)
             want = plain(q, k, v, o, lse, do)
-            errs, tols = zip(*(_rel_err(g_, w_, BWD_RTOL)
+            errs, tols = zip(*(_rel_err(g_, w_, g_tol)
                                for g_, w_ in zip(got, want)))
             repeatable = all(torch.equal(g_, a_) for g_, a_ in
                              zip(got, kernel(q, k, v, o, lse, do)))
@@ -974,8 +1030,10 @@ def _kernels_general_flash(res, rand):
             if timed:
                 fields = dict(
                     ms=_device_ms(lambda: kernel(q, k, v, o, lse, do)),
+                    wall_ms=_wall_ms(lambda: kernel(q, k, v, o, lse, do)),
                     plain_ms=_device_ms(lambda: plain(q, k, v, o, lse, do)),
-                    library_ms=lib_ms, bound_ms=bound[0])
+                    bound_ms=bound[0], **bound_fields,
+                    **lib_fields)
             _check(f"{name}_general", shape, list(errs), list(tols),
                    bitwise_repeatable=repeatable, **fields)
             if not repeatable:
@@ -1155,13 +1213,12 @@ def _kernels_fp16(res, rand):
 
 def _add_general(res, name, err, fields, bound):
     """A general kernel's row: the worst error over its checks, the times
-    of its timed (fp32) check."""
-    if fields:
-        res.add(name, err, fields["ms"], fields["plain_ms"], bound,
-                fields["library_ms"])
-    else:
-        res.rows[name]["max_abs_err"] = max(res.rows[name]["max_abs_err"],
-                                            err)
+    and bounds of its first check (timed, fp32)."""
+    first = name not in res.rows
+    res.add(name, err, fields.get("ms"), fields.get("plain_ms"), bound,
+            fields.get("library_ms"))
+    if first and "bound_fp32_cores_ms" in fields:
+        res.rows[name]["bound_fp32_cores_ms"] = fields["bound_fp32_cores_ms"]
 
 
 def phase_kernels() -> dict:

@@ -30,9 +30,10 @@ exact; K6 with delta formed from its bf16 hi/lo pair). A call takes the route `f
 names from its device, dtype and head dim: the plain version on the CPU; on
 the card these kernels for bf16 or fp16 (an instance each) at head dim 64,
 else the general kernels
-(`csrc/flash_general.cu`: fp32, fp16 or bf16, any head dim, on the CUDA
-cores, each variant's rounding points), counted as `<route>_general` (e.g.
-`flash_fwd_general`).
+(`csrc/flash_general.cu` forward, `csrc/flash_general_bwd.cu` backward:
+fp32, fp16 or bf16, any head dim, each variant's rounding points, on the
+tensor cores with fp32 products as 3xTF32), counted as `<route>_general`
+(e.g. `flash_fwd_general`).
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ LAUNCHES: Dict[str, int] = {
                    "flash_bwd", "flash_bwd_twopass", "flash_bwd_fold")
     for n in (k, general(k))}
 
-KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_general.cu")
+KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_general.cu",
+                  "flash_general_bwd.cu")
 HEAD_DIM = 64  # the kernels' compiled head dim (flash_common.cuh: D)
 # Inputs the wrappers copied to a dense layout because TMA could not read
 # them in place (a strided head dim, or a base or stride off 16 bytes).

@@ -1203,6 +1203,36 @@ def _counted(launches, **moved):
     return {**dict.fromkeys(launches, 0), **moved}
 
 
+# Tolerances of the fp32 general routes against their plain versions (fp32
+# end to end, products in full fp32 on the card or the CPU). The kernels
+# multiply fp32 on the tensor cores as 3xTF32: x = hi + lo with hi and lo
+# tf32 (11 significant bits each, rounded to nearest), each product as
+# lo.hi' + hi.lo' + hi.hi' summed in fp32. What is dropped, lo.lo' and
+# the rounding of lo, is below 2**-21 of |x y| a product. A logit sums 40-
+# 160 such products of magnitude < 1 (q pre-scaled by 1/sqrt(d)), so it
+# moves by < 2**-17 absolute, p = exp(s - m) and lse by as much relative
+# and absolute; the value products and the gradients' sums (p or ds times
+# v, dO, q_s or k, over up to 4096 rows) add another 2**-21 relative a
+# term. O and the gradients stay within ~2**-17 of their largest value and
+# lse within 2**-17; 2**-14 leaves 8x. One TF32 pass (each operand rounded
+# to 11 bits, 2**-11 a product) moves a logit by ~2**-11 and misses these:
+# lse by 2**-12 or more, and ds = p (dp - delta) with dp 2**-11 off moves
+# the gradients by ~2**-11 of their largest value
+# (tests/test_torch_flash_tf32_recipe.py shows both on the CPU).
+F32_RTOL = 2.0 ** -14      # O and gradients, of the largest value
+F32_LSE_ATOL = 2.0 ** -14  # lse, absolute
+# The half dtypes' (chip_smoke.py's): O 2**-7 of the largest value, lse
+# 2**-8 absolute, gradients 2**-6
+HALF_TOLS = (2.0 ** -7, 2.0 ** -8, 2.0 ** -6)
+
+
+def _general_tols(dtype):
+    """(O rtol, lse atol, gradient rtol) of a general route in `dtype`."""
+    if dtype == torch.float32:
+        return F32_RTOL, F32_LSE_ATOL, F32_RTOL
+    return HALF_TOLS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64),
                                             (torch.float16, 80),
@@ -1212,10 +1242,11 @@ def test_cuda_flash_general_route_matches_cpu(cuda, dtype, head_dim):
     """A flash call the gate admits in a dtype or head dim the Hopper
     kernels are not built for runs the general kernels on the card,
     counted as their route, forward and backward, and agrees with the same
-    call on the CPU (chip_smoke.py's tolerances: O 2**-7, gradients 2**-6
-    of the largest value)."""
+    call on the CPU (_general_tols: fp32 O and gradients 2**-14, fp16 and
+    bf16 O 2**-7 and gradients 2**-6 of the largest value)."""
     shape = (1, 512, 2, head_dim)
     assert tatt.flash_ok(512, 512, head_dim=head_dim)
+    o_tol, _, g_tol = _general_tols(dtype)
     outs = {}
     for dev in ("cpu", cuda):
         q, k, v = (_rand(shape, i, 1.5, dev, dtype).requires_grad_(True)
@@ -1229,9 +1260,9 @@ def test_cuda_flash_general_route_matches_cpu(cuda, dtype, head_dim):
     o, *grads = outs["cuda"]
     o_cpu, *grads_cpu = outs["cpu"]
     assert o.dtype == dtype
-    _assert_within(o.cpu(), o_cpu, 2.0 ** -7, "o")
+    _assert_within(o.cpu(), o_cpu, o_tol, "o")
     for g, w in zip(grads, grads_cpu):
-        _assert_within(g.cpu(), w, 2.0 ** -6, "grad")
+        _assert_within(g.cpu(), w, g_tol, "grad")
 
 
 GENERAL_FWD = (("flash_fwd", tatt.flash_fwd_ref),
@@ -1243,20 +1274,14 @@ GENERAL_BWD = (("flash_bwd", tatt.flash_bwd_ref),
                ("flash_bwd_fold", tatt.flash_bwd_fold_ref))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
-                                   torch.bfloat16])
-def test_cuda_flash_general_variants_match_plain(cuda, dtype):
-    """Each general forward (K1, K5, K4) and backward (K2, K3, K6) entry,
-    at ragged lengths (sq 200, sk 300), head dim 72 (two column tiles)
-    and q, k, v sliced from one [B, S, 3, H, D] tensor, against its plain
-    version on the same card inputs: O 2**-7 and lse 2**-8 of the largest
-    value, gradients 2**-6."""
-    b, sq, sk, h, d = 2, 200, 300, 3, 72
-    q = _rand((b, sq, h, d), 0, 1.5, cuda, dtype)
-    kv = _rand((b, sk, 3, h, d), 1, 1.5, cuda, dtype)
-    k, v = kv[:, :, 0], kv[:, :, 2]
-    do = _rand((b, sq, h, d), 2, 1.0, cuda, dtype)
+def _general_variants(q, k, v, do):
+    """Each general forward (K1, K5, K4) and backward (K2, K3, K6) entry on
+    q, k, v, dO against its plain version on the same card inputs, within
+    _general_tols, each counted on its route; each backward bitwise
+    repeatable. Returns the outputs, forward then backward."""
+    dtype = q.dtype
+    o_tol, lse_tol, g_tol = _general_tols(dtype)
+    outs = []
     for name, ref in GENERAL_FWD:
         tatt.reset_launch_counts()
         o, lse = getattr(tatt, f"{name}_general")(q, k, v)
@@ -1264,15 +1289,82 @@ def test_cuda_flash_general_variants_match_plain(cuda, dtype):
                                          **{f"{name}_general": 1})
         o_ref, lse_ref = ref(q, k, v)
         assert o.dtype == dtype and o.shape == q.shape
-        _assert_within(o, o_ref, 2.0 ** -7, f"{name} o")
-        _assert_within(lse, lse_ref, 2.0 ** -8, f"{name} lse")
+        _assert_within(o, o_ref, o_tol, f"{name} o")
+        err = (lse - lse_ref).abs().max().item()
+        assert err <= lse_tol, f"{name} lse: {err:.3e} > {lse_tol:.3e}"
+        outs += [o, lse]
     o, lse = tatt.flash_fwd_ref(q, k, v)
     for name, ref in GENERAL_BWD:
-        got = getattr(tatt, f"{name}_general")(q, k, v, o, lse, do)
+        kernel = getattr(tatt, f"{name}_general")
+        got = kernel(q, k, v, o, lse, do)
         want = ref(q, k, v, o, lse, do)
         for g, w, what in zip(got, want, ("dq", "dk", "dv")):
             assert g.dtype == dtype and g.shape == w.shape
-            _assert_within(g, w, 2.0 ** -6, f"{name} {what}")
+            _assert_within(g, w, g_tol, f"{name} {what}")
+        again = kernel(q, k, v, o, lse, do)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), name
+        outs += list(got)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_cuda_flash_general_variants_match_plain(cuda, dtype):
+    """Every general entry (_general_variants) at ragged lengths (sq 200,
+    sk 300), head dim 72 (two head-dim chunks, the second ragged) and k, v
+    sliced from one [B, S, 3, H, D] tensor (16-byte copies)."""
+    b, sq, sk, h, d = 2, 200, 300, 3, 72
+    q = _rand((b, sq, h, d), 0, 1.5, cuda, dtype)
+    kv = _rand((b, sk, 3, h, d), 1, 1.5, cuda, dtype)
+    do = _rand((b, sq, h, d), 2, 1.0, cuda, dtype)
+    _general_variants(q, kv[:, :, 0], kv[:, :, 2], do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_general_wide_head_matches_plain(cuda, dtype):
+    """Head dim 160 (SD-1.x's widest): three head-dim chunks, held whole by
+    the forward, in two passes by the backward kernels; every entry
+    within _general_tols."""
+    b, sq, sk, h, d = 1, 200, 300, 2, 160
+    q = _rand((b, sq, h, d), 0, 1.5, cuda, dtype)
+    k, v = (_rand((b, sk, h, d), i, 1.5, cuda, dtype) for i in (1, 2))
+    do = _rand((b, sq, h, d), 3, 1.0, cuda, dtype)
+    _general_variants(q, k, v, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_general_misaligned_views_match_aligned(cuda, dtype):
+    """q, k, v, dO as views whose base is one element off 16 bytes and
+    whose head stride is odd (element loads) give the same bits as dense
+    copies of the same values (16-byte copies), and both are within
+    _general_tols of the plain versions."""
+    b, sq, sk, h, d = 2, 130, 190, 3, 64
+    qx = _rand((b, sq, 2, h, d + 1), 0, 1.5, cuda, dtype)
+    kv = _rand((b, sk, 2, h, d + 1), 1, 1.5, cuda, dtype)
+    views = (qx[:, :, 0, :, 1:], kv[:, :, 0, :, 1:], kv[:, :, 1, :, :d],
+             qx[:, :, 1, :, :d])
+    assert all(x.data_ptr() % 16 for x in views)
+    misaligned = _general_variants(*views)
+    dense = _general_variants(*(x.contiguous() for x in views))
+    assert all(torch.equal(a, z) for a, z in zip(misaligned, dense))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", [n for n, _ in GENERAL_BWD])
+def test_cuda_flash_general_backward_is_bitwise_repeatable(cuda, dtype,
+                                                           name):
+    """Each general backward mode (K2, K3, K6), free of atomics, gives the
+    same bits on a second call, at a U-Net site's shape."""
+    q, k, v, do = (_rand((1, 1024, 10, 64), i, 1.0, cuda, dtype)
+                   for i in range(4))
+    o, lse = tatt.flash_fwd_ref(q, k, v)
+    kernel = getattr(tatt, f"{name}_general")
+    first, second = (kernel(q, k, v, o, lse, do) for _ in range(2))
+    assert all(torch.equal(a, z) for a, z in zip(first, second))
 
 
 @pytest.mark.cuda
