@@ -122,6 +122,13 @@ BWD_RTOL = 2.0 ** -6
 F32_O_RTOL = 2.0 ** -14
 F32_LSE_ATOL = 2.0 ** -14
 F32_BWD_RTOL = 2.0 ** -14
+# The fp32 general conv routes (K7 general, and K9 general through its
+# GEMM) against their plain versions: 3xTF32 products too, each within
+# 2**-21, so an output (a sum of 9 * Ci of them) lands ~2**-21 of the
+# largest value away; one TF32 pass lands ~2**-12 away and misses 2**-14
+# (tests/test_torch_conv_tf32_recipe.py: the emulated recipe at
+# 0.007-0.010x of it, one TF32 pass at 4.7-5.1x, at K up to 11520).
+F32_CONV_RTOL = 2.0 ** -14
 # The forward-only entries against dense attention, which rounds the
 # normalized probabilities to bf16 where the kernels round the unnormalized
 # p: O may differ by a few bf16 ulps (2**-8) of its largest value.
@@ -938,11 +945,12 @@ def _general_flash_tols(dtype):
     return FWD_O_RTOL, FWD_LSE_ATOL, BWD_RTOL
 
 
-def _general_flash_bound(flops, nbytes, dtype):
-    """(bound, fields) of a general flash call: fp32 work at the smaller
-    of the CUDA cores' fp32 time and the tensor cores' time for three TF32
-    passes (the kernels' recipe), the CUDA cores' figure kept in fields as
-    `bound_fp32_cores_ms`; a half dtype's at one pass of its own."""
+def _general_bound(flops, nbytes, dtype):
+    """(bound, fields) of a general flash or conv call: fp32 work at the
+    smaller of the CUDA cores' fp32 time and the tensor cores' time for
+    three TF32 passes (the kernels' recipe), the CUDA cores' figure kept in
+    fields as `bound_fp32_cores_ms`; a half dtype's at one pass of its
+    own."""
     import torch
     if dtype != torch.float32:
         return _bound(flops, nbytes, PEAK_BF16), {}
@@ -982,7 +990,7 @@ def _kernels_general_flash(res, rand):
                 return F.scaled_dot_product_attention(qt, kt, vt)
             lib_fields = dict(library_ms=_device_ms(sdpa),
                               library_wall_ms=_wall_ms(sdpa))
-        bound, bound_fields = _general_flash_bound(
+        bound, bound_fields = _general_bound(
             4.0 * b * h * sq * sk * d,
             (2 * sq + 2 * sk) * b * h * d * es + b * h * sq * 4, dtype)
         for name, plain, f32_sum in fwd:
@@ -1015,7 +1023,7 @@ def _kernels_general_flash(res, rand):
 
             lib_fields = dict(library_ms=_device_ms(sdpa_fwd_bwd),
                               library_wall_ms=_wall_ms(sdpa_fwd_bwd))
-        bound, bound_fields = _general_flash_bound(
+        bound, bound_fields = _general_bound(
             10.0 * b * h * sq * sk * d,
             (4 * sq + 4 * sk) * b * h * d * es + b * h * sq * 4, dtype)
         for name, plain in bwd:
@@ -1042,11 +1050,24 @@ def _kernels_general_flash(res, rand):
             _add_general(res, f"{name}_general", max(errs), fields, bound)
 
 
+def _general_conv_rtol(dtype):
+    """K7's and K9's general tolerance in `dtype`: fp32's (3xTF32
+    products), or a half dtype's one rounding."""
+    import torch
+    return F32_CONV_RTOL if dtype == torch.float32 else GN_RTOL
+
+
 def _kernels_general_gn_conv(res, rand):
     """The general instances of K7 (conv_general.cu), K8 and K9 against
-    their plain versions on the same card tensors; the library calls are
-    cuDNN's conv (forward, input gradient) and, for K8 (run without SiLU),
-    F.group_norm and native_group_norm_backward, in the same dtype."""
+    their plain versions on the same card tensors: K7 and K9 at
+    _general_conv_rtol, K8 at GN_RTOL; K7's and K9's dx bitwise
+    repeatable. The first case (fp32 at [1,320,64,64]->320) is timed,
+    device and back to back: the library calls are cuDNN's conv (forward,
+    input gradient) and, for K8 (run without SiLU), F.group_norm and
+    native_group_norm_backward, in the same dtype; K9 has none, and its
+    comparison is the default path in fp32 (F.group_norm, F.silu, cuDNN's
+    F.conv2d, TF32 off; for dx its autograd backward to x): default_ms,
+    default_wall_ms."""
     import torch
     import torch.nn.functional as F
     _, gn, gc, conv = _kernel_modules()
@@ -1064,25 +1085,41 @@ def _kernels_general_gn_conv(res, rand):
         shape = (dt, b, ci, side, side, co)
         px = b * side * side
         flops = 2.0 * px * 9 * ci * co
-        conv_bound = _bound(flops, es * (px * (ci + co) + 9 * ci * co),
-                            PEAK_FP32)
+        rtol = _general_conv_rtol(dtype)
+        conv_bound = _general_bound(
+            flops, es * (px * (ci + co) + 9 * ci * co), dtype)
         xg = xl.detach().requires_grad_(True)
         y_lib = F.conv2d(xg, wl, padding=1)
+        default_fwd = default_dx = None
+        if timed:
+            xd = x.detach().requires_grad_(True)
+
+            def default_fwd():
+                z = F.silu(F.group_norm(x, groups, g, beta, 1e-5))
+                return F.conv2d(z, w, padding=1)
+
+            def default_dx():
+                z = F.silu(F.group_norm(xd, groups, g, beta, 1e-5))
+                torch.autograd.grad(F.conv2d(z, w, padding=1), xd, dy)
+
+        # (name, kernel, plain, library call, default path, (bound,
+        # fields), tolerance, checked for repeatable bits)
         cases = [
             ("conv3x3_fwd_general", lambda: conv.conv3x3_fwd_general(xl, wl),
              lambda: conv.conv3x3_fwd_ref(x, w),
-             lambda: F.conv2d(xl, wl, padding=1), conv_bound),
+             lambda: F.conv2d(xl, wl, padding=1), None, conv_bound, rtol,
+             False),
             ("conv3x3_dx_general",
              lambda: conv.conv3x3_dx_general(dyl, wl, dtype),
              lambda: conv.conv3x3_dx_ref(dy, w, dtype),
              lambda: torch.autograd.grad(y_lib, xg, dyl, retain_graph=True),
-             conv_bound),
+             None, conv_bound, rtol, True),
             ("gn_silu_conv3x3_fwd_general",
              lambda: gc.gn_silu_conv3x3_fwd_general(xl, g, beta, wl, groups,
                                                     1e-5)[0],
              lambda: gc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, groups,
                                                 1e-5)[0],
-             None, conv_bound)]
+             None, default_fwd, conv_bound, rtol, False)]
         mean, rsig = gc.gn_silu_conv3x3_fwd_ref(x, g, beta, w, groups,
                                                 1e-5)[1:]
         cases.append((
@@ -1091,8 +1128,9 @@ def _kernels_general_gn_conv(res, rand):
                                                   rsig, dyl, groups),
             lambda: gc.gn_silu_conv3x3_dx_ref(x, g, beta, w, mean, rsig, dy,
                                               groups),
-            None, _bound(flops, es * (px * (2 * ci + co) + 9 * ci * co),
-                         PEAK_FP32)))
+            None, default_dx,
+            _general_bound(flops, es * (px * (2 * ci + co) + 9 * ci * co),
+                           dtype), rtol, True))
         if side * side % 8 == 0:
             # K8 without SiLU (the transformer norms), so that one PyTorch
             # call computes the same function: F.group_norm and its
@@ -1118,30 +1156,116 @@ def _kernels_general_gn_conv(res, rand):
                                                 False, dtype)[0],
                  lambda: gn.gn_silu_fwd_ref(x, g, beta, groups, 1e-6, False,
                                             dtype)[0],
-                 lib_fwd, _bound(9.0 * gn_bytes / es, 2 * gn_bytes,
-                                 PEAK_FP32)),
+                 lib_fwd, None, (_bound(9.0 * gn_bytes / es, 2 * gn_bytes,
+                                        PEAK_FP32), {}), GN_RTOL, False),
                 ("gn_silu_bwd_general",
                  lambda: gn.gn_silu_bwd_general(x, dxin, g, beta, gm, gr,
                                                 groups, False)[0],
                  lambda: gn.gn_silu_bwd_ref(x, dxin, g, beta, gm, gr,
                                             groups, False)[0],
-                 lib_bwd, _bound(17.0 * gn_bytes / es, 3 * gn_bytes,
-                                 PEAK_FP32))]
-        for name, kernel, plain, lib, bound in cases:
+                 lib_bwd, None, (_bound(17.0 * gn_bytes / es, 3 * gn_bytes,
+                                        PEAK_FP32), {}), GN_RTOL, False)]
+        for (name, kernel, plain, lib, default, (bound, bound_fields), tol_r,
+             repeat) in cases:
             got = kernel()
-            err, tol = _rel_err(got, plain(), GN_RTOL)
+            err, tol = _rel_err(got, plain(), tol_r)
             fields = {}
+            if repeat:
+                fields["bitwise_repeatable"] = torch.equal(got, kernel())
             if timed:
-                fields = dict(ms=_device_ms(kernel),
+                fields.update(ms=_device_ms(kernel), wall_ms=_wall_ms(kernel),
                               plain_ms=_device_ms(plain),
                               library_ms=(None if lib is None
                                           else _device_ms(lib)),
-                              bound_ms=bound[0])
+                              bound_ms=bound[0], bound_by=bound[1],
+                              **bound_fields)
+                if lib is not None:
+                    fields["library_wall_ms"] = _wall_ms(lib)
+                if default is not None:
+                    fields.update(default_ms=_device_ms(default),
+                                  default_wall_ms=_wall_ms(default))
             _check(name, shape, [err], [tol], dtype_out=str(got.dtype),
                    **fields)
             if got.dtype != dtype:
                 raise AssertionError(f"{name} wrote {got.dtype}, not {dtype}")
+            if repeat and not fields["bitwise_repeatable"]:
+                raise AssertionError(f"{name} gave other bits on a second "
+                                     f"call at {shape}")
             _add_general(res, name, err, fields, bound)
+
+
+def _kernels_general_conv_sites(res, rand):
+    """K7's general kernel in fp32 at every distinct conv of the conv U-Net
+    (CONV3_SITE_COUNTS, B=1), forward and dx, against its plain version
+    (F32_CONV_RTOL; bitwise repeatable) and against cuDNN fp32 (TF32 off:
+    F.conv2d, conv2d_input) on the same channels-last tensors, device and
+    back-to-back times, with the planner's plan; each direction's times
+    summed over the 47 convs of one U-Net forward
+    (conv3x3_general_per_unet_forward)."""
+    import torch
+    import torch.nn.functional as F
+    conv = _kernel_modules()[3]
+    f32 = torch.float32
+    per_call = {d: {"kernel_ms": 0.0, "library_ms": 0.0,
+                    "kernel_wall_ms": 0.0, "library_wall_ms": 0.0,
+                    "bound_ms": 0.0, "bound_fp32_cores_ms": 0.0,
+                    "worst_site_over_library": 0.0,
+                    "host_bound_readings": 0}
+                for d in ("fwd", "dx")}
+    for (side, ci, co), count in CONV3_SITE_COUNTS.items():
+        x = conv.to_kernel_layout(rand((1, ci, side, side), 1.5, 0.5,
+                                       dtype=f32))
+        w = conv.to_kernel_layout(rand((co, ci, 3, 3), (9 * ci) ** -0.5,
+                                       dtype=f32))
+        dy = conv.to_kernel_layout(rand((1, co, side, side), dtype=f32))
+        bound, bound_fields = _general_bound(
+            2.0 * side * side * 9 * ci * co,
+            4 * (side * side * (ci + co) + 9 * ci * co), f32)
+        shape = ("float32", 1, ci, side, side, co)
+        for d, name, kch, nch, kernel, plain, lib in (
+                ("fwd", "conv3x3_fwd_general", ci, co,
+                 lambda: conv.conv3x3_fwd_general(x, w),
+                 lambda: conv.conv3x3_fwd_ref(x, w),
+                 lambda: F.conv2d(x, w, padding=1)),
+                ("dx", "conv3x3_dx_general", co, ci,
+                 lambda: conv.conv3x3_dx_general(dy, w, f32),
+                 lambda: conv.conv3x3_dx_ref(dy, w, f32),
+                 lambda: torch.nn.grad.conv2d_input(x.shape, w, dy,
+                                                    padding=1))):
+            got = kernel()
+            err, tol = _rel_err(got, plain(), F32_CONV_RTOL)
+            repeatable = torch.equal(got, kernel())
+            ms, lib_ms = _device_ms(kernel), _device_ms(lib)
+            wall_ms, lib_wall_ms = _wall_ms(kernel), _wall_ms(lib)
+            _check(name, shape, [err], [tol], ms=ms, library_ms=lib_ms,
+                   wall_ms=wall_ms, library_wall_ms=lib_wall_ms,
+                   bound_ms=bound[0], bound_by=bound[1], **bound_fields,
+                   bitwise_repeatable=repeatable,
+                   plan=_plan_fields(conv.plan_conv3x3_general(
+                       1, side, side, kch, nch)))
+            if not repeatable:
+                raise AssertionError(f"{name} gave other bits on a second "
+                                     f"call at {shape}")
+            row = res.rows[name]  # _kernels_general_gn_conv made the row
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            acc = per_call[d]
+            acc["kernel_ms"] += count * ms
+            acc["library_ms"] += count * lib_ms
+            acc["kernel_wall_ms"] += count * wall_ms
+            acc["library_wall_ms"] += count * lib_wall_ms
+            acc["bound_ms"] += count * bound[0]
+            acc["bound_fp32_cores_ms"] += count * bound_fields[
+                "bound_fp32_cores_ms"]
+            acc["host_bound_readings"] += sum(
+                t.host_bound for t in (ms, lib_ms))
+            acc["worst_site_over_library"] = max(
+                acc["worst_site_over_library"], ms / lib_ms)
+    for d, acc in per_call.items():
+        _line("conv3x3_general_per_unet_forward", direction=d, batch=1,
+              sites=sum(CONV3_SITE_COUNTS.values()), **acc,
+              kernel_over_library=acc["kernel_ms"] / acc["library_ms"],
+              kernel_over_library_wall=(acc["kernel_wall_ms"]
+                                        / acc["library_wall_ms"]))
 
 
 def _kernels_fp16(res, rand):
@@ -1244,6 +1368,7 @@ def phase_kernels() -> dict:
     _kernels_fp16(res, rand)
     _kernels_general_flash(res, rand)
     _kernels_general_gn_conv(res, rand)
+    _kernels_general_conv_sites(res, rand)
     return res.rows
 
 

@@ -25,13 +25,17 @@ int run(bool dx, const void* src, const void* w, void* out, float* part,
         bool f32_out, int b, int h, int wd, int ci, int co, int nwg, int bn,
         int bw, int bh, int bb, int splits, cudaStream_t st);
 
-// The general conv GEMM (conv_general.cu) for what run() has no kernel
-// for: activations and weight of dtype code dt (elem.cuh), any ci and co,
-// the same operands and directions as run(), dense channels-last. out gets
-// [b, h, wd, nch] in the activations' type, or fp32 with f32_out. No
-// split. Returns the launch's cudaError_t, or elem.cuh's ERR_DTYPE.
+// The general conv GEMM (conv_general.cu: tf32 on the tensor cores, fp32
+// as three passes) for what run() has no kernel for: activations and
+// weight of dtype code dt (elem.cuh), any ci and co, the same operands,
+// directions and output contract as run() (f32_out: every split's fp32
+// partials in part), dense channels-last. The plan as run()'s: nwg
+// consumer warpgroups, N tile bn, pixel box bw x bh x bb, `splits` K
+// ranges. Returns the launches' cudaError_t, one of the errors above, or
+// elem.cuh's ERR_DTYPE.
 int run_general(int dt, bool dx, const void* src, const void* w, void* out,
-                bool f32_out, int b, int h, int wd, int ci, int co,
+                float* part, bool f32_out, int b, int h, int wd, int ci,
+                int co, int nwg, int bn, int bw, int bh, int bb, int splits,
                 cudaStream_t st);
 
 }  // namespace conv

@@ -27,7 +27,8 @@
 // bf16 and fp16 instances (channels multiples of 8, 8 channels a thread)
 // run K7's TMA + wgmma GEMM; the general instances (gn_conv_*_general:
 // fp32, or bf16/fp16 with other channel counts, one channel a thread) run
-// K7's general GEMM (conv_general.cu), with no split.
+// K7's general GEMM (conv_general.cu: tf32 on the tensor cores, fp32 as
+// three passes), split over K where its planner says.
 //
 // Bound on this card: the conv's 2*B*H*W*9*Ci*Co operations against the
 // weight's 18*Ci*Co bytes plus the activations' (at 64x64 320 -> 320: 7.5
@@ -244,27 +245,28 @@ dim3 apply_grid(int b, int hwc, int v) {
 }
 
 // The conv GEMM of one direction: K7's (conv.cu) for the bf16 and fp16
-// instances, else the general one (conv_general.cu) in T
-template <typename T>
+// instances, or with GENERAL the general one (conv_general.cu) in T; plan:
+// (nwg, bn, bw, bh, bb, splits) for either.
+template <typename T, bool GENERAL>
 int gemm(bool dx, const void* src, const void* w, void* out, float* part,
          bool f32_out, int b, int h, int wd, int ci, int co, const int* plan,
          cudaStream_t st) {
-  if constexpr (sizeof(T) == 2) {
-    if (plan != nullptr)
-      return conv::run<T>(dx, src, w, out, part, f32_out, b, h, wd, ci, co,
-                          plan[0], plan[1], plan[2], plan[3], plan[4],
-                          plan[5], st);
+  if constexpr (GENERAL) {
+    return conv::run_general(elem::code_of<T>(), dx, src, w, out, part,
+                             f32_out, b, h, wd, ci, co, plan[0], plan[1],
+                             plan[2], plan[3], plan[4], plan[5], st);
+  } else {
+    return conv::run<T>(dx, src, w, out, part, f32_out, b, h, wd, ci, co,
+                        plan[0], plan[1], plan[2], plan[3], plan[4], plan[5],
+                        st);
   }
-  return conv::run_general(elem::code_of<T>(), dx, src, w,
-                           f32_out ? static_cast<void*>(part) : out, f32_out,
-                           b, h, wd, ci, co, st);
 }
 
 // The forward: V channels a thread in the elementwise passes, CP in the
 // sums (V = 8, CP = 2 for the bf16 instance on K7's GEMM, 1 and 1 for the
-// general one); plan = K7's (nwg, bn, bw, bh, bb, splits), or null for the
-// general GEMM.
-template <typename T, int V, int CP>
+// general one); plan = K7's (nwg, bn, bw, bh, bb, splits), or with GENERAL
+// the general GEMM's.
+template <typename T, int V, int CP, bool GENERAL>
 int fwd(const void* x, const void* gamma, const void* beta, const void* w,
         void* y, void* z, void* mean, void* rsig, void* sums, void* part,
         int b, int h, int wd, int ci, int co, int groups, float eps,
@@ -292,12 +294,12 @@ int fwd(const void* x, const void* gamma, const void* beta, const void* w,
       xt, g, bt, m, rs, static_cast<T*>(z), ci, cg, groups, hw * ci);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return gemm<T>(false, z, w, y, static_cast<float*>(part), false, b, h, wd,
-                 ci, co, plan, st);
+  return gemm<T, GENERAL>(false, z, w, y, static_cast<float*>(part), false, b,
+                          h, wd, ci, co, plan, st);
 }
 
-// dx, with V, CP and plan as fwd's (plan: K7's dx plan, fp32 out)
-template <typename T, int V, int CP>
+// dx, with V, CP, GENERAL and plan as fwd's (plan: the dx plan, fp32 out)
+template <typename T, int V, int CP, bool GENERAL>
 int dx(const void* x, const void* gamma, const void* beta, const void* w,
        const void* mean, const void* rsig, const void* dy, void* dxo,
        void* part, void* dxh, void* sums, void* t12, int b, int h, int wd,
@@ -312,10 +314,10 @@ int dx(const void* x, const void* gamma, const void* beta, const void* w,
   float* s2 = s1 + static_cast<long long>(b) * slots * ci;
   float* t1 = static_cast<float*>(t12);
   float* t2 = t1 + b * groups;
-  const int rc = gemm<T>(true, dy, w, nullptr, pf, true, b, h, wd, ci, co,
-                         plan, st);
+  const int rc = gemm<T, GENERAL>(true, dy, w, nullptr, pf, true, b, h, wd,
+                                  ci, co, plan, st);
   if (rc != 0) return rc;
-  const int splits = plan != nullptr ? plan[5] : 1;
+  const int splits = plan[5];
   const long long elems = static_cast<long long>(b) * hw * ci;
   slot_sums_kernel<T, true, CP>
       <<<slot_grid(b, hw, ci, CP), dim3(PAIRS, SLOT), 0, st>>>(
@@ -351,7 +353,7 @@ extern "C" int gn_conv_fwd_bf16(const void* x, const void* gamma,
                                 int bn, int bw, int bh, int bb, int splits,
                                 void* stream) {
   const int plan[6] = {nwg, bn, bw, bh, bb, splits};
-  return gnconv::fwd<__nv_bfloat16, gn::VEC, 2>(
+  return gnconv::fwd<__nv_bfloat16, gn::VEC, 2, false>(
       x, gamma, beta, w, y, z, mean, rsig, sums, part, b, h, wd, ci, co,
       groups, eps, plan, static_cast<cudaStream_t>(stream));
 }
@@ -370,7 +372,7 @@ extern "C" int gn_conv_dx_bf16(const void* x, const void* gamma,
                                int bn, int bw, int bh, int bb, int splits,
                                void* stream) {
   const int plan[6] = {nwg, bn, bw, bh, bb, splits};
-  return gnconv::dx<__nv_bfloat16, gn::VEC, 2>(
+  return gnconv::dx<__nv_bfloat16, gn::VEC, 2, false>(
       x, gamma, beta, w, mean, rsig, dy, dx, part, dxh, sums, t12, b, h, wd,
       ci, co, groups, plan, static_cast<cudaStream_t>(stream));
 }
@@ -385,7 +387,7 @@ extern "C" int gn_conv_fwd_f16(const void* x, const void* gamma,
                                int bw, int bh, int bb, int splits,
                                void* stream) {
   const int plan[6] = {nwg, bn, bw, bh, bb, splits};
-  return gnconv::fwd<__half, gn::VEC, 2>(
+  return gnconv::fwd<__half, gn::VEC, 2, false>(
       x, gamma, beta, w, y, z, mean, rsig, sums, part, b, h, wd, ci, co,
       groups, eps, plan, static_cast<cudaStream_t>(stream));
 }
@@ -399,25 +401,30 @@ extern "C" int gn_conv_dx_f16(const void* x, const void* gamma,
                               int bw, int bh, int bb, int splits,
                               void* stream) {
   const int plan[6] = {nwg, bn, bw, bh, bb, splits};
-  return gnconv::dx<__half, gn::VEC, 2>(
+  return gnconv::dx<__half, gn::VEC, 2, false>(
       x, gamma, beta, w, mean, rsig, dy, dx, part, dxh, sums, t12, b, h, wd,
       ci, co, groups, plan, static_cast<cudaStream_t>(stream));
 }
 
 // The general instances (any ci and co, groups dividing ci): x, w, y, z,
 // dy and dx of dtype code dt (elem.cuh), dense channels-last; the same
-// passes one channel a thread around the general GEMM (conv_general.cu),
-// which has no split: part is b*h*wd*ci fp32 for dx and unused forward.
+// passes one channel a thread around the general GEMM (conv_general.cu)
+// with its plan (ops/conv.py:plan_conv3x3_general): nwg consumer
+// warpgroups, N tile bn, pixel box bw x bh x bb, splits K ranges. part:
+// fp32 scratch of splits*b*h*wd*co values when splits > 1 (forward),
+// splits*b*h*wd*ci (dx).
 extern "C" int gn_conv_fwd_general(int dt, const void* x, const void* gamma,
                                    const void* beta, const void* w, void* y,
                                    void* z, void* mean, void* rsig,
-                                   void* sums, int b, int h, int wd, int ci,
-                                   int co, int groups, float eps,
-                                   void* stream) {
+                                   void* sums, void* part, int b, int h,
+                                   int wd, int ci, int co, int groups,
+                                   float eps, int nwg, int bn, int bw, int bh,
+                                   int bb, int splits, void* stream) {
+  const int plan[6] = {nwg, bn, bw, bh, bb, splits};
   return elem::dispatch(dt, [&](auto t) {
-    return gnconv::fwd<decltype(t), 1, 1>(
-        x, gamma, beta, w, y, z, mean, rsig, sums, nullptr, b, h, wd, ci, co,
-        groups, eps, nullptr, static_cast<cudaStream_t>(stream));
+    return gnconv::fwd<decltype(t), 1, 1, true>(
+        x, gamma, beta, w, y, z, mean, rsig, sums, part, b, h, wd, ci, co,
+        groups, eps, plan, static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -427,10 +434,12 @@ extern "C" int gn_conv_dx_general(int dt, const void* x, const void* gamma,
                                   const void* dy, void* dx, void* part,
                                   void* dxh, void* sums, void* t12, int b,
                                   int h, int wd, int ci, int co, int groups,
-                                  void* stream) {
+                                  int nwg, int bn, int bw, int bh, int bb,
+                                  int splits, void* stream) {
+  const int plan[6] = {nwg, bn, bw, bh, bb, splits};
   return elem::dispatch(dt, [&](auto t) {
-    return gnconv::dx<decltype(t), 1, 1>(
+    return gnconv::dx<decltype(t), 1, 1, true>(
         x, gamma, beta, w, mean, rsig, dy, dx, part, dxh, sums, t12, b, h, wd,
-        ci, co, groups, nullptr, static_cast<cudaStream_t>(stream));
+        ci, co, groups, plan, static_cast<cudaStream_t>(stream));
   });
 }

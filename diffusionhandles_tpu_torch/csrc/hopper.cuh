@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (conv.cu, flash_fwd.cu, flash_bwd.cu): mbarriers, TMA copies, wgmma
-// descriptors and products, and the libcuda entry that encodes tensor maps.
+// (conv.cu, conv_general.cu, flash_fwd.cu, flash_bwd.cu): mbarriers, TMA
+// copies, wgmma descriptors and products (16-bit, and tf32 with a
+// register-fed A), and the libcuda entry that encodes tensor maps.
 //
 // wgmma m64nNk16 (bf16 or fp16 in, fp32 sum), thread t of the warpgroup
 // (warp
@@ -361,6 +362,49 @@ struct Mma<256, T> {
       : "l"(da), "l"(db), "n"(SCALE_D), "n"(TRANS_B))
     HOPPER_BY_TYPE(T, HOPPER_SS256);
 #undef HOPPER_SS256
+  }
+};
+
+// d[64 x BN] += A[64 x 8] . B[8 x BN] in tf32 (fp32 sum), A from
+// registers, B K-major from shared memory (tf32 has no transpose flag);
+// scale_d = 0 overwrites d. A's four registers hold tf32 bit patterns of
+// (row 16 w + l / 4 (+ 8 for a1, a3), column l % 4 (+ 4 for a2, a3)), as
+// mma.sync m16n8k8's A fragment.
+template <int BN>
+struct MmaTf32;
+
+template <>
+struct MmaTf32<80> {
+  static __device__ __forceinline__ void run_rs(float (&d)[40],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
+        ", {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
+          HOPPER_ACC8(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaTf32<128> {
+  static __device__ __forceinline__ void run_rs(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " HOPPER_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
+          HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
   }
 };
 #undef HOPPER_ACC8

@@ -23,7 +23,8 @@ weights are frozen. A call takes the route `conv3x3_route` names from its
 device, dtype and channels: the plain version on the CPU; on the card this
 kernel for bf16 or fp16 (an instance each) with Ci and Co multiples of 8,
 else the general kernel (`csrc/conv_general.cu`: fp32, fp16 or bf16, any
-channel count, on the CUDA cores), counted as `conv3x3_fwd_general` /
+channel count; tf32 products on the tensor cores, fp32 as three passes,
+split over K by `plan_conv3x3_general`), counted as `conv3x3_fwd_general` /
 `conv3x3_dx_general`.
 """
 
@@ -250,6 +251,110 @@ def plan_conv3x3(b: int, h: int, w: int, kch: int, nch: int,
 
 
 # ---------------------------------------------------------------------------
+# The general kernel's planner (csrc/conv_general.cu)
+# ---------------------------------------------------------------------------
+
+# (consumer warpgroups, N tile) of the general kernel's instances, the
+# planner's picks at the U-Net's sites: two warpgroups take N = 80 (a
+# 384-thread CTA compiles within 168 registers a thread: 40 + 40
+# accumulators and 32 A registers fit, 64 + 64 spill)
+GENERAL_TILES = ((1, 128), (2, 80))
+GENERAL_K_STEP = 32              # channels of one K step
+GENERAL_MIN_SPLIT_STEPS = 16     # K steps a split keeps at least
+# Its cost model (seconds). A CTA's K step takes the longer of its products
+# (three TF32 passes over 64 * warpgroups pixels x N tile x 32 channels at
+# one SM's 1024 tf32 multiply-adds a clock) and the bytes it moves through
+# shared memory at 128 a clock (the raw A tile written and read, the raw B
+# tile written and read, its hi and lo tiles written, and B read by wgmma
+# once a pass a warpgroup), with an overhead for the step's barriers and
+# issue. The call takes at least its unique bytes over device memory; a
+# split adds its fp32 partials and, unless the caller sums them (f32_out),
+# the second pass. Estimates, set against chip_smoke.py's times.
+_SM_CLOCK_HZ = 1.755e9
+_SM_TF32_FMA_PER_CLOCK = 1024
+_SM_SMEM_BYTES_PER_CLOCK = 128
+_GENERAL_STEP_OVERHEAD = 1.15
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneralPlan:
+    """One launch of the general kernel: `warpgroups` consumer warpgroups
+    (64 output pixels each), an N tile of `block_n` channels, an M tile
+    that is the pixel box `box` (as K7's, `pixel_box`), the K steps cut
+    into `splits` ranges."""
+
+    warpgroups: int
+    block_n: int
+    box: Tuple[int, int, int]
+    splits: int
+    m_tiles: int
+    n_tiles: int
+    k_steps: int
+    est_s: float
+
+    @property
+    def grid(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+    def launch_args(self) -> Tuple[int, ...]:
+        return (self.warpgroups, self.block_n, *self.box, self.splits)
+
+
+def _general_step_s(warpgroups: int, block_n: int) -> float:
+    bm = 64 * warpgroups
+    mma = 3 * bm * block_n * GENERAL_K_STEP / _SM_TF32_FMA_PER_CLOCK
+    smem = 4 * GENERAL_K_STEP * (2 * bm + block_n * (4 + 3 * warpgroups))
+    return (_GENERAL_STEP_OVERHEAD * max(mma, smem / _SM_SMEM_BYTES_PER_CLOCK)
+            / _SM_CLOCK_HZ)
+
+
+def general_fixed_plan(b: int, h: int, w: int, kch: int, nch: int,
+                       warpgroups: int, block_n: int, splits: int,
+                       f32_out: bool = False) -> GeneralPlan:
+    """The general kernel's plan with the given tile and split (the
+    planner's candidates; tests use it to reach every instance)."""
+    m = b * h * w
+    box = pixel_box(b, h, w, warpgroups)
+    m_tiles = (math.ceil(b / box[2]) * math.ceil(h / box[1])
+               * math.ceil(w / box[0]))
+    n_tiles = math.ceil(nch / block_n)
+    k_steps = 9 * math.ceil(kch / GENERAL_K_STEP)
+    main = (math.ceil(m_tiles * n_tiles * splits / SMS)
+            * math.ceil(k_steps / splits)
+            * _general_step_s(warpgroups, block_n))
+    unique = 4.0 * (m * (kch + nch) + 9 * kch * nch)  # fp32
+    partials = 8.0 * splits * m * nch / _HBM_BPS
+    extra = (partials if f32_out else 0.0 if splits == 1
+             else partials + _SPLIT_PASS_S)
+    return GeneralPlan(warpgroups, block_n, box, splits, m_tiles, n_tiles,
+                       k_steps, max(main, unique / _HBM_BPS) + extra)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_conv3x3_general(b: int, h: int, w: int, kch: int, nch: int,
+                         f32_out: bool = False) -> GeneralPlan:
+    """The general kernel's plan for `kch` channels along K (Ci forward,
+    Co for dx) and `nch` along N over B x H x W pixels: each tile of
+    GENERAL_TILES with every split that keeps the grid within two waves
+    and each split at least GENERAL_MIN_SPLIT_STEPS K steps, ranked by the
+    cost model above. `f32_out`: every split's partials go to the caller (K9's
+    dx)."""
+    k_steps = 9 * math.ceil(kch / GENERAL_K_STEP)
+    best = None
+    for nwg, bn in GENERAL_TILES:
+        tiles = general_fixed_plan(b, h, w, kch, nch, nwg, bn, 1).grid
+        max_splits = max(1, min(k_steps // GENERAL_MIN_SPLIT_STEPS,
+                                2 * SMS // tiles))
+        for splits in range(1, max_splits + 1):
+            cand = general_fixed_plan(b, h, w, kch, nch, nwg, bn, splits,
+                                      f32_out)
+            key = (cand.est_s, splits, -nwg, -bn)
+            if best is None or key < best[0]:
+                best = (key, cand)
+    return best[1]
+
+
+# ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and the card's reference)
 # ---------------------------------------------------------------------------
 
@@ -301,11 +406,11 @@ def kernel_library() -> ctypes.CDLL:
             getattr(lib, f"gn_conv_dx_{sfx}").argtypes = ([ptr] * 12
                                                           + [i32] * 12
                                                           + [ptr])
-        lib.conv3x3_general.argtypes = ([i32] * 2 + [ptr] * 3 + [i32] * 5
+        lib.conv3x3_general.argtypes = ([i32] * 2 + [ptr] * 4 + [i32] * 11
                                         + [ptr])
-        lib.gn_conv_fwd_general.argtypes = ([i32] + [ptr] * 9 + [i32] * 6
-                                            + [f32, ptr])
-        lib.gn_conv_dx_general.argtypes = ([i32] + [ptr] * 12 + [i32] * 6
+        lib.gn_conv_fwd_general.argtypes = ([i32] + [ptr] * 10 + [i32] * 6
+                                            + [f32] + [i32] * 6 + [ptr])
+        lib.gn_conv_dx_general.argtypes = ([i32] + [ptr] * 12 + [i32] * 12
                                            + [ptr])
         for fn in (*fast, lib.conv3x3_general, lib.gn_conv_fwd_general,
                    lib.gn_conv_dx_general):
@@ -395,11 +500,12 @@ def conv3x3_dx_cuda(dy, w, dtype):
                    to_kernel_layout(w.to(dtype)))
 
 
-def _general_launch(name, src, w, dtype):
+def _general_launch(name, src, w, dtype,
+                    plan: Optional[GeneralPlan] = None):
     """Run K7's general kernel ("conv3x3_fwd" or "conv3x3_dx") on `src`
     (x, or dy for dx) and w [Co, Ci, 3, 3], both cast to `dtype` and
-    copied to channels-last where they are not: the output channels-last
-    in `dtype`."""
+    copied to channels-last where they are not, with `plan` or the
+    planner's: the output channels-last in `dtype`."""
     co, ci = w.shape[:2]
     kch, nch = (co, ci) if name == "conv3x3_dx" else (ci, co)
     if src.dim() != 4 or src.shape[1] != kch:
@@ -413,12 +519,18 @@ def _general_launch(name, src, w, dtype):
     check_cuda("conv3x3 general kernel", src, w,
                dtypes=tuple(ELEM_CODES))
     b, _, h, wd = src.shape
+    plan = plan or plan_conv3x3_general(b, h, wd, kch, nch)
     out = torch.empty((b, nch, h, wd), dtype=dtype, device=src.device,
                       memory_format=torch.channels_last)
+    part = (torch.empty((plan.splits * b * h * wd * nch,),
+                        dtype=torch.float32, device=src.device)
+            if plan.splits > 1 else None)
     with torch.cuda.device(src.device):
         err = kernel_library().conv3x3_general(
             elem_code(dtype), int(name == "conv3x3_dx"), src.data_ptr(),
-            w.data_ptr(), out.data_ptr(), b, h, wd, ci, co, stream_of(src))
+            w.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, wd, ci, co,
+            *plan.launch_args(), stream_of(src))
     raise_on(err, general(name))
     LAUNCHES[general(name)] += 1
     return out

@@ -30,7 +30,8 @@ admits takes the route `gn_conv_route` names from its device, dtype and
 channels: the plain version on the CPU; on the card the kernels for bf16
 or fp16 (an instance each) with Ci and Co multiples of 8, else their
 general instances (the same passes in x's dtype, one channel a thread,
-around K7's general GEMM, `csrc/conv_general.cu`), counted as
+around K7's general GEMM, `csrc/conv_general.cu`: tf32 on the tensor
+cores, fp32 as three passes, planned by `plan_conv3x3_general`), counted as
 `gn_silu_conv3x3_fwd_general` / `gn_silu_conv3x3_dx_general`.
 """
 
@@ -45,7 +46,8 @@ import torch.nn.functional as F
 from diffusionhandles_tpu_torch.ops.conv import (CHANNEL_MULTIPLE, ConvPlan,
                                                  in_kernel_layout,
                                                  kernel_library,
-                                                 plan_conv3x3)
+                                                 plan_conv3x3,
+                                                 plan_conv3x3_general)
 from diffusionhandles_tpu_torch.ops.groupnorm import (grouped, per_channel,
                                                       silu_grad)
 from diffusionhandles_tpu_torch.utils.cuda_build import (ELEM_CODES,
@@ -326,12 +328,16 @@ def _check_general(x, w, groups: int) -> Tuple[int, ...]:
 def gn_silu_conv3x3_fwd_general(x, gamma, beta, w, groups: int,
                                 eps: float):
     """The forward's general instances on the card (fp32, fp16 or bf16,
-    any Ci and Co): (y [B, Co, H, W] in x's dtype, channels-last memory,
-    mean [B, G], rsig [B, G])."""
+    any Ci and Co), the GEMM planned by `plan_conv3x3_general`: (y [B, Co,
+    H, W] in x's dtype, channels-last memory, mean [B, G], rsig [B, G])."""
     x = _operand(x, x.dtype)
     w = _operand(w, x.dtype)
     b, ci, co, h, wd = _check_general(x, w, groups)
+    plan = plan_conv3x3_general(b, h, wd, ci, co)
     dev = x.device
+    part = (torch.empty((plan.splits * b * h * wd * co,),
+                        dtype=torch.float32, device=dev)
+            if plan.splits > 1 else None)
     y = torch.empty((b, co, h, wd), dtype=x.dtype, device=dev,
                     memory_format=torch.channels_last)
     z = torch.empty_like(x)
@@ -344,8 +350,9 @@ def gn_silu_conv3x3_fwd_general(x, gamma, beta, w, groups: int,
         err = kernel_library().gn_conv_fwd_general(
             elem_code(x.dtype), x.data_ptr(), g32.data_ptr(), b32.data_ptr(),
             w.data_ptr(), y.data_ptr(), z.data_ptr(), mean.data_ptr(),
-            rsig.data_ptr(), sums.data_ptr(), b, h, wd, ci, co, groups, eps,
-            stream_of(x))
+            rsig.data_ptr(), sums.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, wd, ci, co,
+            groups, eps, *plan.launch_args(), stream_of(x))
     raise_on(err, "gn_silu_conv3x3_fwd_general")
     LAUNCHES["gn_silu_conv3x3_fwd_general"] += 1
     return y, mean, rsig
@@ -353,7 +360,8 @@ def gn_silu_conv3x3_fwd_general(x, gamma, beta, w, groups: int,
 
 def gn_silu_conv3x3_dx_general(x, gamma, beta, w, mean, rsig, dy,
                                groups: int):
-    """dx's general instances on the card: dx [B, Ci, H, W] in x's dtype,
+    """dx's general instances on the card, the GEMM planned by
+    `plan_conv3x3_general` with fp32 out: dx [B, Ci, H, W] in x's dtype,
     channels-last memory (dy cast to x's dtype)."""
     x = _operand(x, x.dtype)
     w = _operand(w, x.dtype)
@@ -362,10 +370,12 @@ def gn_silu_conv3x3_dx_general(x, gamma, beta, w, mean, rsig, dy,
     if tuple(dy.shape) != (b, co, h, wd):
         raise ValueError(f"gn_silu_conv3x3: dy {tuple(dy.shape)} is not "
                          f"{(b, co, h, wd)}")
+    plan = plan_conv3x3_general(b, h, wd, co, ci, f32_out=True)
     dev = x.device
     dx = torch.empty_like(x)
-    part = torch.empty((b * h * wd * ci,), dtype=torch.float32, device=dev)
-    dxh = torch.empty_like(part)
+    part = torch.empty((plan.splits * b * h * wd * ci,), dtype=torch.float32,
+                       device=dev)
+    dxh = torch.empty((b * h * wd * ci,), dtype=torch.float32, device=dev)
     sums = _slot_sums(b, h, wd, ci, dev)
     t12 = torch.empty((2 * b * groups,), dtype=torch.float32, device=dev)
     g32 = gamma.float().contiguous()
@@ -376,7 +386,8 @@ def gn_silu_conv3x3_dx_general(x, gamma, beta, w, mean, rsig, dy,
             elem_code(x.dtype), x.data_ptr(), g32.data_ptr(), b32.data_ptr(),
             w.data_ptr(), mean.data_ptr(), rsig.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), part.data_ptr(), dxh.data_ptr(), sums.data_ptr(),
-            t12.data_ptr(), b, h, wd, ci, co, groups, stream_of(x))
+            t12.data_ptr(), b, h, wd, ci, co, groups, *plan.launch_args(),
+            stream_of(x))
     raise_on(err, "gn_silu_conv3x3_dx_general")
     LAUNCHES["gn_silu_conv3x3_dx_general"] += 1
     return dx

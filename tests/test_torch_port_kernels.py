@@ -968,6 +968,52 @@ def test_conv_tiles_are_the_planners_picks():
     assert cases == set(tconv.TILES)
 
 
+def _general_plans(b, side, ci, co):
+    """The general kernel's plans at a site: forward (K = 9 Ci, N = Co),
+    dx (K = 9 Co, N = Ci), and K9's dx (fp32 out, the caller sums)."""
+    return {"fwd": (ci, co, tconv.plan_conv3x3_general(b, side, side, ci,
+                                                       co)),
+            "dx": (co, ci, tconv.plan_conv3x3_general(b, side, side, co,
+                                                      ci)),
+            "k9_dx": (co, ci, tconv.plan_conv3x3_general(
+                b, side, side, co, ci, f32_out=True))}
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("side,ci,co", SD2_CONV_SITES)
+def test_conv_general_plans_cover_the_gemm(b, side, ci, co):
+    """The general kernel's plans at the U-Net's sites: a tile it builds
+    (GENERAL_TILES), pixel boxes tiling each image and N tiles covering the
+    GEMM, K in 32-channel steps per tap, each split at least
+    GENERAL_MIN_SPLIT_STEPS steps and the grid within two waves where it
+    splits."""
+    for what, (kch, nch, plan) in _general_plans(b, side, ci, co).items():
+        assert (plan.warpgroups, plan.block_n) in tconv.GENERAL_TILES, what
+        _assert_boxes_tile_each_image(plan, b, side, what)
+        assert plan.n_tiles == math.ceil(nch / plan.block_n), what
+        assert plan.k_steps == 9 * math.ceil(kch / tconv.GENERAL_K_STEP)
+        assert plan.splits == 1 or (
+            plan.k_steps // plan.splits >= tconv.GENERAL_MIN_SPLIT_STEPS
+            and plan.grid <= 2 * tconv.SMS), (what, plan)
+        assert plan.launch_args() == (plan.warpgroups, plan.block_n,
+                                      *plan.box, plan.splits)
+
+
+def test_conv_general_tiles_are_the_kernels():
+    """Every tile csrc/conv_general.cu instantiates is the general
+    planner's pick at some site of the U-Net (B 1 or 2, forward, dx or
+    K9's dx), and the file has each tile the planner may pick."""
+    picked = {(plan.warpgroups, plan.block_n)
+              for b in (1, 2) for side, ci, co in SD2_CONV_SITES
+              for *_, plan in _general_plans(b, side, ci, co).values()}
+    assert picked == set(tconv.GENERAL_TILES)
+    source = (pathlib.Path(tconv.__file__).parents[1] / "csrc"
+              / "conv_general.cu").read_text()
+    cases = {(int(a), int(b)) for a, b in
+             re.findall(r"GEN_CASE\((\d+), (\d+)\)", source)}
+    assert cases == set(tconv.GENERAL_TILES)
+
+
 # (side, Ci, Co) of the fused U-Net's K9 sites at 64x64 latents (34 of its
 # 44 resnet halves; chip_smoke.py's CONV_SHAPES)
 SD2_GN_CONV_SITES = [(64, 320, 320), (32, 320, 640), (32, 640, 640),
@@ -1221,6 +1267,14 @@ def _counted(launches, **moved):
 # (tests/test_torch_flash_tf32_recipe.py shows both on the CPU).
 F32_RTOL = 2.0 ** -14      # O and gradients, of the largest value
 F32_LSE_ATOL = 2.0 ** -14  # lse, absolute
+# The fp32 general conv (K7 and K9 general, csrc/conv_general.cu) against
+# its plain version (fp32 products): the kernel multiplies as 3xTF32 too,
+# each product within 2**-21, and an output (a sum of 9 * Ci of them)
+# lands ~2**-21 of the largest value away; one TF32 pass (2**-11 a
+# product) lands ~2**-12 away and misses 2**-14
+# (tests/test_torch_conv_tf32_recipe.py, emulated at K up to 11520: the
+# recipe at 0.007-0.010x of it, one TF32 pass at 4.7-5.1x).
+F32_CONV_RTOL = 2.0 ** -14
 # The half dtypes' (chip_smoke.py's): O 2**-7 of the largest value, lse
 # 2**-8 absolute, gradients 2**-6
 HALF_TOLS = (2.0 ** -7, 2.0 ** -8, 2.0 ** -6)
@@ -1484,22 +1538,83 @@ def test_cuda_conv_general_route_at_100_channels(cuda):
         _assert_within(got.cpu(), want, GN_RTOL, what)
 
 
+def _conv_general_rtol(dtype):
+    """The general conv's tolerance in `dtype`: fp32's (its 3xTF32
+    products), else the half dtypes' one rounding (GN_RTOL)."""
+    return F32_CONV_RTOL if dtype == torch.float32 else GN_RTOL
+
+
+def _conv_general_case(cuda, dtype, b, hw, ci, co, plan=None):
+    """The general conv kernel's forward and dx (with `plan`, or the
+    planner's) on NCHW inputs, held to the plain versions on the same card
+    inputs; its outputs are channels-last in x's dtype. Returns dx and a
+    second dx from the same call."""
+    x = _rand((b, ci, hw, hw), 0, 1.0, cuda, dtype)
+    w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5, cuda, dtype)
+    dy = _rand((b, co, hw, hw), 2, 1.0, cuda, dtype)
+    if plan is None:
+        def fwd():
+            return tconv.conv3x3_fwd_general(x, w)
+
+        def dxf():
+            return tconv.conv3x3_dx_general(dy, w, dtype)
+    else:
+        fplan = tconv.general_fixed_plan(b, hw, hw, ci, co, *plan)
+        dplan = tconv.general_fixed_plan(b, hw, hw, co, ci, *plan)
+
+        def fwd():
+            return tconv._general_launch("conv3x3_fwd", x, w, dtype, fplan)
+
+        def dxf():
+            return tconv._general_launch("conv3x3_dx", dy, w, dtype, dplan)
+    y, dx = fwd(), dxf()
+    for got, want, what in ((y, tconv.conv3x3_fwd_ref(x, w), "y"),
+                            (dx, tconv.conv3x3_dx_ref(dy, w, dtype), "dx")):
+        assert got.dtype == dtype and tconv.in_kernel_layout(got)
+        _assert_within(got, want, _conv_general_rtol(dtype), what)
+    return dx, dxf()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("b,hw,ci,co", [(2, 8, 1280, 640), (1, 20, 72, 100)])
 def test_cuda_conv_general_kernel_matches_plain(cuda, dtype, b, hw, ci, co):
     """The general conv kernel, forward and dx, in fp32 and fp16 on NCHW
-    inputs, against the plain versions on the same card inputs (GN_RTOL of
-    the largest value); its outputs are channels-last in x's dtype."""
-    x = _rand((b, ci, hw, hw), 0, 1.0, cuda, dtype)
-    w = _rand((co, ci, 3, 3), 1, (9 * ci) ** -0.5, cuda, dtype)
-    dy = _rand((b, co, hw, hw), 2, 1.0, cuda, dtype)
-    y = tconv.conv3x3_fwd_general(x, w)
-    dx = tconv.conv3x3_dx_general(dy, w, dtype)
-    for got, want, what in ((y, tconv.conv3x3_fwd_ref(x, w), "y"),
-                            (dx, tconv.conv3x3_dx_ref(dy, w, dtype), "dx")):
-        assert got.dtype == dtype and tconv.in_kernel_layout(got)
-        _assert_within(got, want, GN_RTOL, what)
+    inputs, against the plain versions on the same card inputs (fp32
+    2**-14 of the largest value, which one TF32 pass misses; fp16
+    GN_RTOL); its outputs are channels-last in x's dtype."""
+    _conv_general_case(cuda, dtype, b, hw, ci, co)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("hw,ci,co", [(8, 2560, 1280), (16, 1920, 1280),
+                                      (64, 320, 320)])
+def test_cuda_conv_general_deep_sites_match_plain(cuda, b, hw, ci, co):
+    """fp32 at the U-Net's deepest K (8x8 2560 -> 1280: 23040 terms; 16x16
+    1920 -> 1280) and its largest site, forward and dx, within 2**-14 of
+    the largest value: the fresh accumulator a K step keeps the tensor
+    cores' truncating adds from drifting over K. dx is bitwise
+    repeatable (its K splits are summed in a fixed order)."""
+    dx, again = _conv_general_case(cuda, torch.float32, b, hw, ci, co)
+    assert torch.equal(dx, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("warpgroups,block_n", tconv.GENERAL_TILES)
+def test_cuda_conv_general_every_instance_matches_plain(cuda, dtype, splits,
+                                                        warpgroups,
+                                                        block_n):
+    """Every tile the general kernel builds, whole and split over K, fp32
+    and bf16, at ragged channels (100 -> 36: element loads, N and K tails)
+    and at aligned ones (96 -> 200: cp.async), forward and dx; dx is
+    bitwise repeatable."""
+    for b, hw, ci, co in ((2, 12, 100, 36), (1, 10, 96, 200)):
+        dx, again = _conv_general_case(cuda, dtype, b, hw, ci, co,
+                                       (warpgroups, block_n, splits))
+        assert torch.equal(dx, again), (b, hw, ci, co)
 
 
 @pytest.mark.cuda
@@ -1508,8 +1623,8 @@ def test_cuda_gn_general_routes(cuda, dtype):
     """fp32 and fp16 GroupNorm+SiLU (K8's op) at U-Net shapes runs its
     general instances on the card, counted, forward and backward; GN+SiLU+
     conv (K9's op) its general instances in fp32 and its Hopper kernels'
-    fp16 instances in fp16; all agree with the CPU (GN_RTOL of the largest
-    value)."""
+    fp16 instances in fp16; all agree with the CPU (K8's h GN_RTOL of the
+    largest value; K9's y and dx 2**-14 in fp32, GN_RTOL in fp16)."""
     outs = {}
     for dev in ("cpu", cuda):
         x = _rand((1, 320, 16, 16), 0, 1.5, dev,
@@ -1528,9 +1643,11 @@ def test_cuda_gn_general_routes(cuda, dtype):
     assert tgc.LAUNCHES == _counted(tgc.LAUNCHES,
                                     **{f"gn_silu_conv3x3_fwd{k9}": 1,
                                        f"gn_silu_conv3x3_dx{k9}": 1})
-    for got, want, what in zip(outs["cuda"], outs["cpu"], ("h", "y", "dx")):
+    rtols = (GN_RTOL, _conv_general_rtol(dtype), _conv_general_rtol(dtype))
+    for got, want, what, rtol in zip(outs["cuda"], outs["cpu"],
+                                     ("h", "y", "dx"), rtols):
         assert got.dtype == dtype
-        _assert_close(got.cpu(), want, what)
+        _assert_within(got.cpu(), want, rtol, what)
 
 
 @pytest.mark.cuda
