@@ -22,11 +22,25 @@ Phases, each reported on its own line:
      back-to-back times beside F.group_norm's and the unfused default
      path's, and their plans; K8 on channels-last and NCHW x, with a check
      that a second call gives the same bits and nothing is copied into
-     another layout;
+     another layout; K1 and K2 also at the batched edit's shapes (B 4 and
+     8), where two equal rows must give equal bits;
   4. edit: one 512x512 DiffusionHandles(variant="sd2") edit through the four
      public steps with the default U-Net (seeded random weights),
      EDIT_TIMESTEPS timesteps, with per-step seconds, the kernels' launch
      counts, output checks and peak device memory;
+  4a. edit_paths: on those handles, transform_foreground with
+     save_denoising_steps (T decoded step pairs; the final image bitwise
+     the flag-off run's), the packed [N, 4] host correspondence path
+     against the device binning (the same slots, the same image), and the
+     mesh-mode transform (seconds, peak memory, big faces; held to the
+     port on the CPU within MESH_*) and edit;
+  4b. edit_batched: edit_batch on those handles, one transform at batch
+     1 (bitwise the single edit), then 3 transforms (two identical) in a
+     chunk of 4 with remat off and 'dots': seconds per edit beside the
+     single edit's, peak memory, K1/K2 launches (remat reruns the
+     guidance forward); rows against the single edit, twin rows and remat
+     against off within the distance a rounding-level nudge gives
+     (BATCH_*), and a batch-4 U-Net with twin rows, cuDNN off, bitwise;
   5. unet_reference: that U-Net once with the flash kernels and once with
      dense attention on the same input, which must agree;
   6. unet_flash_bwd_modes: that U-Net forward + backward to the latents with
@@ -84,6 +98,7 @@ import concurrent.futures
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -160,6 +175,12 @@ PEAK_BYTES = 3.35e12
 FWD_SHAPES = [(1, 4096, 5, 64), (2, 4096, 5, 64), (1, 1024, 10, 64),
               (2, 1024, 10, 64)]
 BWD_SHAPES = [(1, 4096, 5, 64), (1, 1024, 10, 64)]
+# K1 and K2 at the batched edit's shapes: its guidance runs a batch-4
+# U-Net forward + backward (3 transforms in a chunk of 4), its CFG step a
+# batch-8 forward
+BATCHED_FWD_SHAPES = [(4, 4096, 5, 64), (4, 1024, 10, 64),
+                      (8, 4096, 5, 64), (8, 1024, 10, 64)]
+BATCHED_BWD_SHAPES = [(4, 4096, 5, 64), (4, 1024, 10, 64)]
 # one query length != key length (ragged 64-row tiles): (B, Sq, Sk, H, D)
 CROSS_SHAPE = (2, 1000, 4096, 5, 64)
 # K4's chunk of keys in the kernels phase and the forward-entries path
@@ -587,6 +608,77 @@ def _flash_per_unet(per_site):
                 sums["bwd_wall_ms"] / sums["sdpa_fwd_bwd_wall_ms"])
         _line("flash_per_unet", batch=b, sites=sum(FLASH_SITES.values()),
               **sums, **ratios)
+
+
+def _kernels_flash_batched(res, rand):
+    """K1 and K2 against their plain versions at the batched edit's shapes,
+    with device times beside the plain version's and SDPA's. Rows 0 and 2
+    of the inputs are equal: their outputs must be bitwise equal (the
+    kernels grid over B*H and read no other row)."""
+    import torch
+    import torch.nn.functional as F
+    att = _kernel_modules()[0]
+
+    def twin(*xs):
+        for x in xs:
+            x[2] = x[0]
+        return xs
+
+    for b, s, h, d in BATCHED_FWD_SHAPES:
+        q, k, v = twin(*_qkv(rand, b, s, s, h, d))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        o, lse = att.flash_fwd_cuda(q, k, v)
+        o_ref, lse_ref = att.flash_fwd_ref(q, k, v)
+        torch.cuda.synchronize()
+        err_o, tol_o = _rel_err(o, o_ref, FWD_O_RTOL)
+        err_l = (lse - lse_ref).abs().max().item()
+        lse = lse.view(b, h, s)
+        rows_equal = torch.equal(o[0], o[2]) and torch.equal(lse[0], lse[2])
+        bound = _bound(4.0 * b * h * s * s * d,
+                       4 * s * b * h * d * 2 + b * h * s * 4, PEAK_BF16)
+        _check("flash_fwd", (b, s, s, h, d), [err_o, err_l],
+               [tol_o, FWD_LSE_ATOL], batched=True, rows_equal=rows_equal,
+               ms=_device_ms(lambda: att.flash_fwd_cuda(q, k, v)),
+               plain_ms=_device_ms(lambda: att.flash_fwd_ref(q, k, v)),
+               library_ms=_device_ms(
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+               bound_ms=bound[0], bound_by=bound[1])
+        if not rows_equal:
+            raise AssertionError(f"flash_fwd mixed rows at {(b, s, h, d)}")
+        res.rows["flash_fwd"]["max_abs_err"] = max(
+            res.rows["flash_fwd"]["max_abs_err"], err_o, err_l)
+    for b, s, h, d in BATCHED_BWD_SHAPES:
+        q, k, v = _qkv(rand, b, s, s, h, d)
+        do = rand(q.shape)
+        q, k, v, do = twin(q, k, v, do)
+        o, lse = att.flash_fwd_ref(q, k, v)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+
+        got = att.flash_bwd_cuda(q, k, v, o, lse, do)
+        want = att.flash_bwd_ref(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        errs, tols = zip(*(_rel_err(g_, w_, BWD_RTOL)
+                           for g_, w_ in zip(got, want)))
+        rows_equal = all(torch.equal(g_[0], g_[2]) for g_ in got)
+        bound = _bound(10.0 * b * h * s * s * d,
+                       8 * s * b * h * d * 2 + b * h * s * 4, PEAK_BF16)
+        _check("flash_bwd", (b, s, s, h, d), list(errs), list(tols),
+               batched=True, rows_equal=rows_equal,
+               ms=_device_ms(lambda: att.flash_bwd_cuda(q, k, v, o, lse,
+                                                        do)),
+               plain_ms=_device_ms(lambda: att.flash_bwd_ref(q, k, v, o,
+                                                             lse, do)),
+               library_ms_fwd_bwd=_device_ms(sdpa_fwd_bwd),
+               bound_ms=bound[0], bound_by=bound[1])
+        if not rows_equal:
+            raise AssertionError(f"flash_bwd mixed rows at {(b, s, h, d)}")
+        res.rows["flash_bwd"]["max_abs_err"] = max(
+            res.rows["flash_bwd"]["max_abs_err"], *errs)
 
 
 def _gn_plan_fields(plan) -> dict:
@@ -1362,6 +1454,7 @@ def phase_kernels() -> dict:
     _kernels_flash_fwd(res, rand, per_site)
     _kernels_flash_bwd(res, rand, per_site)
     _flash_per_unet(per_site)
+    _kernels_flash_batched(res, rand)
     _kernels_gn(res, rand)
     _kernels_gn_conv(res, rand)
     _kernels_conv(res, rand)
@@ -1456,11 +1549,17 @@ def _count_unet_calls(unet) -> dict:
     return calls
 
 
+EDIT_PROMPT = "a toy cube on a table"
+EDIT_TRANSFORM = dict(rot_angle=20.0, rot_axis=[0.0, 1.0, 0.0],
+                      translation=[0.0, 0.0, 0.1])
+
+
 def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
     """One edit through the four public steps; returns the handles, the
     kernels' launch counts of that run (each of `kernels` must be > 0),
-    the U-Net's call counts and the inputs the GroupNorm wrappers copied
-    into their kernels' layouts in that run."""
+    the U-Net's call counts, the inputs the GroupNorm wrappers copied
+    into their kernels' layouts in that run, and transform_foreground's
+    inputs and result (`edit`)."""
     import numpy as np
     import torch
 
@@ -1473,7 +1572,7 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
                        for k in ("fused_gn_conv", "fused_gn",
                                  "conv3x3_kernel", "flash_attention")})
     sample = _sample(handles.img_res)
-    prompt = "a toy cube on a table"
+    prompt = EDIT_PROMPT
     calls = _count_unet_calls(handles.diffuser.models.unet)
 
     torch.cuda.reset_peak_memory_stats()
@@ -1502,8 +1601,7 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
         "transform_foreground", lambda: handles.transform_foreground(
             depth=sample["depth"], prompt=prompt, fg_mask=sample["fg_mask"],
             bg_depth=bg, null_text_emb=null, init_noise=noise,
-            activations=acts, rot_angle=20.0, rot_axis=[0.0, 1.0, 0.0],
-            translation=[0.0, 0.0, 0.1]))
+            activations=acts, **EDIT_TRANSFORM))
     launches = launch_counts()
     copies = {k: n - copies0[k] for k, n in layout_copies().items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1529,7 +1627,360 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
           peak_bytes=peak, resident_bytes=resident, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"{name} checks failed: {checks}")
-    return handles, launches, calls, copies
+    edit = dict(inputs=dict(depth=sample["depth"], prompt=prompt,
+                            fg_mask=sample["fg_mask"], bg_depth=bg,
+                            null_text_emb=null, init_noise=noise,
+                            activations=acts),
+                edited=edited, disparity=disparity)
+    return handles, launches, calls, copies, edit
+
+
+def _timed(fn):
+    """(fn(), host seconds to its end on the card)."""
+    import torch
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+# The mesh transform on the card against the port on the CPU. Its geometry
+# is elementwise fp32 (no matmul, so no TF32; the intrinsics inverted on the
+# host), so the two differ only where a reduction sums in another order:
+# the foreground centroid, whose last-bit shift moves the foreground's z by
+# ~1e-7 relative and can flip a face only at a near-exact tie of two faces'
+# z. Bounds: faces flipped at <= 1e-3 of the pixels, zbuf within 1e-5 of
+# the largest z, disparity within 1e-5 of 255 except at flipped pixels, and
+# <= 1e-3 of the correspondence rows different.
+MESH_FACE_SHARE = 1e-3
+MESH_ZBUF_RTOL = 1e-5
+MESH_CORR_SHARE = 1e-3
+
+
+def _mesh_on(device, inputs, intrinsics):
+    """The 512x512 merged depth mesh of the edit (background grid +
+    transformed foreground) rasterized on `device`: (raster, faces, big
+    faces)."""
+    from diffusionhandles_tpu_torch.geometry.mesh import depth_to_mesh
+    from diffusionhandles_tpu_torch.geometry.mesh_transform import \
+        merge_meshes
+    from diffusionhandles_tpu_torch.geometry.transform import \
+        transform_points
+    from diffusionhandles_tpu_torch.ops.rasterize import (big_faces,
+                                                          project_verts,
+                                                          rasterize)
+    res = inputs["depth"].shape[-1]
+    fg = inputs["fg_mask"].reshape(res, res) > 0.5
+    fg_mesh = depth_to_mesh(inputs["depth"], intrinsics, mask=fg,
+                            device=device)
+    fg_mesh.verts = transform_points(
+        fg_mesh.verts, EDIT_TRANSFORM["rot_angle"],
+        EDIT_TRANSFORM["rot_axis"], EDIT_TRANSFORM["translation"])
+    mesh = merge_meshes(depth_to_mesh(inputs["bg_depth"], intrinsics,
+                                      device=device), fg_mesh)
+    verts_px = project_verts(mesh.verts, intrinsics, res, res)
+    return (rasterize(verts_px, mesh.faces, res, res),
+            int(mesh.faces.shape[0]),
+            int(big_faces(verts_px, mesh.faces).numel()))
+
+
+def _rows_differ(a, b) -> float:
+    """Share of correspondence rows in one [N, 4] set and not the other."""
+    sa, sb = set(map(tuple, a.tolist())), set(map(tuple, b.tolist()))
+    return len(sa ^ sb) / max(len(sa), len(sb), 1)
+
+
+def phase_edit_paths(handles, edit) -> float:
+    """The edit's other entry points on the default handles, at 512x512:
+    save_denoising_steps, the [N, 4] host correspondence path against the
+    device binning, and the mesh-mode transform (against the port on the
+    CPU) and edit. Returns the single edit's seconds."""
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.geometry import mesh_transform
+    from diffusionhandles_tpu_torch.geometry.transform import (
+        transform_depth, transform_depth_pc_processed)
+    d = handles.diffuser
+    gconf = handles.conf.guided_diffuser
+    inputs = edit["inputs"]
+    res, steps_t = handles.img_res, d.schedule.num_inference_steps
+    reset_launch_counts()
+
+    # save_denoising_steps: T decoded (post-opt, post-CFG) pairs, and the
+    # same guided loop as with the flag off
+    (off_img, off_disp), off_s = _timed(lambda: handles.transform_foreground(
+        **inputs, **EDIT_TRANSFORM))
+    gconf.save_denoising_steps = True
+    try:
+        (img, disp, steps), on_s = _timed(
+            lambda: handles.transform_foreground(**inputs, **EDIT_TRANSFORM))
+    finally:
+        gconf.save_denoising_steps = False
+    pairs = steps["opt"]
+    flat = [x for pair in pairs for x in pair]
+    checks = {
+        "steps": set(steps) == {"opt"} and len(pairs) == steps_t,
+        "step_shapes": all(x.shape == (1, res, res, 3) for x in flat),
+        "steps_finite": all(bool(np.isfinite(x).all()) for x in flat),
+        "steps_in_0_1": all(x.min() >= 0.0 and x.max() <= 1.0
+                            for x in flat),
+        "image_bitwise_flag_off": bool(np.array_equal(img, off_img)),
+        "disparity_bitwise_flag_off": bool(np.array_equal(disp, off_disp)),
+    }
+    _line("edit_paths_save_steps", seconds_flag_off=off_s,
+          seconds_flag_on=on_s, step_pairs=len(pairs),
+          image_max_abs_diff=float(np.abs(img - off_img).max()),
+          same_as_edit_phase=bool(np.array_equal(off_img, edit["edited"])),
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"save_denoising_steps checks failed: {checks}")
+
+    # the packed [N, 4] host path against the device binning: the same
+    # (cell pair, weight) slots in the same order, so the same guided loop
+    intrinsics = d.get_depth_intrinsics()
+    geo = (inputs["depth"], inputs["bg_depth"], inputs["fg_mask"],
+           intrinsics)
+    (disp_h, corr), host_s = _timed(lambda: transform_depth(
+        *geo, device="cuda", **EDIT_TRANSFORM))
+    pc_h = d.process_correspondences(corr, res, gconf.bg_erosion)
+    (disp_d, pc_d), dev_s = _timed(lambda: transform_depth_pc_processed(
+        *geo, bg_erosion=gconf.bg_erosion,
+        max_corr=gconf.max_correspondences, latent_res=d.latent_res,
+        device="cuda", **EDIT_TRANSFORM))
+
+    def slots(pc):
+        live = pc.corr_w > 0
+        rows = torch.stack([pc.corr_ox, pc.corr_oy, pc.corr_tx, pc.corr_ty,
+                            pc.corr_w.long()], 1)[live]
+        return set(map(tuple, rows.tolist()))
+
+    host_img, host_edit_s = _timed(lambda: d.guided_inference(
+        latents=inputs["init_noise"], depth=disp_h,
+        uncond_embeddings=inputs["null_text_emb"], prompt=inputs["prompt"],
+        activations_orig=inputs["activations"], correspondences=corr))
+    host_img = host_img.cpu().numpy()
+    checks = {
+        "disparity_equal": bool(torch.equal(disp_h, disp_d)),
+        "slots_equal_as_sets": slots(pc_h) == slots(pc_d),
+        "slots_equal_in_order": all(torch.equal(
+            getattr(pc_h, f).to(getattr(pc_d, f).dtype), getattr(pc_d, f))
+            for f in pc_d._fields),
+        # identical slots in identical order: the same computation
+        "image_bitwise": bool(np.array_equal(host_img, off_img)),
+    }
+    _line("edit_paths_host_correspondences", rows=int(len(corr)),
+          slots=len(slots(pc_h)), transform_seconds_host=host_s,
+          transform_seconds_device=dev_s, edit_seconds=host_edit_s,
+          image_max_abs_diff=float(np.abs(host_img - off_img).max()),
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"host correspondence checks failed: {checks}")
+
+    # mesh mode: the transform alone (peak memory its own), against the
+    # port on the CPU, then the whole edit
+    _free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    (m_disp, m_corr), mesh_s = _timed(
+        lambda: mesh_transform.transform_depth_mesh(
+            *geo, device="cuda", **EDIT_TRANSFORM))
+    mesh_peak = torch.cuda.max_memory_allocated() - resident
+    _, mesh_s_again = _timed(lambda: mesh_transform.transform_depth_mesh(
+        *geo, device="cuda", **EDIT_TRANSFORM))
+    start = time.perf_counter()
+    c_disp, c_corr = mesh_transform.transform_depth_mesh(
+        *geo, device="cpu", **EDIT_TRANSFORM)
+    cpu_s = time.perf_counter() - start
+    raster_gpu, faces, big_gpu = _mesh_on("cuda", inputs, intrinsics)
+    raster_cpu, _, big_cpu = _mesh_on("cpu", inputs, intrinsics)
+    fid_g, fid_c = raster_gpu.face_id.cpu(), raster_cpu.face_id
+    both = (fid_g >= 0) & (fid_c >= 0)
+    z_g, z_c = raster_gpu.zbuf.cpu()[both], raster_cpu.zbuf[both]
+    face_share = float((fid_g != fid_c).float().mean())
+    zbuf_err = float((z_g - z_c).abs().max()) if both.any() else 0.0
+    disp_diff = (m_disp.cpu() - c_disp)[0, 0]
+    same_face = (fid_g == fid_c)
+    corr_share = _rows_differ(m_corr, c_corr)
+    handles.conf.depth_transform_mode = "mesh"
+    try:
+        (mesh_img, mesh_edit_disp), mesh_edit_s = _timed(
+            lambda: handles.transform_foreground(**inputs, **EDIT_TRANSFORM))
+    finally:
+        handles.conf.depth_transform_mode = "pc"
+    checks = {
+        "big_faces_same": big_gpu == big_cpu,
+        "face_ids": face_share <= MESH_FACE_SHARE,
+        "zbuf": zbuf_err <= MESH_ZBUF_RTOL * float(z_c.max()),
+        "disparity": float(disp_diff[same_face].abs().max())
+        <= MESH_ZBUF_RTOL * 255.0,
+        "correspondences": corr_share <= MESH_CORR_SHARE,
+        "edit_disparity_is_transform's": bool(np.array_equal(
+            mesh_edit_disp, m_disp.cpu().numpy())),
+        "edit_finite": bool(np.isfinite(mesh_img).all()),
+        "edit_in_0_1": bool(mesh_img.min() >= 0.0 and mesh_img.max() <= 1.0),
+        "edit_shape": list(mesh_img.shape) == [1, 3, res, res],
+    }
+    _line("edit_paths_mesh", transform_seconds=mesh_s,
+          transform_seconds_again=mesh_s_again, transform_peak_bytes=mesh_peak,
+          cpu_transform_seconds=cpu_s, faces=faces, big_faces=big_gpu, rows=int(len(m_corr)),
+          rows_cpu=int(len(c_corr)), face_id_differ_share=face_share,
+          zbuf_max_abs_err=zbuf_err,
+          disparity_max_abs_err=float(disp_diff.abs().max()),
+          correspondence_rows_differ_share=corr_share,
+          edit_seconds=mesh_edit_s, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"mesh checks failed: {checks}")
+    launches = launch_counts()
+    checks = {"kernels_launched": all(launches[k] > 0 for k in (
+        "flash_fwd", "flash_bwd")), "no_general_route": _no_general(launches)}
+    _line("edit_paths_launches", flash_fwd=launches["flash_fwd"],
+          flash_bwd=launches["flash_bwd"], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"edit paths launches off: {checks}")
+    return off_s
+
+
+# The batched edit against the single edit. At batch 1 it runs the single
+# edit's kernels on the same shapes and must give its bits. At batch 4 its
+# sums round in another order (cuDNN picks a batch-dependent algorithm for
+# some convs, whose rows differ by position), and the random-weight edit
+# is chaotic at that level: a 2**-16 relative nudge of the initial
+# latents, far below bf16's 2**-8, moves the image as far as any rounding
+# change does (on an H100 at 700 W: correlation 0.9645, mean abs 0.0417,
+# as the batched rows; PERF.md). So a batched row, a twin row and the remat
+# run are held to the distance such a nudge gives in the same run:
+# correlation no lower by more than BATCH_CORR_MARGIN, mean abs difference
+# at most BATCH_MEAN_RATIO times.
+BATCH_NUDGE = 2.0 ** -16
+BATCH_CORR_MARGIN = 0.005
+BATCH_MEAN_RATIO = 1.2
+# edit_batch's guidance U-Net recompute, read when its runner is built
+BATCHED_REMAT_ENV = "DIFFHANDLES_BATCHED_REMAT"
+
+
+def _agree(a, b) -> dict:
+    import numpy as np
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return {"corr": float(np.corrcoef(a, b)[0, 1]),
+            "max_abs_diff": float(np.abs(a - b).max()),
+            "mean_abs_diff": float(np.abs(a - b).mean()),
+            "bitwise": bool(np.array_equal(a, b))}
+
+
+def _within(m: dict, ref: dict) -> bool:
+    """`m` no farther apart than the nudged edit `ref`, with the margins."""
+    return (m["corr"] >= ref["corr"] - BATCH_CORR_MARGIN
+            and m["mean_abs_diff"] <= BATCH_MEAN_RATIO * ref["mean_abs_diff"])
+
+
+def _unet_twin_rows(handles) -> dict:
+    """One batch-4 U-Net forward + backward to the latents with rows 0 and
+    2 equal, cuDNN off (its conv algorithms are the part that may differ
+    by batch position): the port's own ops and kernels must give those
+    rows the same bits."""
+    import torch
+    unet = handles.diffuser.models.unet
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn((4, unet.config.in_channels, 64, 64), generator=gen)
+    ctx = torch.randn((4, 77, unet.config.cross_attention_dim),
+                      generator=gen)
+    x[2], ctx[2] = x[0], ctx[0]
+    x, ctx = x.to("cuda"), ctx.to("cuda")
+    with torch.backends.cudnn.flags(enabled=False):
+        eps, grad = _latents_grad(unet, x, torch.tensor(500, device="cuda"),
+                                  ctx)
+    return {"eps_rows_bitwise": bool(torch.equal(eps[0], eps[2])),
+            "grad_rows_bitwise": bool(torch.equal(grad[0], grad[2]))}
+
+
+def phase_edit_batched(handles, edit, single_seconds: float) -> dict:
+    """edit_batch on the default handles: one transform at batch 1 (the
+    single edit's bits), then 3 transforms (the first and the last
+    identical) in a chunk of 4, EDIT_TIMESTEPS steps, with remat off and
+    then 'dots'. Returns the K1/K2 launches of the remat-off run."""
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.parallel.batch import edit_batch
+    inputs = edit["inputs"]
+    single = edit["edited"][0]
+    conf = handles.conf.guided_diffuser
+    tr0 = {"rotation_angle": EDIT_TRANSFORM["rot_angle"],
+           "rotation_axis": EDIT_TRANSFORM["rot_axis"],
+           "translation": EDIT_TRANSFORM["translation"]}
+    transforms = [tr0, {"rotation_angle": -15.0, "rotation_axis": [0, 1, 0],
+                        "translation": [0.05, 0.0, 0.0]}, tr0]
+    args = (inputs["depth"], inputs["prompt"], inputs["fg_mask"],
+            inputs["bg_depth"], inputs["null_text_emb"],
+            inputs["init_noise"], inputs["activations"])
+    steps_t = handles.diffuser.schedule.num_inference_steps
+    guided_calls = min(conf.guidance_max_step, steps_t) * conf.num_optsteps
+    sites = sum(FLASH_SITES.values())
+    saved = os.environ.pop(BATCHED_REMAT_ENV, None)
+
+    # the references: batch 1, and the single edit nudged at rounding level
+    one = edit_batch(handles, *args, [tr0])
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    noise = inputs["init_noise"]
+    signs = torch.randn(noise.shape, generator=gen).sign().to(noise.device)
+    nudged, _ = handles.transform_foreground(
+        **{**inputs, "init_noise": noise * (1.0 + BATCH_NUDGE * signs)},
+        **EDIT_TRANSFORM)
+    ref = _agree(nudged[0], single)
+    twins = _unet_twin_rows(handles)
+    checks = {"batch1_bitwise_single_edit": bool(np.array_equal(one[0],
+                                                                single)),
+              **twins}
+    _line("edit_batched_references", batch1_vs_single=_agree(one[0], single),
+          nudged_vs_single=ref, nudge=BATCH_NUDGE, unet_twin_rows_cudnn_off=
+          twins, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"batched references failed: {checks}")
+
+    runs = {}
+    for remat in (False, "dots"):
+        if remat:
+            os.environ[BATCHED_REMAT_ENV] = remat
+        _free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        imgs, seconds = _timed(lambda: edit_batch(handles, *args, transforms,
+                                                  chunk=4))
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # one launch a site per U-Net call; remat reruns the guidance
+        # forward's blocks (all ten sites) in the backward
+        want_fwd = sites * (guided_calls * (2 if remat else 1) + steps_t)
+        row0, twin = _agree(imgs[0], single), _agree(imgs[2], imgs[0])
+        vs_off = _agree(imgs, runs[False]["imgs"]) if remat else None
+        checks = {
+            "shape": imgs.shape == (3, 3, handles.img_res, handles.img_res),
+            "finite": bool(np.isfinite(imgs).all()),
+            "row0_vs_single_edit": _within(row0, ref),
+            "twin_rows": _within(twin, ref),
+            "k1_launches": launches["flash_fwd"] == want_fwd,
+            "k2_launches": launches["flash_bwd"] == sites * guided_calls,
+            "no_general_route": _no_general(launches),
+        }
+        if remat:
+            checks["remat_vs_off"] = _within(vs_off, ref)
+        _line("edit_batched", remat=remat or "off", transforms=3, chunk=4,
+              batch=4, seconds=seconds, seconds_per_edit=seconds / 3,
+              single_edit_seconds=single_seconds, peak_bytes=peak,
+              resident_bytes=resident, flash_fwd=launches["flash_fwd"],
+              flash_bwd=launches["flash_bwd"], flash_fwd_expected=want_fwd,
+              row0_vs_single_edit=row0, twin_rows=twin, vs_remat_off=vs_off,
+              checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"batched edit checks failed: {checks}")
+        runs[remat] = {"imgs": imgs, "launches": launches}
+    os.environ.pop(BATCHED_REMAT_ENV, None)
+    if saved is not None:
+        os.environ[BATCHED_REMAT_ENV] = saved
+    return runs[False]["launches"]
 
 
 # 3x3 convs of the conv-kernel U-Net at 512x512 that pass the conv gate: 44
@@ -1897,8 +2348,11 @@ def main() -> int:
         phase_device()
         phase_build()
         kernels = phase_kernels()
-        default, _, _, _ = phase_edit("edit", EDIT_TIMESTEPS,
-                                      ("flash_fwd", "flash_bwd"))
+        default, _, _, _, edit = phase_edit("edit", EDIT_TIMESTEPS,
+                                            ("flash_fwd", "flash_bwd"))
+        single_seconds = phase_edit_paths(default, edit)
+        phase_edit_batched(default, edit, single_seconds)
+        del edit
         phase_unet_reference(default)
         launches = phase_unet_flash_bwd_modes(default)
         default_config = default.diffuser.models.unet_config
@@ -1908,7 +2362,7 @@ def main() -> int:
         launches.update({n: entries[n] for n in ("flash_fwd_unfolded",
                                                  "flash_fwd_stream")})
         general = {k: n for k, n in entries.items() if k.endswith("_general")}
-        fused, fused_launches, fused_calls, fused_copies = phase_edit(
+        fused, fused_launches, fused_calls, fused_copies, _ = phase_edit(
             "edit_fused", FUSED_EDIT_TIMESTEPS, FUSED_EDIT_KERNELS,
             fused_gn_conv=True, fused_gn=True)
         check_fused_launches(fused_launches, fused_calls, fused_copies)
@@ -1917,7 +2371,7 @@ def main() -> int:
                                     default_config)
         del fused
         _free_device_memory()
-        conv, conv_launches, calls, _ = phase_edit(
+        conv, conv_launches, calls, _, _ = phase_edit(
             "edit_conv", EDIT_TIMESTEPS,
             ("flash_fwd", "flash_bwd", "conv3x3_fwd", "conv3x3_dx"),
             conv3x3_kernel=True)

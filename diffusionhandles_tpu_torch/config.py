@@ -5,9 +5,10 @@ reference's OmegaConf schema, diffhandles/config/default.yaml:1-15), so a
 config file drives either package. `yaml` is imported inside `load_config`
 only: the package must import on hosts that have no PyYAML.
 
-Fields that select TPU machinery (`pallas_conv`, `remat_guidance`,
+`remat_guidance` sets the U-Net's block recompute (`UNetConfig.remat`).
+The fields that select TPU machinery (`pallas_conv`,
 `null_opt_inner_loop`) are kept so that configs load unchanged; this
-package reads none of them.
+package reads neither.
 """
 
 from __future__ import annotations
@@ -54,8 +55,10 @@ class GuidedDiffuserConfig:
     activation_store_dtype: str = "bfloat16"
     # Route long U-Net self-attentions through the flash kernels.
     flash_attention: bool = True
-    # TPU-only switches, read by the JAX package alone.
+    # Recompute the U-Net's blocks in the backward (UNetConfig.remat:
+    # False, True or 'dots').
     remat_guidance: bool = False
+    # TPU-only switches, read by the JAX package alone.
     pallas_conv: bool = True
     null_opt_inner_loop: str = "while"
     # Capture the guidance activations during the null-text inversion's
@@ -79,7 +82,7 @@ class DiffusionHandlesConfig:
 
     guided_diffuser: GuidedDiffuserConfig = dataclasses.field(
         default_factory=GuidedDiffuserConfig)
-    depth_transform_mode: str = "pc"  # only 'pc' is ported
+    depth_transform_mode: str = "pc"  # 'pc' | 'mesh' 
     model_paths: ModelPathsConfig = dataclasses.field(
         default_factory=ModelPathsConfig)
 

@@ -9,7 +9,13 @@ Python loops here:
 * `guided_inference` (reference :291-488): under `guidance_max_step`, each
   step first runs `num_optsteps` iterations of
   `latents -= guidance_lr * grad(energy)` through the U-Net (autograd on
-  the latents), then the batch-2 classifier-free-guidance DDIM step.
+  the latents), then the batch-2 classifier-free-guidance DDIM step. With
+  `save_denoising_steps` it also decodes each step's post-opt and post-CFG
+  latents.
+
+`GuidedDiffuserConfig.remat_guidance` becomes `UNetConfig.remat`: every
+pass that records a graph through the U-Net (guidance, null-text
+inversion) recomputes its blocks in the backward.
 
 Layouts are NCHW: latents [1, 4, h, w], depth [1, 1, h, w], activation
 stacks [T, C, H, W] (the reference's own layout).
@@ -30,7 +36,8 @@ from diffusionhandles_tpu_torch.config import (GuidedDiffuserConfig,
 from diffusionhandles_tpu_torch.guidance import (
     ProcessedCorrespondences, background_loss_apply,
     background_orig_precompute, build_guidance_weight_schedule,
-    foreground_loss_apply, foreground_orig_precompute)
+    foreground_loss_apply, foreground_orig_precompute,
+    process_correspondences)
 from diffusionhandles_tpu_torch.models.clip_text import (CLIPTextConfig,
                                                          CLIPTextModel,
                                                          tiny_clip_config)
@@ -107,12 +114,14 @@ def create_sd_models(model_paths: Optional[ModelPathsConfig] = None,
     in_ch = 5 if conf.use_depth else 4
     if variant == "tiny":
         ucfg = tiny_unet_config(in_channels=in_ch,
-                                flash_attention=conf.flash_attention)
+                                flash_attention=conf.flash_attention,
+                                remat=conf.remat_guidance)
         vcfg = tiny_vae_config()
         ccfg = tiny_clip_config()
     else:
         ucfg = UNetConfig(in_channels=in_ch, dtype=dtype,
                           param_dtype=param_dtype,
+                          remat=conf.remat_guidance,
                           flash_attention=conf.flash_attention)
         vcfg = VAEConfig(dtype=dtype, param_dtype=param_dtype)
         ccfg = CLIPTextConfig()  # the text encoder stays fp32
@@ -294,17 +303,23 @@ class GuidedStableDiffuser:
                          save_denoising_steps: bool = False,
                          processed_correspondences: Optional[
                              ProcessedCorrespondences] = None):
-        """Guided denoising toward the 3D-warped activations; returns the
-        edited image [1, 3, H, W] in [0, 1]."""
-        if save_denoising_steps:
-            raise NotImplementedError("save_denoising_steps is not ported")
-        if processed_correspondences is None:
-            raise NotImplementedError(
-                "pass processed_correspondences (the packed [N, 4] host "
-                "correspondence path is not ported)")
-        del correspondences
+        """Guided denoising toward the 3D-warped activations.
+
+        The correspondences come either processed (device binning) or as
+        packed [N, 4] image-pixel rows, binned here at the depth map's
+        resolution. Returns the edited image [1, 3, H, W] in [0, 1]; with
+        `save_denoising_steps`, (image, {"opt": [(img_opt, img_step)] * T})
+        with each step's post-opt and post-CFG decodes as numpy
+        [1, H, W, 3] in [0, 1] (the JAX package's layout)."""
         conf = self.conf
-        pc = processed_correspondences
+        if processed_correspondences is None:
+            # the correspondences live in the depth map's pixel space, which
+            # need not be the model's native resolution
+            depth_res = int(max(np.shape(depth)[-2:]))
+            pc = self.process_correspondences(correspondences, depth_res,
+                                              conf.bg_erosion)
+        else:
+            pc = processed_correspondences
         fg_weight = conf.fg_weight if fg_weight is None else fg_weight
         bg_weight = conf.bg_weight if bg_weight is None else bg_weight
         T = self.schedule.num_inference_steps
@@ -318,6 +333,7 @@ class GuidedStableDiffuser:
         acts_orig = [torch.as_tensor(a, device=self.device).to(
             self.act_dtype) for a in activations_orig]
         latents = self._tensor(latents)
+        steps = []
 
         for i in range(T):
             if i < conf.guidance_max_step:
@@ -336,7 +352,31 @@ class GuidedStableDiffuser:
                             fgw[i, it], bgw[i, it], pc)
                         (grad,) = torch.autograd.grad(energy, lat)
                     latents = latents - conf.guidance_lr * grad
+            # past guidance_max_step "post opt" is the previous step's
+            # latents, as the reference's empty opt loop leaves them
+            post_opt = latents
             with torch.no_grad():
                 latents, _ = self.cfg_step(latents, depth64, uncond_seq[i],
                                            cond, i)
-        return self.decode_latent_image(latents)
+            if save_denoising_steps:
+                steps.append((self._decoded_nhwc(post_opt),
+                              self._decoded_nhwc(latents)))
+        image = self.decode_latent_image(latents)
+        if save_denoising_steps:
+            return image, {"opt": steps}
+        return image
+
+    def _decoded_nhwc(self, latents) -> np.ndarray:
+        return self.decode_latent_image(latents).permute(
+            0, 2, 3, 1).cpu().numpy()
+
+    def process_correspondences(self, correspondences, img_res: int,
+                                bg_erosion: int = 0
+                                ) -> ProcessedCorrespondences:
+        """Packed [N, 4] correspondences at `img_res` binned onto this
+        model's latent grid, on its device (reference:
+        guided_stable_diffuser.py:490-584)."""
+        return process_correspondences(
+            correspondences, img_res=img_res, bg_erosion=bg_erosion,
+            max_corr=self.conf.max_correspondences,
+            latent_res=self.latent_res, device=self.device)

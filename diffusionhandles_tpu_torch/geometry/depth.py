@@ -49,20 +49,42 @@ def image_plane_coords(height: int, width: int, device=None) -> torch.Tensor:
     return torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
 
 
-def depth_to_world_coords(depth: torch.Tensor, intrinsics: torch.Tensor
+def depth_to_world_coords(depth: torch.Tensor, intrinsics,
+                          extrinsics_R=None, extrinsics_t=None
                           ) -> torch.Tensor:
     """[..., H, W] depth -> [H, W, 3] points in the PyTorch3D-style frame
-    (M = diag(-1, -1, 1)) (reference: depth_transform.py:589-641)."""
+    (M = diag(-1, -1, 1)) (reference: depth_transform.py:589-641), then
+    into the world frame when extrinsics are given.
+
+    The 3x3 products are written out elementwise, so no matmul setting
+    (TF32) touches them, and the inverse is taken on the host: the card
+    and the CPU lift a depth map to the same bits."""
     depth = depth.float()
     depth = depth.reshape(depth.shape[-2], depth.shape[-1])
     h, w = depth.shape
     if h < 2 or w < 2:
         raise RuntimeError(
             f"Expected depth to have at least 2 pixels per dim, got {h}x{w}")
-    k_inv = torch.linalg.inv(intrinsics.float())
-    coord = image_plane_coords(h, w, depth.device)
-    pts = depth[..., None] * torch.einsum("ij,hwj->hwi", k_inv, coord)
-    return pts * torch.tensor([-1.0, -1.0, 1.0], device=depth.device)
+    dev = depth.device
+    k_inv = torch.linalg.inv(torch.as_tensor(
+        intrinsics, dtype=torch.float32).cpu()).to(dev)
+    coord = image_plane_coords(h, w, dev)
+    pts = depth[..., None] * _mat3_apply(k_inv, coord)
+    pts = pts * torch.tensor([-1.0, -1.0, 1.0], device=dev)
+    if extrinsics_R is not None or extrinsics_t is not None:
+        rot = (torch.eye(3) if extrinsics_R is None else torch.as_tensor(
+            extrinsics_R, dtype=torch.float32)).to(dev)
+        t = (torch.zeros(3) if extrinsics_t is None else torch.as_tensor(
+            extrinsics_t, dtype=torch.float32)).to(dev)
+        pts = _mat3_apply(rot.T, pts - t)
+    return pts
+
+
+def _mat3_apply(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """m @ x over the last axis of x ([..., 3]), as elementwise products
+    summed in index order."""
+    return (x[..., 0:1] * m[:, 0] + x[..., 1:2] * m[:, 1]
+            + x[..., 2:3] * m[:, 2])
 
 
 class SplatResult(NamedTuple):

@@ -1,11 +1,14 @@
-"""3D rigid transform of the foreground depth surface, point-cloud mode.
+"""3D rigid transform of the foreground depth surface.
 
-The counterpart of the pc path of the JAX package's
-`geometry/transform.py` (reference: diffhandles/depth_transform.py:
-198-363): lift -> Rodrigues rotation about the foreground centroid +
-translation -> z-buffer splat -> disparity normalisation -> morphological
-mask cleanup -> Poisson inpaint, followed by on-device correspondence
-binning. Mesh mode is not ported.
+The counterpart of the JAX package's `geometry/transform.py` (reference:
+diffhandles/depth_transform.py:73-363). Point-cloud mode: lift ->
+Rodrigues rotation about the foreground centroid + translation -> z-buffer
+splat -> disparity normalisation -> morphological mask cleanup -> Poisson
+inpaint, followed either by on-device correspondence binning
+(`transform_depth_pc_processed`, the facade's path) or by packing the
+[N, 4] image-pixel correspondences on the host (`transform_depth_pc`).
+`transform_depth` dispatches on the mode; mesh mode lives in
+`geometry/mesh_transform.py`.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from diffusionhandles_tpu_torch.geometry.depth import (depth_to_world_coords,
 from diffusionhandles_tpu_torch.ops.morphology import (close, ellipse_kernel,
                                                        open_)
 from diffusionhandles_tpu_torch.ops.poisson import poisson_solve
+from diffusionhandles_tpu_torch.utils.correspondences import \
+    pack_correspondences
 from diffusionhandles_tpu_torch.utils.device import resolve_device
 
 
@@ -39,6 +44,20 @@ def rodrigues_rotate(points, rot_axis, rot_angle_deg: float):
     term2 = torch.linalg.cross(axis.expand_as(points), points) * s
     term3 = axis * (points * axis).sum(-1, keepdim=True) * (1 - c)
     return term1 + term2 + term3
+
+
+def transform_points(points, rot_angle=None, rot_axis=None,
+                     translation=None):
+    """Rigid transform of [N, 3] points about their centroid (reference:
+    depth_transform.py:439-459)."""
+    points = torch.as_tensor(points, dtype=torch.float32)
+    rot_axis = [0.0, 1.0, 0.0] if rot_axis is None else rot_axis
+    rot_angle = 0.0 if rot_angle is None else rot_angle
+    translation = (torch.zeros(3) if translation is None
+                   else torch.as_tensor(translation, dtype=torch.float32))
+    centroid = points.mean(0, keepdim=True)
+    out = rodrigues_rotate(points - centroid, rot_axis, rot_angle)
+    return out + centroid + translation.to(points.device)[None]
 
 
 def transform_point_cloud(points, rot_axis, rot_angle_deg, translation,
@@ -91,6 +110,91 @@ def _transform_depth_pc_device(depth, bg_depth, fg, intrinsics, rot_axis,
     return inpainted, splat.u, splat.v, splat.visible, cleaned
 
 
+def _edit_inputs(depth, bg_depth, fg_mask, rot_angle, rot_axis,
+                 translation, device):
+    """The inputs as fp32 tensors on `device` (depth and bg_depth
+    [1, 1, H, W], fg [H, W]) and the transform with its defaults."""
+    hw = (np.shape(depth)[-2], np.shape(depth)[-1])
+    depth, bg_depth, fg = (
+        torch.as_tensor(a, dtype=torch.float32, device=device)
+        for a in (depth, bg_depth, fg_mask))
+    rot_axis = (np.array([0.0, 1.0, 0.0], np.float32) if rot_axis is None
+                else np.asarray(rot_axis, np.float32))
+    translation = (np.zeros(3, np.float32) if translation is None
+                   else np.asarray(translation, np.float32))
+    rot_angle = 0.0 if rot_angle is None else float(rot_angle)
+    return (depth.reshape(1, 1, *hw), bg_depth.reshape(1, 1, *hw),
+            fg.reshape(hw), rot_angle, rot_axis, translation)
+
+
+def _check_square(hw) -> int:
+    if hw[0] != hw[1]:
+        raise RuntimeError(f"Expected fg_mask to be square, got {hw[0]} x "
+                           f"{hw[1]}.")
+    return hw[-1]
+
+
+def _empty_result(depth, use_input_depth_normalization):
+    """No foreground (reference: depth_transform.py:203-216): the edited
+    disparity is the input's, whose own bounds are the input's, so both
+    values of the flag give it; no correspondence."""
+    del use_input_depth_normalization
+    return normalize_depth(1.0 / depth), np.zeros((0, 4), np.int64)
+
+
+def transform_depth(depth, bg_depth, fg_mask, intrinsics,
+                    rot_angle: Optional[float] = None, rot_axis=None,
+                    translation=None, use_input_depth_normalization=False,
+                    depth_transform_mode: str = "pc", device=None):
+    """Transform the foreground in `depth_transform_mode` ('pc' or 'mesh')
+    on `device` (default: the GPU) (reference: depth_transform.py:73-89).
+
+    Returns (edited disparity [1, 1, H, W] fp32 tensor, correspondences
+    [N, 4] int64 numpy of (orig_x, orig_y, trans_x, trans_y))."""
+    if depth_transform_mode == "pc":
+        return transform_depth_pc(
+            depth, bg_depth, fg_mask, intrinsics, rot_angle, rot_axis,
+            translation, use_input_depth_normalization, device=device)
+    if depth_transform_mode == "mesh":
+        from diffusionhandles_tpu_torch.geometry.mesh_transform import \
+            transform_depth_mesh
+        return transform_depth_mesh(
+            depth, bg_depth, fg_mask, intrinsics, rot_angle, rot_axis,
+            translation, use_input_depth_normalization, device=device)
+    raise ValueError(f"Unknown depth transform mode '{depth_transform_mode}'.")
+
+
+def transform_depth_pc(depth, bg_depth, fg_mask, intrinsics,
+                       rot_angle: Optional[float] = None, rot_axis=None,
+                       translation=None, use_input_depth_normalization=False,
+                       device=None):
+    """Point-cloud depth transform on `device` (default: the GPU)
+    (reference: depth_transform.py:198-363).
+
+    depth, bg_depth, fg_mask: [1, 1, H, W]. Returns (edited disparity
+    [1, 1, H, W] fp32 tensor, correspondences [N, 4] int64 numpy): one row
+    per foreground pixel, in raster order, whose point is visible and lands
+    inside the cleaned target mask."""
+    device = resolve_device(device)
+    depth, bg_depth, fg, rot_angle, rot_axis, translation = _edit_inputs(
+        depth, bg_depth, fg_mask, rot_angle, rot_axis, translation, device)
+    if not bool((fg > 0.5).any()):
+        return _empty_result(depth, use_input_depth_normalization)
+    img_res = _check_square(fg.shape)
+    intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=device)
+    inpainted, u, v, visible, cleaned = _transform_depth_pc_device(
+        depth, bg_depth, fg, intr, rot_axis, rot_angle, translation,
+        img_res, use_input_depth_normalization)
+    n = img_res * img_res
+    fg_idx = torch.nonzero(fg.reshape(-1) > 0.5)[:, 0]
+    u, v, visible = u[n:][fg_idx], v[n:][fg_idx], visible[n:][fg_idx]
+    keep = visible & cleaned[v, u]
+    src = fg_idx[keep]
+    corr = pack_correspondences(*(a.cpu().numpy() for a in (
+        src % img_res, src // img_res, u[keep], v[keep])))
+    return inpainted[None, None].float(), corr
+
+
 def transform_depth_pc_processed(depth, bg_depth, fg_mask, intrinsics,
                                  rot_angle: Optional[float] = None,
                                  rot_axis=None, translation=None,
@@ -106,33 +210,19 @@ def transform_depth_pc_processed(depth, bg_depth, fg_mask, intrinsics,
         process_correspondences_device
 
     device = resolve_device(device)
-    hw = (np.shape(depth)[-2], np.shape(depth)[-1])
-    depth, bg_depth, fg = (
-        torch.as_tensor(a, dtype=torch.float32, device=device)
-        for a in (depth, bg_depth, fg_mask))
-    depth = depth.reshape(1, 1, *hw)
-    bg_depth = bg_depth.reshape(1, 1, *hw)
-    fg = fg.reshape(hw)
-    if hw[0] != hw[1]:
-        raise RuntimeError(f"Expected fg_mask to be square, got {hw[0]} x "
-                           f"{hw[1]}.")
-    img_res = hw[-1]
+    depth, bg_depth, fg, rot_angle, rot_axis, translation = _edit_inputs(
+        depth, bg_depth, fg_mask, rot_angle, rot_axis, translation, device)
+    img_res = _check_square(fg.shape)
     n = img_res * img_res
     if not bool((fg > 0.5).any()):
         # no foreground: the disparity is the input's, and no point binds
         none = torch.zeros(n, dtype=torch.long, device=device)
         pc = process_correspondences_device(
-            none, none, none.bool(), torch.zeros(hw, dtype=torch.bool,
-                                                 device=device),
+            none, none, none.bool(), torch.zeros_like(fg, dtype=torch.bool),
             fg, img_res=img_res, bg_erosion=bg_erosion, max_corr=max_corr,
             latent_res=latent_res)
         return normalize_depth(1.0 / depth), pc
 
-    rot_axis = (np.array([0.0, 1.0, 0.0], np.float32) if rot_axis is None
-                else np.asarray(rot_axis, np.float32))
-    translation = (np.zeros(3, np.float32) if translation is None
-                   else np.asarray(translation, np.float32))
-    rot_angle = 0.0 if rot_angle is None else float(rot_angle)
     intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=device)
     inpainted, u, v, visible, cleaned = _transform_depth_pc_device(
         depth, bg_depth, fg, intr, rot_axis, rot_angle, translation,

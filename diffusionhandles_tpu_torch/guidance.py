@@ -2,7 +2,9 @@
 
 The counterpart of the JAX package's `guidance.py` (reference:
 diffhandles/losses.py and guided_stable_diffuser.py:335-373, 490-665).
-Correspondences are fixed-size weighted slots on the latent grid;
+Correspondences are fixed-size weighted slots on the latent grid, binned
+either on the host from packed [N, 4] rows (`process_correspondences`) or
+on the device from the splat (`process_correspondences_device`);
 background masks are dense [L, L] grids. Activation maps here are a single
 image's [C, H, W] (this package is NCHW; the JAX package's are [H, W, C]).
 Each loss is split into a latent-independent precompute (run once per
@@ -11,6 +13,7 @@ denoising step) and the apply half that the guidance gradient differentiates.
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from diffusionhandles_tpu_torch.ops.resize import resize_hw
+from diffusionhandles_tpu_torch.utils.device import resolve_device
 
 EPS = 1e-10  # reference: losses.py:75
 
@@ -35,6 +39,69 @@ class ProcessedCorrespondences(NamedTuple):
     bg_mask_orig: torch.Tensor
     bg_mask_trans: torch.Tensor
     bg_mask_both: torch.Tensor
+
+
+def process_correspondences(correspondences, img_res: int,
+                            bg_erosion: int = 0, max_corr: int = 16384,
+                            latent_res: int = 64, device=None
+                            ) -> ProcessedCorrespondences:
+    """Bin packed [N, 4] (orig_x, orig_y, trans_x, trans_y) image-pixel
+    correspondences onto the latent grid on the host, then place the
+    fixed-size result on `device` (default: the GPU) (reference:
+    guided_stable_diffuser.py:490-584).
+
+    Rows whose transformed pixel lies outside the image are dropped;
+    duplicated (orig-cell, trans-cell) pairs merge into multiplicity
+    weights. With more than max_corr distinct pairs the highest-count ones
+    are kept, with a warning."""
+    device = resolve_device(device)
+    correspondences = np.asarray(correspondences).reshape(-1, 4)
+    ox, oy, tx, ty = (correspondences[:, 0], correspondences[:, 1],
+                      correspondences[:, 2], correspondences[:, 3])
+    visible = (tx >= 0) & (tx < img_res) & (ty >= 0) & (ty < img_res)
+    ox, oy, tx, ty = ox[visible], oy[visible], tx[visible], ty[visible]
+    scale = img_res // latent_res
+    ox, oy, tx, ty = ox // scale, oy // scale, tx // scale, ty // scale
+
+    key = ((oy * latent_res + ox) * latent_res + ty) * latent_res + tx
+    uniq, counts = np.unique(key, return_counts=True)
+    if len(uniq) > max_corr:
+        order = np.argsort(-counts)[:max_corr]
+        warnings.warn(
+            f"truncating {len(uniq)} correspondence pairs to {max_corr} "
+            f"(dropped weight "
+            f"{counts.sum() - counts[order].sum()}/{counts.sum()})")
+        uniq, counts = uniq[order], counts[order]
+    fields = (uniq // (latent_res ** 3), (uniq // (latent_res ** 2))
+              % latent_res, (uniq // latent_res) % latent_res,
+              uniq % latent_res)
+    slots = np.zeros((5, max_corr), np.int64)
+    for row, a in zip(slots, fields + (counts,)):
+        row[:len(a)] = a
+    uoy, uox, uty, utx, w = slots
+
+    bg_orig = np.ones((latent_res, latent_res), bool)
+    bg_trans = np.ones((latent_res, latent_res), bool)
+    if len(ox):
+        bg_orig[oy, ox] = False
+        bg_trans[ty, tx] = False
+    if bg_erosion > 0:
+        import scipy.ndimage
+        bg_orig = scipy.ndimage.binary_erosion(bg_orig,
+                                               iterations=bg_erosion)
+        bg_trans = scipy.ndimage.binary_erosion(bg_trans,
+                                                iterations=bg_erosion)
+
+    def on(a, dtype=torch.long):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return ProcessedCorrespondences(
+        corr_ox=on(uox), corr_oy=on(uoy), corr_tx=on(utx), corr_ty=on(uty),
+        corr_w=on(w, torch.float32),
+        bg_mask_orig=on(bg_orig, torch.float32),
+        bg_mask_trans=on(bg_trans, torch.float32),
+        bg_mask_both=on(bg_orig & bg_trans, torch.float32))
 
 
 def _erode_cross(mask: torch.Tensor) -> torch.Tensor:
@@ -158,6 +225,18 @@ def foreground_loss_apply(pre, activations, pc: ProcessedCorrespondences,
     return per_channel.mean()
 
 
+def foreground_loss(activations, activations_orig,
+                    pc: ProcessedCorrespondences, patch_size: int,
+                    activations_size):
+    """Weighted local-average L1 between the orig features at the orig
+    cells and the current features at the transformed cells (reference:
+    losses.py:4-17,51-84); activations [C, H, W]."""
+    pre = foreground_orig_precompute(activations_orig, pc, patch_size,
+                                     activations_size)
+    return foreground_loss_apply(pre, activations, pc, patch_size,
+                                 activations_size)
+
+
 def background_orig_precompute(activations_orig,
                                pc: ProcessedCorrespondences,
                                patch_size: int, activations_size,
@@ -193,6 +272,16 @@ def background_loss_apply(pre, activations, pc: ProcessedCorrespondences,
         d = (f1 - f2).abs() * m
         return (d.sum((1, 2)) / (m.sum() + EPS)).mean()
     raise ValueError(f"Unknown background loss type: {loss_type}")
+
+
+def background_loss(activations, activations_orig,
+                    pc: ProcessedCorrespondences, patch_size: int,
+                    activations_size, loss_type: str = "global_avg"):
+    """Background preservation loss (reference: losses.py:19-49)."""
+    pre = background_orig_precompute(activations_orig, pc, patch_size,
+                                     activations_size, loss_type)
+    return background_loss_apply(pre, activations, pc, patch_size,
+                                 activations_size, loss_type)
 
 
 def build_guidance_weight_schedule(fg_weight: float, bg_weight: float,

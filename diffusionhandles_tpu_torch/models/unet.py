@@ -25,12 +25,14 @@ are the same either way.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from diffusionhandles_tpu_torch.ops import groupnorm
 from diffusionhandles_tpu_torch.ops.attention import dot_product_attention
@@ -81,12 +83,18 @@ class UNetConfig:
     fused_gn_conv: bool = False
     fused_gn: bool = False
     conv3x3_kernel: bool = False
+    # False | True (each down and up block recomputed in the backward) |
+    # 'dots' (the matmul and convolution outputs saved, the rest
+    # recomputed), as the JAX UNetConfig.remat
+    remat: Union[bool, str] = False
 
     def __post_init__(self):
         if self.fused_gn_conv and self.conv3x3_kernel:
             raise ValueError("fused_gn_conv and conv3x3_kernel are two "
                              "values of the JAX package's pallas_conv; "
                              "set at most one")
+        if self.remat not in (False, True, "dots"):
+            raise ValueError(f"remat={self.remat!r}: False, True or 'dots'")
 
 
 def tiny_unet_config(**overrides) -> UNetConfig:
@@ -173,7 +181,13 @@ class GroupNorm(nn.GroupNorm):
     """GroupNorm computed in fp32 (output fp32; callers cast)."""
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+        x = x.float()
+        if x.device.type == "cpu":
+            # ATen's CPU kernel splits a channels-last input's sums across
+            # threads by batch position, so two equal images in one batch
+            # could normalize to different bits; NCHW keeps them equal
+            x = x.contiguous()
+        return F.group_norm(x, self.num_groups, self.weight.float(),
                             self.bias.float(), self.eps)
 
 
@@ -488,6 +502,33 @@ class MidBlock(nn.Module):
         return self.resnets[1](x, temb), [probs]
 
 
+# The aten ops whose outputs remat='dots' saves (jax.checkpoint_policies.
+# dots_saveable): matmuls and convolutions. The CUDA kernels launched
+# through ctypes (flash attention, the conv and GroupNorm kernels) are not
+# aten ops, so no policy can save their outputs: under either remat mode
+# the backward reruns their forward, and their launch counts grow by it.
+_DOTS = frozenset([torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+                   torch.ops.aten.convolution.default])
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_call(mode, block, *args):
+    """block(*args), recomputed in the backward (non-reentrant
+    checkpoint) when `mode` is set and a graph is being recorded."""
+    if not mode or not torch.is_grad_enabled():
+        return block(*args)
+    kwargs = {}
+    if mode == "dots":
+        kwargs["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return ckpt.checkpoint(block, *args, use_reentrant=False, **kwargs)
+
+
 class UNet2DConditionModel(nn.Module):
     """The denoising U-Net. Input NCHW; returns (eps, activations, attn)."""
 
@@ -566,7 +607,8 @@ class UNet2DConditionModel(nn.Module):
         skips = [x]
         attn_down = []
         for i, block in enumerate(self.down_blocks):
-            x, block_skips, probs = block(x, temb, context, capture_attention)
+            x, block_skips, probs = _remat_call(
+                cfg.remat, block, x, temb, context, capture_attention)
             skips.extend(block_skips)
             if cfg.down_block_types[i] == "CrossAttnDownBlock2D":
                 attn_down.append(probs)
@@ -577,7 +619,8 @@ class UNet2DConditionModel(nn.Module):
             num_layers = cfg.layers_per_block + 1
             block_skips = skips[-num_layers:]
             skips = skips[:-num_layers]
-            x, probs = block(x, block_skips, temb, context, capture_attention)
+            x, probs = _remat_call(cfg.remat, block, x, block_skips, temb,
+                                   context, capture_attention)
             if cfg.up_block_types[i] == "CrossAttnUpBlock2D":
                 activations.append(x.float())
                 attn_up.append(probs)

@@ -30,8 +30,8 @@ from diffusionhandles_tpu_torch.config import (DiffusionHandlesConfig,
                                                config_from_dict, load_config)
 from diffusionhandles_tpu_torch.diffuser import GuidedStableDiffuser, SDModels
 from diffusionhandles_tpu_torch.geometry.depth import normalize_depth
-from diffusionhandles_tpu_torch.geometry.transform import \
-    transform_depth_pc_processed
+from diffusionhandles_tpu_torch.geometry.transform import (
+    transform_depth, transform_depth_pc_processed)
 from diffusionhandles_tpu_torch.inverter import StableNullInverter
 from diffusionhandles_tpu_torch.ops.poisson import harmonize_depth
 from diffusionhandles_tpu_torch.utils.device import resolve_device
@@ -60,10 +60,6 @@ class DiffusionHandles:
             conf = load_config(conf)
         elif isinstance(conf, dict):
             conf = config_from_dict(conf)
-        if conf.depth_transform_mode != "pc":
-            raise NotImplementedError(
-                f"depth_transform_mode={conf.depth_transform_mode!r}: only "
-                f"'pc' is ported")
         self.conf = conf
         self.device = resolve_device(device)
         self.diffuser = GuidedStableDiffuser(
@@ -150,19 +146,40 @@ class DiffusionHandles:
         (reference: diffusion_handles.py:113-166).
 
         Returns (edited image [1, 3, H, W] in [0, 1], edited disparity
-        [1, 1, H, W]) as numpy."""
+        [1, 1, H, W]) as numpy and, with save_denoising_steps, the
+        per-step decodes ({"opt": [(img_opt, img_step)] * T}, numpy
+        [1, H, W, 3]) as a third item."""
         gconf = self.conf.guided_diffuser
-        edited_disparity, pc = transform_depth_pc_processed(
-            depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
-            intrinsics=self.diffuser.get_depth_intrinsics(),
-            rot_angle=rot_angle, rot_axis=rot_axis, translation=translation,
-            use_input_depth_normalization=use_input_depth_normalization,
-            bg_erosion=gconf.bg_erosion, max_corr=gconf.max_correspondences,
-            latent_res=self.diffuser.latent_res, device=self.device)
-        edited = self.diffuser.guided_inference(
+        intrinsics = self.diffuser.get_depth_intrinsics()
+        edit = dict(rot_angle=rot_angle, rot_axis=rot_axis,
+                    translation=translation,
+                    use_input_depth_normalization=(
+                        use_input_depth_normalization))
+        if self.conf.depth_transform_mode == "pc":
+            # correspondence binning on the device: no per-point host trip
+            edited_disparity, pc = transform_depth_pc_processed(
+                depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
+                intrinsics=intrinsics, bg_erosion=gconf.bg_erosion,
+                max_corr=gconf.max_correspondences,
+                latent_res=self.diffuser.latent_res, device=self.device,
+                **edit)
+            correspondences = None
+        else:
+            edited_disparity, correspondences = transform_depth(
+                depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
+                intrinsics=intrinsics,
+                depth_transform_mode=self.conf.depth_transform_mode,
+                device=self.device, **edit)
+            pc = None
+        results = self.diffuser.guided_inference(
             latents=init_noise, depth=edited_disparity,
             uncond_embeddings=null_text_emb, prompt=prompt,
-            activations_orig=activations, processed_correspondences=pc,
-            fg_weight=fg_weight, bg_weight=bg_weight,
+            activations_orig=activations, correspondences=correspondences,
+            processed_correspondences=pc, fg_weight=fg_weight,
+            bg_weight=bg_weight,
             save_denoising_steps=gconf.save_denoising_steps)
-        return edited.cpu().numpy(), edited_disparity.cpu().numpy()
+        disparity = edited_disparity.cpu().numpy()
+        if gconf.save_denoising_steps:
+            edited, steps = results
+            return edited.cpu().numpy(), disparity, steps
+        return results.cpu().numpy(), disparity

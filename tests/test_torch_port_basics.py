@@ -1,8 +1,11 @@
 """PyTorch port vs the JAX package: config, tokenizers, seeded noise and
-the DDIM scheduler. All exact in fp32."""
+the DDIM scheduler. All exact in fp32. Also the port's guards: entry
+points run on the GPU unless asked, and nothing of the port imports JAX."""
 
+import ast
 import dataclasses
 import json
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -115,9 +118,13 @@ def test_step_functions_exact_fp32():
 
 def _entry_points():
     from diffusionhandles_tpu_torch import diffuser as tdiffuser
+    from diffusionhandles_tpu_torch import guidance as tguidance
     from diffusionhandles_tpu_torch import pipeline as tpipeline
+    from diffusionhandles_tpu_torch.geometry import mesh_transform as tmt
     from diffusionhandles_tpu_torch.geometry import transform as ttrans
     depth = np.full((1, 1, 16, 16), 2.0, np.float32)
+    fg = np.zeros_like(depth)
+    fg[..., 5:10, 5:10] = 1.0
     return {
         "DiffusionHandles": lambda **kw: tpipeline.DiffusionHandles(
             variant="tiny", **kw),
@@ -129,12 +136,22 @@ def _entry_points():
             lambda **kw: ttrans.transform_depth_pc_processed(
                 depth, depth, np.zeros_like(depth), np.eye(3), max_corr=16,
                 latent_res=8, **kw),
+        "transform_depth": lambda **kw: ttrans.transform_depth(
+            depth, depth, fg, np.eye(3), rot_angle=5.0, **kw),
+        "process_correspondences":
+            lambda **kw: tguidance.process_correspondences(
+                np.array([[1, 2, 3, 4]]), img_res=16, max_corr=16,
+                latent_res=8, **kw),
+        "transform_depth_mesh": lambda **kw: tmt.transform_depth_mesh(
+            depth, depth, fg, np.eye(3), rot_angle=5.0, **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["DiffusionHandles", "GuidedStableDiffuser",
                                   "create_sd_models",
-                                  "transform_depth_pc_processed"])
+                                  "transform_depth_pc_processed",
+                                  "transform_depth", "process_correspondences",
+                                  "transform_depth_mesh"])
 def test_entry_points_without_device_raise_without_cuda(name, monkeypatch):
     """With no device and no CUDA, an entry point raises instead of running
     on the CPU; with device="cpu" it runs there."""
@@ -150,3 +167,47 @@ def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device() == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# The port imports nothing of JAX
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).parents[1]
+FORBIDDEN = ("jax", "flax", "diffusionhandles_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _port_sources():
+    files = sorted((ROOT / "diffusionhandles_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_forbidden_import_check_catches_imports():
+    src = ("import jax.numpy as jnp\nfrom flax import linen\n"
+           "from diffusionhandles_tpu.ops import conv\n"
+           "import diffusionhandles_tpu_torch.ops\n")
+    found = [m for m in _imports(ast.parse(src)) if _forbidden(m)]
+    assert found == ["jax.numpy", "flax", "diffusionhandles_tpu.ops"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    """No module of the port, and no line of chip_smoke.py, imports jax,
+    flax or the JAX package (the exact module or a submodule; the port's
+    own diffusionhandles_tpu_torch is not one)."""
+    bad = [m for m in _imports(ast.parse(path.read_text()))
+           if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
