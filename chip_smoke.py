@@ -38,9 +38,25 @@ Phases, each reported on its own line:
      1 (bitwise the single edit), then 3 transforms (two identical) in a
      chunk of 4 with remat off and 'dots': seconds per edit beside the
      single edit's, peak memory, K1/K2 launches (remat reruns the
-     guidance forward); rows against the single edit, twin rows and remat
-     against off within the distance a rounding-level nudge gives
-     (BATCH_*), and a batch-4 U-Net with twin rows, cuDNN off, bitwise;
+     guidance forward); twin rows bitwise, with cuDNN on; rows against
+     the single edit and remat against off within the distance a
+     rounding-level nudge gives (BATCH_*); and a batch-4 U-Net with twin
+     rows bitwise, cuDNN off, and with conv_per_image (the batched edit's
+     route), cuDNN on;
+  4c. testset: the test-set path at full width on seeded inputs at 512x512
+     written with the port's image_io: ZoeDepthEstimator (ZoeDepth-NK,
+     BEiT-L-384, the flip batch of 2) and LamaInpainter (big-LaMa), each
+     with its seconds and peak memory, held to the same port model on the
+     CPU on the same weights (ZoeDepth: the same domain per pass and
+     ZOE_DEPTH_RTOL of max_depth, with the domain probabilities and the
+     share of pixels at a clip bound; LaMa: LAMA_ATOL, known pixels
+     bitwise the input); preprocess.estimate_depth through the port's EXR;
+     then test_diffusion_handles over one sample with two transforms on
+     those handles, with both estimators and the identity cache, twice:
+     the second run reads the cache and writes the first run's images bit
+     for bit; K1 and K2 launch; the per-sample seconds split, the recon
+     PSNR/SSIM (seeded weights: not fidelity figures), and the identity
+     npz loaded back equal to the tensors the inversion made;
   5. unet_reference: that U-Net once with the flash kernels and once with
      dense attention on the same input, which must agree;
   6. unet_flash_bwd_modes: that U-Net forward + backward to the latents with
@@ -99,6 +115,7 @@ import dataclasses
 import gc
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -1843,14 +1860,16 @@ def phase_edit_paths(handles, edit) -> float:
 
 
 # The batched edit against the single edit. At batch 1 it runs the single
-# edit's kernels on the same shapes and must give its bits. At batch 4 its
-# sums round in another order (cuDNN picks a batch-dependent algorithm for
-# some convs, whose rows differ by position), and the random-weight edit
-# is chaotic at that level: a 2**-16 relative nudge of the initial
-# latents, far below bf16's 2**-8, moves the image as far as any rounding
-# change does (on an H100 at 700 W: correlation 0.9645, mean abs 0.0417,
-# as the batched rows; PERF.md). So a batched row, a twin row and the remat
-# run are held to the distance such a nudge gives in the same run:
+# edit's kernels on the same shapes and must give its bits. At batch 4 it
+# runs its convolutions image by image (UNetConfig.conv_per_image: at
+# batch > 1 cuDNN may sum two equal rows in different orders), so twin
+# rows must give equal bits; but its other products round in another
+# order than the single edit's, and the random-weight edit is chaotic at
+# that level: a 2**-16 relative nudge of the initial latents, far below
+# bf16's 2**-8, moves the image as far as any rounding change does (on an
+# H100 at 700 W: correlation 0.9645, mean abs 0.0417; PERF.md). So a
+# batched row against the single edit, and the remat run against remat
+# off, are held to the distance such a nudge gives in the same run:
 # correlation no lower by more than BATCH_CORR_MARGIN, mean abs difference
 # at most BATCH_MEAN_RATIO times.
 BATCH_NUDGE = 2.0 ** -16
@@ -1877,9 +1896,10 @@ def _within(m: dict, ref: dict) -> bool:
 
 def _unet_twin_rows(handles) -> dict:
     """One batch-4 U-Net forward + backward to the latents with rows 0 and
-    2 equal, cuDNN off (its conv algorithms are the part that may differ
-    by batch position): the port's own ops and kernels must give those
-    rows the same bits."""
+    2 equal: with cuDNN off (its conv algorithms are the part that may
+    differ by batch position) the port's own ops and kernels must give
+    those rows the same bits; with cuDNN on, so must the U-Net with
+    conv_per_image, the batched edit's route."""
     import torch
     unet = handles.diffuser.models.unet
     gen = torch.Generator(device="cpu").manual_seed(3)
@@ -1888,11 +1908,17 @@ def _unet_twin_rows(handles) -> dict:
                       generator=gen)
     x[2], ctx[2] = x[0], ctx[0]
     x, ctx = x.to("cuda"), ctx.to("cuda")
+    t = torch.tensor(500, device="cuda")
     with torch.backends.cudnn.flags(enabled=False):
-        eps, grad = _latents_grad(unet, x, torch.tensor(500, device="cuda"),
-                                  ctx)
+        eps, grad = _latents_grad(unet, x, t, ctx)
+    eps_pi, grad_pi = _latents_grad(
+        _swapped_unet(unet, conv_per_image=True), x, t, ctx)
     return {"eps_rows_bitwise": bool(torch.equal(eps[0], eps[2])),
-            "grad_rows_bitwise": bool(torch.equal(grad[0], grad[2]))}
+            "grad_rows_bitwise": bool(torch.equal(grad[0], grad[2])),
+            "conv_per_image_cudnn_on_eps_rows_bitwise": bool(
+                torch.equal(eps_pi[0], eps_pi[2])),
+            "conv_per_image_cudnn_on_grad_rows_bitwise": bool(
+                torch.equal(grad_pi[0], grad_pi[2]))}
 
 
 def phase_edit_batched(handles, edit, single_seconds: float) -> dict:
@@ -1934,8 +1960,8 @@ def phase_edit_batched(handles, edit, single_seconds: float) -> dict:
                                                                 single)),
               **twins}
     _line("edit_batched_references", batch1_vs_single=_agree(one[0], single),
-          nudged_vs_single=ref, nudge=BATCH_NUDGE, unet_twin_rows_cudnn_off=
-          twins, checks=checks)
+          nudged_vs_single=ref, nudge=BATCH_NUDGE, unet_twin_rows=twins,
+          cudnn_enabled=torch.backends.cudnn.enabled, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"batched references failed: {checks}")
 
@@ -1960,7 +1986,7 @@ def phase_edit_batched(handles, edit, single_seconds: float) -> dict:
             "shape": imgs.shape == (3, 3, handles.img_res, handles.img_res),
             "finite": bool(np.isfinite(imgs).all()),
             "row0_vs_single_edit": _within(row0, ref),
-            "twin_rows": _within(twin, ref),
+            "twin_rows_bitwise": twin["bitwise"],
             "k1_launches": launches["flash_fwd"] == want_fwd,
             "k2_launches": launches["flash_bwd"] == sites * guided_calls,
             "no_general_route": _no_general(launches),
@@ -1981,6 +2007,266 @@ def phase_edit_batched(handles, edit, single_seconds: float) -> dict:
     if saved is not None:
         os.environ[BATCHED_REMAT_ENV] = saved
     return runs[False]["launches"]
+
+
+# The test-set phase. ZoeDepth-NK and big-LaMa run fp32 with TF32 off, on
+# the card and on the CPU on the same weights; the two differ only in the
+# order of their fp32 sums (cuDNN, cuBLAS and cuFFT against ATen's CPU
+# kernels), ~1e-6 relative a layer. The card's depth is held to the CPU's
+# within ZOE_DEPTH_RTOL of max_depth (80 m) with the same domain chosen
+# per pass; the inpainted image within LAMA_ATOL on [0, 1]. An EXR depth
+# is half-float: it is held to the estimate within EXR_RTOL (2**-10 of
+# each value, half's precision).
+ZOE_DEPTH_RTOL = 1e-3
+LAMA_ATOL = 1e-3
+EXR_RTOL = 2.0 ** -10
+TESTSET_TRANSFORMS = {
+    "rotate": {"rotation_angle": 20.0, "rotation_axis": [0.0, 1.0, 0.0],
+               "translation": [0.0, 0.0, 0.1]},
+    "shift": {"rotation_angle": 0.0, "rotation_axis": [0.0, 1.0, 0.0],
+              "translation": [0.08, 0.0, 0.0]},
+}
+
+
+def _testset_sample(root, res: int) -> None:
+    """A seeded textured image and a square foreground mask, written with
+    the port's image_io; no depth.exr, bg.png or bg_depth.exr, so that the
+    estimators must run."""
+    import numpy as np
+
+    from diffusionhandles_tpu_torch.utils.image_io import save_image
+    d = root / "inputs" / "sample"
+    d.mkdir(parents=True)
+    yy, xx = np.meshgrid(np.linspace(0, 1, res), np.linspace(0, 1, res),
+                         indexing="ij")
+    rng = np.random.RandomState(7)
+    img = np.stack([0.5 + 0.3 * np.sin(12 * xx + 3 * k) * np.cos(9 * yy)
+                    + 0.15 * (yy - 0.5) for k in range(3)])
+    img = np.clip(img + 0.05 * rng.randn(3, res, res), 0, 1)
+    save_image(img.astype(np.float32), d / "input.png")
+    lo, hi = res // 3, 2 * res // 3
+    mask = np.zeros((3, res, res), np.float32)
+    mask[:, lo:hi, lo:hi] = 1.0
+    save_image(mask, d / "mask.png")
+    (d / "prompt.txt").write_text(EDIT_PROMPT + "\n")
+    (d / "transforms.json").write_text(json.dumps(TESTSET_TRANSFORMS))
+    (root / "set.json").write_text(json.dumps(
+        {"sample": list(TESTSET_TRANSFORMS)}))
+
+
+def _timed_peak(fn):
+    """(fn(), seconds to its end on the card, peak bytes above the bytes
+    allocated before it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, seconds = _timed(fn)
+    return out, seconds, torch.cuda.max_memory_allocated() - before
+
+
+def _zoedepth_check(img):
+    """ZoeDepthEstimator at full width on the card, against the same model
+    on the CPU. Returns the estimator."""
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.models.zoedepth import ZoeDepthEstimator
+    est, build_s = _timed(lambda: ZoeDepthEstimator(device="cuda"))
+    cfg = est.config
+    x = torch.from_numpy(img)
+    with torch.no_grad():
+        est.model(x.cuda())  # first use
+        (depth, probs), seconds, peak = _timed_peak(
+            lambda: est.model(x.cuda(), return_domain=True))
+        repeatable = bool(torch.equal(est.model(x.cuda()), depth))
+        cpu = ZoeDepthEstimator(cfg, params={
+            k: v.cpu() for k, v in est.model.nk.state_dict().items()},
+            device="cpu")
+        (depth_cpu, probs_cpu), cpu_seconds = _timed(
+            lambda: cpu.model(x, return_domain=True))
+    depth, probs = depth.cpu().numpy(), probs.cpu().numpy()
+    depth_cpu, probs_cpu = depth_cpu.numpy(), probs_cpu.numpy()
+    err = float(np.abs(depth - depth_cpu).max())
+    names = [bc.name for bc in cfg.bin_confs]
+    domain = probs.argmax(-1)
+    # the share of pixels at each clip bound (the domains' and the final)
+    bounds = sorted({b for bc in cfg.bin_confs
+                     for b in (bc.min_depth, bc.max_depth)})
+    at_bound = {str(b): float(np.isclose(depth, b, rtol=1e-6, atol=0).mean())
+                for b in bounds}
+    checks = {
+        "shape": depth.shape == img.shape[:1] + img.shape[2:],
+        "finite": bool(np.isfinite(depth).all()),
+        "same_domain_per_pass": bool(np.array_equal(
+            domain, probs_cpu.argmax(-1))),
+        "repeatable_bitwise": repeatable,
+        "depth_vs_cpu": err <= ZOE_DEPTH_RTOL * cfg.max_depth,
+    }
+    _line("testset_zoedepth", build_seconds=build_s, seconds=seconds,
+          flip_batch=2 * img.shape[0], peak_bytes=peak,
+          cpu_seconds=cpu_seconds, image_size=cfg.backbone.image_size,
+          domains=names, domain_probs=probs.tolist(),
+          domain_probs_cpu=probs_cpu.tolist(),
+          chosen=[names[i] for i in domain], max_abs_err=err,
+          tol=ZOE_DEPTH_RTOL * cfg.max_depth, share_at_bound=at_bound,
+          depth_range=[float(depth.min()), float(depth.max())],
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"ZoeDepth checks failed: {checks}")
+    return est
+
+
+def _lama_check(img, mask):
+    """LamaInpainter (big-LaMa) at full size on the card, against the same
+    model on the CPU. Returns the inpainter."""
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.models.lama import LamaInpainter
+    from diffusionhandles_tpu_torch.ops.morphology import \
+        binary_dilation_iter
+    lama, build_s = _timed(lambda: LamaInpainter(device="cuda"))
+    lama.remove_foreground(img, mask, dilation=3)  # first use
+    out, seconds, peak = _timed_peak(
+        lambda: lama.remove_foreground(img, mask, dilation=3))
+    repeatable = bool(np.array_equal(
+        lama.remove_foreground(img, mask, dilation=3), out))
+    cpu = LamaInpainter(lama.config, params={
+        k: v.cpu() for k, v in lama.model.state_dict().items()},
+        device="cpu")
+    out_cpu, cpu_seconds = _timed(
+        lambda: cpu.remove_foreground(img, mask, dilation=3))
+    hole = binary_dilation_iter(torch.from_numpy(mask[0, 0]) > 0.5,
+                                3).numpy()
+    keep = np.broadcast_to(~hole, out.shape)
+    err = float(np.abs(out - out_cpu).max())
+    checks = {
+        "shape": out.shape == img.shape,
+        "finite": bool(np.isfinite(out).all()),
+        "known_pixels_bitwise": bool(np.array_equal(out[keep], img[keep])),
+        "repeatable_bitwise": repeatable,
+        "vs_cpu": err <= LAMA_ATOL,
+    }
+    _line("testset_lama", build_seconds=build_s, seconds=seconds,
+          peak_bytes=peak, cpu_seconds=cpu_seconds,
+          n_blocks=lama.config.n_blocks, size=list(img.shape[2:]),
+          hole_share=float(hole.mean()), max_abs_err=err, tol=LAMA_ATOL,
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"LaMa checks failed: {checks}")
+    return lama
+
+
+def phase_testset(handles) -> dict:
+    """The test-set path on the default handles (see the module
+    docstring, 4c). Returns the K1/K2 launches of the driver's first
+    run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.checkpoint import load_identity, to_nchw
+    from diffusionhandles_tpu_torch.testset.driver import \
+        test_diffusion_handles as run_test_set
+    from diffusionhandles_tpu_torch.testset.preprocess import estimate_depth
+    from diffusionhandles_tpu_torch.utils.image_io import (load_depth,
+                                                           load_image,
+                                                           read_png)
+    root = pathlib.Path(__file__).resolve().parent / "build" / \
+        "testset_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    res = handles.img_res
+    _testset_sample(root, res)
+    sdir = root / "inputs" / "sample"
+    img = load_image(sdir / "input.png")[None]
+    mask = load_image(sdir / "mask.png")[:1][None]
+
+    _free_device_memory()
+    est = _zoedepth_check(img)
+    estimate_depth(str(sdir / "input.png"), str(root / "depth.exr"),
+                   estimator=est)
+    exr_depth = load_depth(root / "depth.exr")[None]
+    exr_ok = bool(np.allclose(exr_depth, est.estimate_depth(img),
+                              rtol=EXR_RTOL, atol=0))
+    lama = _lama_check(img, mask)
+
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = str(root / "tmp")  # the identity cache's home
+    (root / "tmp").mkdir()
+    inversions = []
+    real_invert = handles.invert_input_image
+    handles.invert_input_image = lambda *a, **k: (
+        inversions.append(1), real_invert(*a, **k))[1]
+    runs = []
+    try:
+        for name in ("first", "cached"):
+            reset_launch_counts()
+            _, seconds = _timed(lambda: run_test_set(
+                test_set_path=str(root / "set.json"),
+                input_dir=str(root / "inputs"),
+                output_dir=str(root / name), handles=handles, img_res=res,
+                cache_input_image_identity=True, depth_estimator=est,
+                foreground_remover=lama, generate_webpage=name == "first"))
+            metrics = json.loads((root / name / "metrics.json").read_text())
+            runs.append(dict(seconds=seconds, launches=launch_counts(),
+                             inversions=len(inversions),
+                             sample=metrics["samples"]["sample"]))
+            if name == "first":
+                rec = handles._recording
+    finally:
+        tempfile.tempdir = saved_tmp
+        del handles.invert_input_image
+    ident = load_identity(root / "tmp" / "diffhandles" / "set" / "sample"
+                          / "input_image_identity.npz")
+    as_np = lambda t: t.float().cpu().numpy()
+    ident_equal = {
+        "null_text_emb": np.array_equal(ident["null_text_emb"],
+                                        as_np(rec["null"])),
+        "init_noise": np.array_equal(to_nchw(ident["init_noise"]),
+                                     as_np(rec["noise"])),
+        "activations": all(np.array_equal(to_nchw(a), as_np(b)) for a, b in
+                           zip(ident["activations"], rec["acts"])),
+        "latent_image": np.array_equal(to_nchw(ident["latent_image"]),
+                                       as_np(rec["latents"])),
+    }
+    files = ["disparity.png", "recon.png"] + [
+        f"{t}{s}.png" for t in TESTSET_TRANSFORMS for s in ("", "_disparity")]
+    same = {f: bool(np.array_equal(read_png(root / "first" / "sample" / f),
+                                   read_png(root / "cached" / "sample" / f)))
+            for f in files}
+    first = runs[0]["launches"]
+    checks = {
+        "exr_depth_vs_estimate": exr_ok,
+        "outputs": all((root / "first" / "sample" / f).exists()
+                       for f in files),
+        "gallery": (root / "first" / "set_summary.html").exists(),
+        "first_run_inverts": runs[0]["inversions"] == 1,
+        "cached_run_reads_the_cache": runs[1]["inversions"] == 1,
+        "cached_run_bitwise": all(same.values()),
+        "k1_k2_launched": first["flash_fwd"] > 0 and first["flash_bwd"] > 0,
+        "no_general_route": _no_general(first),
+        "identity_npz_equal": all(ident_equal.values()),
+        "recon_scores_finite": all(np.isfinite(runs[0]["sample"][k])
+                                   for k in ("recon_psnr_db", "recon_ssim")),
+    }
+    for r, name in zip(runs, ("first", "cached")):
+        _line("testset_driver", run=name, seconds=r["seconds"],
+              sample_seconds=r["sample"]["seconds"],
+              recon_psnr_db=r["sample"]["recon_psnr_db"],
+              recon_ssim=r["sample"]["recon_ssim"],
+              transforms=len(TESTSET_TRANSFORMS),
+              flash_fwd=r["launches"]["flash_fwd"],
+              flash_bwd=r["launches"]["flash_bwd"])
+    _line("testset", identity_equal=ident_equal, cached_run_bitwise=same,
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"testset checks failed: {checks}")
+    del est, lama
+    _free_device_memory()
+    return first
 
 
 # 3x3 convs of the conv-kernel U-Net at 512x512 that pass the conv gate: 44
@@ -2353,6 +2639,7 @@ def main() -> int:
         single_seconds = phase_edit_paths(default, edit)
         phase_edit_batched(default, edit, single_seconds)
         del edit
+        phase_testset(default)
         phase_unet_reference(default)
         launches = phase_unet_flash_bwd_modes(default)
         default_config = default.diffuser.models.unet_config

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import pathlib
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -47,6 +48,7 @@ from diffusionhandles_tpu_torch.models.unet import (UNet2DConditionModel,
                                                     tiny_unet_config)
 from diffusionhandles_tpu_torch.models.vae import (AutoencoderKL, VAEConfig,
                                                    tiny_vae_config)
+from diffusionhandles_tpu_torch.models.weights import load_checkpoint_into
 from diffusionhandles_tpu_torch.ops.resize import resize_hw
 from diffusionhandles_tpu_torch.scheduler import (add_noise, ddim_step,
                                                   make_ddim_schedule)
@@ -100,15 +102,16 @@ def create_sd_models(model_paths: Optional[ModelPathsConfig] = None,
                      conf: Optional[GuidedDiffuserConfig] = None,
                      variant: str = "sd2", seed: int = 0,
                      device=None) -> SDModels:
-    """The SD stack on `device` (default: the GPU) with seeded random
-    weights.
+    """The SD stack on `device` (default: the GPU).
 
     variant='sd2': the real SD-2-depth architecture; 'tiny': the miniature
-    test architecture. Loading a checkpoint directory is not ported."""
+    test architecture. Weights: strictly loaded from
+    `model_paths.checkpoint_dir` (a diffusers layout: unet/, vae/,
+    text_encoder/ with .safetensors or .bin files, and the CLIP tokenizer
+    from tokenizer/) if given, else seeded random."""
     conf = conf or GuidedDiffuserConfig()
     device = resolve_device(device)
-    if model_paths is not None and model_paths.checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir loading is not ported yet")
+    ckpt_dir = model_paths.checkpoint_dir if model_paths else None
     dtype = DTYPES[conf.dtype]
     param_dtype = DTYPES[conf.param_dtype]
     in_ch = 5 if conf.use_depth else 4
@@ -126,14 +129,22 @@ def create_sd_models(model_paths: Optional[ModelPathsConfig] = None,
         vcfg = VAEConfig(dtype=dtype, param_dtype=param_dtype)
         ccfg = CLIPTextConfig()  # the text encoder stays fp32
     with torch.device(device):
+        unet = UNet2DConditionModel(ucfg)
+        vae = AutoencoderKL(vcfg)
+        clip = CLIPTextModel(ccfg)
+    if ckpt_dir is None:
         gen = torch.Generator(device=device)
-        unet = seeded_init_(UNet2DConditionModel(ucfg),
-                            gen.manual_seed(seed))
-        vae = seeded_init_(AutoencoderKL(vcfg), gen.manual_seed(seed + 1))
-        clip = seeded_init_(CLIPTextModel(ccfg), gen.manual_seed(seed + 2))
+        seeded_init_(unet, gen.manual_seed(seed))
+        seeded_init_(vae, gen.manual_seed(seed + 1))
+        seeded_init_(clip, gen.manual_seed(seed + 2))
+    else:
+        root = pathlib.Path(ckpt_dir)
+        load_checkpoint_into(unet, root / "unet", "unet")
+        load_checkpoint_into(vae, root / "vae", "vae")
+        load_checkpoint_into(clip, root / "text_encoder", "text_encoder")
     for m in (unet, vae, clip):
         m.eval().requires_grad_(False)
-    tokenizer = load_tokenizer(None, max_length=77,
+    tokenizer = load_tokenizer(ckpt_dir, max_length=77,
                                vocab_size=ccfg.vocab_size)
     return SDModels(unet, vae, clip, tokenizer, ucfg, vcfg, ccfg)
 
@@ -148,7 +159,32 @@ def _stack_uncond(uncond_embeddings, num_steps: int, device) -> torch.Tensor:
     return u
 
 
-class GuidedStableDiffuser:
+class GuidedDiffuser:
+    """Abstract diffuser interface (reference:
+    diffhandles/guided_diffuser.py)."""
+
+    def __init__(self, conf: GuidedDiffuserConfig):
+        self.conf = conf
+
+    def get_depth_intrinsics(self):
+        raise NotImplementedError
+
+    def encode_latent_image(self, image):
+        raise NotImplementedError
+
+    def decode_latent_image(self, latent_image):
+        raise NotImplementedError
+
+    def initial_inference(self, init_latents, depth, uncond_embeddings,
+                          prompt):
+        raise NotImplementedError
+
+    def guided_inference(self, latents, depth, uncond_embeddings, prompt,
+                         activations_orig, correspondences, **kwargs):
+        raise NotImplementedError
+
+
+class GuidedStableDiffuser(GuidedDiffuser):
     """The depth-conditioned SD-2 diffuser with activation-guided
     inference."""
 
@@ -156,7 +192,7 @@ class GuidedStableDiffuser:
                  models: Optional[SDModels] = None,
                  model_paths: Optional[ModelPathsConfig] = None,
                  variant: str = "sd2", device=None):
-        self.conf = conf
+        super().__init__(conf)
         self.device = resolve_device(device)
         self.models = models or create_sd_models(model_paths, conf, variant,
                                                  device=self.device)
@@ -166,6 +202,16 @@ class GuidedStableDiffuser:
                           * self.models.vae_config.downscale_factor)
         self.act_dtype = DTYPES[conf.activation_store_dtype]
         self._prompt_cache = {}
+
+    def get_image_shape(self):
+        """(C, H, W) of an image, this package's NCHW layout (the JAX
+        package gives (H, W, C))."""
+        return (3, self.image_res, self.image_res)
+
+    def get_feature_shape(self):
+        """(C, h, w) of the latents, NCHW (the JAX package: (h, w, C))."""
+        return (self.models.unet_config.out_channels, self.latent_res,
+                self.latent_res)
 
     @staticmethod
     def get_depth_intrinsics() -> np.ndarray:

@@ -101,15 +101,29 @@ class SplatResult(NamedTuple):
 
 
 def points_to_depth(points: torch.Tensor, intrinsics: torch.Tensor,
-                    output_size: Tuple[int, int], point_mask=None,
+                    output_size: Tuple[int, int], extrinsics_R=None,
+                    extrinsics_t=None, point_mask=None,
                     valid=None) -> SplatResult:
     """Project and z-buffer splat [N, 3] points
     (reference: depth_transform.py:643-747, vectorized). `point_mask` marks
-    foreground points, `valid` = False entries are ignored."""
+    foreground points, `valid` = False entries are ignored.
+
+    With extrinsics, the points are world points and are first taken into
+    the camera frame by the inverse of depth_to_world_coords' lift,
+    cam = R @ world + t (the reference applies its lift transform both
+    ways, which breaks the round trip; as the JAX package, this does not)."""
     h, w = output_size
-    points = points.float()
+    points = torch.as_tensor(points).float()
     dev = points.device
     n = points.shape[0]
+    if extrinsics_R is not None or extrinsics_t is not None:
+        rot = (torch.eye(3) if extrinsics_R is None else torch.as_tensor(
+            extrinsics_R, dtype=torch.float32)).to(dev)
+        t = (torch.zeros(3) if extrinsics_t is None else torch.as_tensor(
+            extrinsics_t, dtype=torch.float32)).to(dev)
+        points = _mat3_apply(rot, points) + t
+    intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
+                                 device=dev)
     point_mask = (torch.zeros(n, dtype=torch.bool, device=dev)
                   if point_mask is None else point_mask.bool())
     valid = (torch.ones(n, dtype=torch.bool, device=dev)

@@ -26,12 +26,22 @@ from diffusionhandles_tpu_torch.diffuser import GuidedStableDiffuser
 from diffusionhandles_tpu_torch.scheduler import ddim_next_step, ddim_step
 
 
-class StableNullInverter:
+class NullInverter:
+    """Abstract inverter (reference: diffhandles/null_inverter.py)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def invert(self, target_img, depth, prompt, **kwargs):
+        raise NotImplementedError
+
+
+class StableNullInverter(NullInverter):
 
     def __init__(self, model: GuidedStableDiffuser,
                  num_ddim_steps: Optional[int] = None,
                  guidance_scale: float = 7.5):
-        self.model = model
+        super().__init__(model)
         self.num_ddim_steps = (num_ddim_steps
                                or model.schedule.num_inference_steps)
         if self.num_ddim_steps != model.schedule.num_inference_steps:
@@ -61,8 +71,9 @@ class StableNullInverter:
 
     def null_optimization(self, latents_traj, depth64, uncond0, cond,
                           num_inner_steps: int, epsilon: float,
-                          record: bool = False):
-        """Optimize the per-step null-text embeddings.
+                          record: bool = False, verbose: bool = False):
+        """Optimize the per-step null-text embeddings (with `verbose`,
+        print each timestep's inner iterations and last loss).
 
         Returns uncond_seq [S, 1, 77, D] and, with `record`, also the three
         activation stacks [S, C, H, W] and the final latent."""
@@ -100,6 +111,9 @@ class StableNullInverter:
                 opt.step()
                 last_loss = loss.item()  # the data-dependent early stop
                 j += 1
+            if verbose:
+                print(f"null-text step {i + 1}/{S}: {j} iterations, "
+                      f"loss {last_loss:.3e}", flush=True)
             uncond = uncond.detach()
             with torch.no_grad():
                 eps_u = self._unet(latent_cur, depth64, uncond, i)[0]
@@ -114,7 +128,8 @@ class StableNullInverter:
 
     def invert(self, target_img, depth, prompt: str,
                num_inner_steps: int = 10, early_stop_epsilon: float = 1e-5,
-               record_activations: bool = False, return_recon: bool = True):
+               verbose: bool = False, record_activations: bool = False,
+               return_recon: bool = True):
         """Invert an image [1, 3, H, W] in [0, 1] to (init noise, per-step
         null embeddings).
 
@@ -129,7 +144,8 @@ class StableNullInverter:
         traj = self.ddim_loop(latent0, depth64, cond)
         out = self.null_optimization(traj, depth64, uncond, cond,
                                      num_inner_steps, early_stop_epsilon,
-                                     record=record_activations)
+                                     record=record_activations,
+                                     verbose=verbose)
         init_noise = traj[self.num_ddim_steps]
         if record_activations:
             uncond_seq, acts, final_latents = out

@@ -58,7 +58,13 @@ class UNetConfig:
     (ops/conv.py) where its gate passes; conv_in, conv_out and the
     downsamplers stay F.conv2d, as they stay XLA convs there. fused_gn_conv
     and conv3x3_kernel are two values of that one JAX field, so they
-    exclude each other."""
+    exclude each other.
+
+    conv_per_image runs every Conv2d of a batch image by image, so that an
+    image's output does not depend on its position in the batch: at batch
+    > 1 cuDNN may pick an algorithm that sums two equal images' outputs in
+    different orders (parallel/batch.py needs equal transforms to give
+    equal bits)."""
 
     sample_size: int = 64
     in_channels: int = 5
@@ -83,6 +89,7 @@ class UNetConfig:
     fused_gn_conv: bool = False
     fused_gn: bool = False
     conv3x3_kernel: bool = False
+    conv_per_image: bool = False
     # False | True (each down and up block recomputed in the backward) |
     # 'dots' (the matmul and convolution outputs saved, the rest
     # recomputed), as the JAX UNetConfig.remat
@@ -127,6 +134,9 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
+    """With `per_image` (UNetConfig.conv_per_image), a batch is convolved
+    one image at a time."""
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
                  dtype: torch.dtype = torch.float32,
@@ -134,8 +144,14 @@ class Conv2d(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, padding=padding, dtype=param_dtype)
         self.compute_dtype = dtype
+        self.per_image = False
 
     def forward(self, x):
+        if self.per_image and x.shape[0] > 1:
+            return torch.cat([self._forward_one(xi) for xi in x.split(1)])
+        return self._forward_one(x)
+
+    def _forward_one(self, x):
         dt = self.compute_dtype
         return self._conv_forward(x.to(dt), self.weight.to(dt),
                                   self.bias.to(dt))
@@ -166,7 +182,7 @@ class Conv3x3(Conv2d):
         super()._load_from_state_dict(*args, **kwargs)
         self._hold_kernel_layout()
 
-    def forward(self, x):
+    def _forward_one(self, x):
         dt = self.compute_dtype
         b, ci, h, w = x.shape
         if self.kernel and conv3x3_ok(
@@ -174,7 +190,7 @@ class Conv3x3(Conv2d):
                 dtype_bytes=torch.finfo(dt).bits // 8):
             return (conv3x3(x.to(dt), self.weight)
                     + self.bias.to(dt)[:, None, None])
-        return super().forward(x)
+        return super()._forward_one(x)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -583,6 +599,9 @@ class UNet2DConditionModel(nn.Module):
         # the output conv runs in fp32, like the JAX model's
         self.conv_out = Conv2d(prev, cfg.out_channels, 3, padding=1,
                                dtype=torch.float32, param_dtype=pdt)
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                m.per_image = cfg.conv_per_image
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 capture_attention: bool = False):

@@ -7,11 +7,20 @@ It inverts the key and layout maps of the JAX package's
 `models/weights.py:67-160`: flax module paths become diffusers / transformers
 names, dense kernels [I, O] become Linear weights [O, I], conv kernels HWIO
 become OIHW, and norm `scale`s become `weight`s.
+
+It also reads a released diffusers checkpoint directory into the port's
+modules (`load_checkpoint_into`): the names are already the port's, so
+that is a strict `load_state_dict`. `.safetensors` files are read by a
+small reader of this module's own (the safetensors package need not be
+installed).
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
 import re
+import struct
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -103,3 +112,97 @@ def clip_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
         key, tensor = _leaf("text_model." + k, path[-1], value)
         out[key] = tensor
     return out
+
+
+def validate_state_dict(state: Mapping[str, torch.Tensor],
+                        expected: Mapping[str, torch.Tensor],
+                        what: str) -> None:
+    """Raise ValueError unless `state` has exactly `expected`'s keys, each
+    with its shape."""
+    missing = sorted(set(expected) - set(state))
+    orphans = sorted(set(state) - set(expected))
+    if missing or orphans:
+        raise ValueError(
+            f"{what} checkpoint mismatch: {len(missing)} model params "
+            f"unassigned (e.g. {missing[:4]}), {len(orphans)} checkpoint "
+            f"keys unconsumed (e.g. {orphans[:4]}).")
+    bad = [(k, tuple(state[k].shape), tuple(expected[k].shape))
+           for k in expected if state[k].shape != expected[k].shape]
+    if bad:
+        raise ValueError(f"{what} checkpoint shape mismatches: {bad[:4]}")
+
+
+# ---------------------------------------------------------------------------
+# Released checkpoints: a diffusers directory (unet/, vae/, text_encoder/,
+# tokenizer/), read without the safetensors package
+# ---------------------------------------------------------------------------
+
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16, "I64": torch.int64,
+                       "I32": torch.int32, "U8": torch.uint8}
+# buffers a released text encoder may hold that are not module state here
+_SKIPPED_KEYS = ("text_model.embeddings.position_ids",)
+
+
+def load_safetensors(path) -> Dict[str, torch.Tensor]:
+    """Read a .safetensors file: an 8-byte little-endian header length, a
+    JSON header {name: {dtype, shape, data_offsets}}, then the raw
+    buffers. F32, F16, BF16, I64, I32 and U8 tensors (a text encoder's
+    position_ids are I64); anything else raises."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name} has dtype "
+                             f"{info['dtype']}, which is not read")
+        begin, end = info["data_offsets"]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        count = (end - begin) // itemsize
+        if count * itemsize != end - begin or end > len(data):
+            raise ValueError(f"{path}: tensor {name} has bad offsets "
+                             f"{info['data_offsets']}")
+        if not count:
+            flat = torch.empty(0, dtype=dtype)
+        elif begin % itemsize:  # a misaligned buffer is copied out
+            flat = torch.frombuffer(bytearray(data[begin:end]), dtype=dtype)
+        else:
+            flat = torch.frombuffer(data, dtype=dtype, count=count,
+                                    offset=begin)
+        out[name] = flat.reshape(info["shape"])
+    return out
+
+
+def load_state_dict_dir(model_dir) -> Dict[str, torch.Tensor]:
+    """The state dict of one diffusers submodel directory: its
+    *.safetensors files if it has any, else its *.bin files (torch.load,
+    weights only), as the JAX package's models/weights.py reads them."""
+    model_dir = pathlib.Path(model_dir)
+    state: Dict[str, torch.Tensor] = {}
+    files = sorted(model_dir.glob("*.safetensors"))
+    for f in files:
+        state.update(load_safetensors(f))
+    if not files:
+        files = sorted(model_dir.glob("*.bin"))
+        for f in files:
+            state.update(torch.load(str(f), map_location="cpu",
+                                    weights_only=True))
+    if not files:
+        raise FileNotFoundError(f"No weight files in {model_dir}")
+    return {k: v for k, v in state.items() if k not in _SKIPPED_KEYS}
+
+
+def load_checkpoint_into(module: torch.nn.Module, model_dir, what: str
+                         ) -> None:
+    """Strictly load a diffusers submodel directory into `module`: a
+    missing or unexpected key, or a wrong shape, raises, naming `what`."""
+    try:
+        module.load_state_dict(load_state_dict_dir(model_dir), strict=True)
+    except RuntimeError as exc:
+        raise ValueError(f"{what} checkpoint at {model_dir} does not match "
+                         f"the model: {exc}") from exc

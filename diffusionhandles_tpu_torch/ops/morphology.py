@@ -84,3 +84,12 @@ def binary_dilation_iter(mask, iterations: int) -> torch.Tensor:
     if iterations <= 0:
         return mask > 0.5
     return dilate(mask, cross_kernel(), iterations=iterations)
+
+
+def binary_erosion_iter(mask, iterations: int) -> torch.Tensor:
+    """scipy.ndimage.binary_erosion(mask, iterations=n), cross structure,
+    border_value=0 (reference: guided_stable_diffuser.py:538-539)."""
+    if iterations <= 0:
+        return mask > 0.5
+    return erode(mask, cross_kernel(), iterations=iterations,
+                 border_value=0.0)

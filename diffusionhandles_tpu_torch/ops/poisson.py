@@ -65,6 +65,15 @@ def poisson_solve(image, mask, maxiter: int = 2000) -> torch.Tensor:
     return masked_poisson_cg(image, mask, None, maxiter=maxiter)
 
 
+def solve_laplacian_depth(fg_depth, bg_depth, mask,
+                          maxiter: int = 2000) -> torch.Tensor:
+    """Infill the `mask` hole of `fg_depth` so its Laplacian matches the
+    background depth's (reference: diffhandles/utils.py:49-102, whose
+    b -= lap_bg makes the right-hand side g = -lap(bg))."""
+    g = -laplacian_zero_pad(bg_depth.float())
+    return masked_poisson_cg(fg_depth, mask, g, maxiter=maxiter)
+
+
 def harmonize_depth(fg_depth, bg_depth, fg_mask, dilate_iters: int = 15,
                     maxiter: int = 2000) -> torch.Tensor:
     """set_foreground's solve: dilate the fg mask `dilate_iters` times
@@ -73,6 +82,6 @@ def harmonize_depth(fg_depth, bg_depth, fg_mask, dilate_iters: int = 15,
     """
     from diffusionhandles_tpu_torch.ops.morphology import \
         binary_dilation_iter
-    dilated = binary_dilation_iter(fg_mask, dilate_iters)
-    g = -laplacian_zero_pad(bg_depth.float())
-    return masked_poisson_cg(fg_depth, dilated, g, maxiter=maxiter)
+    return solve_laplacian_depth(
+        fg_depth, bg_depth, binary_dilation_iter(fg_mask, dilate_iters),
+        maxiter=maxiter)

@@ -1,5 +1,6 @@
-"""Image resizing with exact `F.interpolate(align_corners=False,
-antialias=False)` semantics, as separable resampling matrices.
+"""Image resizing with exact `F.interpolate(antialias=False)` semantics
+(align_corners=False, and True for the method 'bilinear_ac'), as separable
+resampling matrices.
 
 The counterpart of the JAX package's `ops/resize.py`: the same dense
 [out, in] matrices (built on the host in float64, stored float32) applied
@@ -28,15 +29,21 @@ def _cubic_weight(x: np.ndarray, a: float = -0.75) -> np.ndarray:
 @functools.lru_cache(maxsize=256)
 def resize_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
     """Dense [out_size, in_size] resampling matrix, torch semantics
-    (half-pixel centers; out-of-range taps clamp to the border)."""
+    (half-pixel centers, or corner-aligned for 'bilinear_ac'; out-of-range
+    taps clamp to the border)."""
     if in_size == out_size:
         return np.eye(in_size, dtype=np.float32)
     scale = in_size / out_size
     dst = np.arange(out_size, dtype=np.float64)
-    src = (dst + 0.5) * scale - 0.5
+    if method == "bilinear_ac":
+        # align_corners=True: src = i * (in - 1) / (out - 1) (the
+        # MiDaS/ZoeDepth convention)
+        src = dst * ((in_size - 1) / max(out_size - 1, 1))
+    else:
+        src = (dst + 0.5) * scale - 0.5
     i0 = np.floor(src).astype(np.int64)
     t = src - i0
-    if method == "bilinear":
+    if method in ("bilinear", "bilinear_ac"):
         offsets = np.array([0, 1])
         weights = np.stack([1.0 - t, t], axis=-1)
     elif method == "bicubic":
@@ -80,3 +87,15 @@ def resize_hw(x: torch.Tensor, size, method: str = "bilinear",
         xf = torch.movedim(torch.tensordot(xf, mw, dims=([w_axis], [1])), -1,
                            w_axis)
     return xf.to(x.dtype)
+
+
+def resize_nhwc(x: torch.Tensor, size, method: str = "bilinear"
+                ) -> torch.Tensor:
+    """Resize [N, H, W, C] images."""
+    return resize_hw(x, size, method=method, h_axis=1, w_axis=2)
+
+
+def resize_nchw(x: torch.Tensor, size, method: str = "bilinear"
+                ) -> torch.Tensor:
+    """Resize [N, C, H, W] images."""
+    return resize_hw(x, size, method=method, h_axis=2, w_axis=3)

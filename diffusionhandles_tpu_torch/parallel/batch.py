@@ -9,6 +9,12 @@ losses, so its gradient to the batched latents is the stack of the
 per-sample gradients), and each denoising step ONE batch-2B
 classifier-free-guidance pass. The JAX package's sharding over a 'data'
 mesh axis is not ported: this runs on one device.
+
+Equal transforms in one batch give equal bits, as in the JAX package: at
+batch > 1 the U-Net runs its convolutions image by image
+(UNetConfig.conv_per_image), and the images are decoded one at a time, so
+no cuDNN algorithm sums a row in an order that depends on its batch
+position.
 """
 
 from __future__ import annotations
@@ -41,11 +47,11 @@ def _row(pcs: ProcessedCorrespondences, b: int) -> ProcessedCorrespondences:
     return ProcessedCorrespondences(*(f[b] for f in pcs))
 
 
-def _remat_unet(unet: UNet2DConditionModel, remat) -> UNet2DConditionModel:
-    """A U-Net on `unet`'s config with `remat` set, holding the same weight
-    tensors."""
-    cfg = dataclasses.replace(unet.config,
-                              remat="dots" if remat == "dots" else True)
+def _unet_copy(unet: UNet2DConditionModel, **switches
+               ) -> UNet2DConditionModel:
+    """A U-Net on `unet`'s config with `switches` (UNetConfig fields) set,
+    holding the same weight tensors."""
+    cfg = dataclasses.replace(unet.config, **switches)
     with torch.device("meta"):
         other = UNet2DConditionModel(cfg)
     other.load_state_dict(unet.state_dict(), strict=True, assign=True)
@@ -56,7 +62,7 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
                                    num_optsteps: int,
                                    guidance_max_step: int,
                                    bg_loss_type: str, fg_patch: int,
-                                   bg_patch: int, remat=None):
+                                   bg_patch: int, mesh=None, remat=None):
     """A batched guided-denoising runner:
 
         run(init_latents [B, 4, h, w], depth64 [B, 1, h, w],
@@ -64,21 +70,37 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
             acts_orig (3 x [T, C, H, W]), fgw, bgw, pcs (stacked))
         -> final latents [B, 4, h, w]
 
+    At B > 1 both passes run copies of the diffuser's U-Net on the same
+    weights with conv_per_image set; at B = 1 they run it as the single
+    edit does.
+    mesh: the JAX package's 'data' axis; sharding is not ported, so it
+    must be None.
     remat: the recompute of the GRAD-path U-Net in this runner only
-    ('dots', or any other non-empty value for whole blocks), through a
-    copy of the U-Net on the same weights; the CFG pass keeps the
-    diffuser's U-Net. None reads DIFFHANDLES_BATCHED_REMAT (unset: off)."""
+    ('dots', or any other non-empty value for whole blocks); the CFG pass
+    does not recompute. None reads DIFFHANDLES_BATCHED_REMAT (unset:
+    off)."""
+    if mesh is not None:
+        raise NotImplementedError("sharding edit_batch over a mesh is not "
+                                  "ported; pass mesh=None")
     if remat is None:
         remat = os.environ.get("DIFFHANDLES_BATCHED_REMAT") or None
+    remat = ("dots" if remat == "dots" else True) if remat else False
     unet = diffuser.models.unet
-    grad_unet = _remat_unet(unet, remat) if remat else unet
+
+    def unets(b: int):
+        """(grad-path U-Net, CFG U-Net) for batch b."""
+        if b > 1:
+            return (_unet_copy(unet, remat=remat, conv_per_image=True),
+                    _unet_copy(unet, conv_per_image=True))
+        return (_unet_copy(unet, remat=remat) if remat else unet), unet
+
     schedule = diffuser.schedule
     gs = diffuser.conf.guidance_scale
     glr = diffuser.conf.guidance_lr
     act_size = (diffuser.latent_res, diffuser.latent_res)
 
-    def batch_energy(latents, depth64, cond, step_idx, fg_pre, bg_pre,
-                     fgw_it, bgw_it, pcs):
+    def batch_energy(grad_unet, latents, depth64, cond, step_idx, fg_pre,
+                     bg_pre, fgw_it, bgw_it, pcs):
         """Sum of the per-sample energies over one batch-B U-Net call."""
         b = latents.shape[0]
         ctx = cond[0].expand(b, -1, -1)
@@ -109,7 +131,7 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
         return fg, bg
 
     @torch.no_grad()
-    def cfg_batch(latents, depth64, uncond_t, cond, step_idx):
+    def cfg_batch(cfg_unet, latents, depth64, uncond_t, cond, step_idx):
         """One batch-2B CFG DDIM step: context [uncond x B, cond x B]."""
         b = latents.shape[0]
         lat2 = torch.cat([latents, latents], 0)
@@ -117,8 +139,8 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
             else None
         ctx = torch.cat([uncond_t.expand(b, -1, -1),
                          cond[0].expand(b, -1, -1)], 0)
-        eps, _, _ = unet(diffuser.unet_in(lat2, d2),
-                         diffuser.timestep(step_idx), ctx)
+        eps, _, _ = cfg_unet(diffuser.unet_in(lat2, d2),
+                             diffuser.timestep(step_idx), ctx)
         noise_pred = eps[:b] + gs * (eps[b:] - eps[:b])
         return ddim_step(schedule, noise_pred, step_idx, latents)
 
@@ -126,6 +148,7 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
             pcs):
         latents = init_latents
         b = latents.shape[0]
+        grad_unet, cfg_unet = unets(b)
         for i in range(schedule.num_inference_steps):
             if i < guidance_max_step:
                 fg_pre, bg_pre = orig_precompute([a[i] for a in acts_orig],
@@ -133,12 +156,13 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
                 for it in range(num_optsteps):
                     lat = latents.detach().requires_grad_(True)
                     with torch.enable_grad():
-                        energy = batch_energy(lat, depth64, cond, i, fg_pre,
-                                              bg_pre, fgw[i, it], bgw[i, it],
-                                              pcs)
+                        energy = batch_energy(grad_unet, lat, depth64, cond,
+                                              i, fg_pre, bg_pre, fgw[i, it],
+                                              bgw[i, it], pcs)
                         (grad,) = torch.autograd.grad(energy, lat)
                     latents = latents - glr * grad
-            latents = cfg_batch(latents, depth64, uncond_seq[i], cond, i)
+            latents = cfg_batch(cfg_unet, latents, depth64, uncond_seq[i],
+                                cond, i)
         return latents
 
     return run
@@ -154,13 +178,15 @@ def _transform_kwargs(tr: dict) -> dict:
 
 def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
                null_text_emb, init_noise, activations,
-               transforms: List[dict], chunk: int = 0,
+               transforms: List[dict], mesh=None, chunk: int = 0,
                return_disparities: bool = False):
     """Run N transforms of one inverted image as ONE batched guided
     denoising on the handles' device.
 
     transforms: dicts with 'rotation_angle', 'rotation_axis',
       'translation' (the photogen transforms.json schema).
+    mesh: must be None (sharding over the JAX package's 'data' axis is
+      not ported).
     chunk: when nonzero, the transforms go in fixed batches of this size,
       the last padded by repeating its final transform (the padded rows are
       discarded).
@@ -173,6 +199,9 @@ def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
     from diffusionhandles_tpu_torch.geometry.transform import (
         transform_depth, transform_depth_pc_processed)
 
+    if mesh is not None:
+        raise NotImplementedError("sharding edit_batch over a mesh is not "
+                                  "ported; pass mesh=None")
     if chunk and len(transforms) != chunk:
         imgs_all, disps_all = [], []
         for i in range(0, len(transforms), chunk):
@@ -227,7 +256,9 @@ def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
     latents = run(init_lat, torch.stack(depth64s) if conf.use_depth
                   else None, uncond_seq, cond, acts_orig, fgw, bgw,
                   stack_pcs(pcs))
-    images = d.decode_latent_image(latents).cpu().numpy()
+    # one image at a time, as the single edit decodes
+    images = torch.cat([d.decode_latent_image(lat[None])
+                        for lat in latents]).cpu().numpy()
     if return_disparities:
         disps = np.stack([dd.reshape(1, *dd.shape[-2:]).cpu().numpy()
                           for dd in disparities])

@@ -74,6 +74,21 @@ class DiffusionHandles:
         self.img_res = self.diffuser.image_res
         self._recording = None
 
+    def to(self, device=None):
+        """Move the SD models to `device` (reference:
+        diffusion_handles.py:27-34); None keeps the current one. The
+        handles then run there. Returns self."""
+        if device is None:
+            return self
+        device = torch.device(device)
+        d = self.diffuser
+        for m in (d.models.unet, d.models.vae, d.models.text_encoder):
+            m.to(device)
+        d.device = self.device = device
+        d._prompt_cache.clear()
+        self._recording = None
+        return self
+
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 

@@ -96,3 +96,10 @@ def add_noise(schedule: DDIMSchedule, sample, noise, timestep: int):
     alpha = np.float32(schedule.alphas_cumprod[timestep])
     return (float(np.sqrt(alpha)) * sample.float()
             + float(np.sqrt(np.float32(1.0) - alpha)) * noise.float())
+
+
+def scale_model_input(sample, timestep=None):
+    """DDIM does not rescale model inputs: the identity, as in diffusers'
+    DDIMScheduler."""
+    del timestep
+    return sample

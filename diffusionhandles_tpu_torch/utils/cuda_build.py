@@ -6,8 +6,9 @@ source, from the sources under `diffusionhandles_tpu_torch/csrc/` into
 loaded with `ctypes`: the sources expose a plain C interface, so no PyTorch
 header is compiled. The file name carries a hash of the sources and flags,
 so an edited source is rebuilt and a stale library is never loaded. A
-failed build raises. The launch and routing helpers at the end are shared
-by the kernel wrappers of `ops/`.
+failed build raises. `load_host_library` builds a C++ source for the
+host the same way, with g++, into `build/host/`. The launch and routing
+helpers at the end are shared by the kernel wrappers of `ops/`.
 """
 
 from __future__ import annotations
@@ -97,6 +98,45 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         if lib is None:
             if not path.exists():
                 _build(name, sources, path)
+            lib = ctypes.CDLL(str(path))
+            _LOADED[str(path)] = lib
+        return lib
+
+
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+HOST_COMPILE_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+
+
+def load_host_library(name: str, source: str,
+                      link_flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """Return the loaded library built with g++ (or $CXX) from the C++
+    `source` under csrc/, building it into build/host/ at first use (the
+    file name carries a hash of the source and flags)."""
+    cxx = os.environ.get("CXX", "g++")
+    digest = hashlib.sha256(" ".join(
+        (cxx, *HOST_COMPILE_FLAGS, *link_flags)).encode())
+    digest.update((CSRC / source).read_bytes())
+    path = HOST_BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    with _LOCK:
+        lock = _LIB_LOCKS.setdefault(str(path), threading.Lock())
+    with lock:
+        lib = _LOADED.get(str(path))
+        if lib is None:
+            if not path.exists():
+                HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=HOST_BUILD_DIR)
+                os.close(fd)
+                try:
+                    proc = subprocess.run(
+                        [cxx, *HOST_COMPILE_FLAGS, str(CSRC / source), "-o",
+                         tmp, *link_flags], capture_output=True, text=True)
+                    if proc.returncode:
+                        raise RuntimeError(f"{cxx} failed building {name}:\n"
+                                           + proc.stdout + proc.stderr)
+                    os.replace(tmp, path)  # atomic: concurrent builds agree
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
             lib = ctypes.CDLL(str(path))
             _LOADED[str(path)] = lib
         return lib

@@ -3,6 +3,8 @@ another device."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,17 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Restrict cuDNN to its deterministic algorithms inside the block (a
+    transposed convolution's default backward-data algorithm sums with
+    atomics, so two calls on the same input may differ in the last bits);
+    the other cuDNN settings stay as they are."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev

@@ -175,18 +175,42 @@ def test_default_device_is_cuda(monkeypatch):
 
 ROOT = pathlib.Path(__file__).parents[1]
 FORBIDDEN = ("jax", "flax", "diffusionhandles_tpu")
+# packages the GPU machine does not have: a function may import one (and
+# is then not called there), a module may not
+NOT_AT_MODULE_LEVEL = ("cv2", "imageio", "PIL", "yaml", "safetensors")
+
+
+def _matches(module: str, packages) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in packages)
 
 
 def _forbidden(module: str) -> bool:
-    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+    return _matches(module, FORBIDDEN)
+
+
+def _import_names(node):
+    if isinstance(node, ast.Import):
+        yield from (a.name for a in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+        yield node.module
 
 
 def _imports(tree: ast.AST):
     for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+        yield from _import_names(node)
+
+
+def _module_level_imports(tree: ast.AST):
+    """Imports run when the module is imported: anywhere but inside a
+    function body."""
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        yield from _import_names(node)
+        stack.extend(ast.iter_child_nodes(node))
 
 
 def _port_sources():
@@ -202,12 +226,108 @@ def test_forbidden_import_check_catches_imports():
     assert found == ["jax.numpy", "flax", "diffusionhandles_tpu.ops"]
 
 
+def test_module_level_import_check_catches_imports():
+    src = ("import cv2\nimport numpy\ntry:\n    import yaml\n"
+           "except ImportError:\n    pass\n"
+           "class A:\n    from PIL import Image\n"
+           "def f():\n    import imageio.v3\n    import safetensors\n")
+    found = [m for m in _module_level_imports(ast.parse(src))
+             if _matches(m, NOT_AT_MODULE_LEVEL)]
+    assert sorted(found) == ["PIL", "cv2", "yaml"]
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     """No module of the port, and no line of chip_smoke.py, imports jax,
     flax or the JAX package (the exact module or a submodule; the port's
-    own diffusionhandles_tpu_torch is not one)."""
-    bad = [m for m in _imports(ast.parse(path.read_text()))
-           if _forbidden(m)]
+    own diffusionhandles_tpu_torch is not one), and none imports cv2,
+    imageio, PIL, yaml or safetensors when it is imported (the GPU
+    machine has none of them)."""
+    tree = ast.parse(path.read_text())
+    bad = [m for m in _imports(tree) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    bad = [m for m in _module_level_imports(tree)
+           if _matches(m, NOT_AT_MODULE_LEVEL)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at load"
+
+
+# ---------------------------------------------------------------------------
+# The port's public API keeps the JAX package's parameters
+# ---------------------------------------------------------------------------
+
+def _public_functions(tree: ast.Module) -> dict:
+    """name -> parameter names of the module's public functions and of
+    the public methods (and __init__) of its public classes."""
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith(
+                "_"):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith(
+                "_"):
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef) and (
+                        sub.name == "__init__"
+                        or not sub.name.startswith("_")):
+                    out[f"{node.name}.{sub.name}"] = sub
+    return {name: [a.arg for a in fn.args.posonlyargs + fn.args.args
+                   + fn.args.kwonlyargs] for name, fn in out.items()}
+
+
+def _shared_functions():
+    jax_root = ROOT / "diffusionhandles_tpu"
+    for jpath in sorted(jax_root.rglob("*.py")):
+        rel = jpath.relative_to(jax_root)
+        tpath = ROOT / "diffusionhandles_tpu_torch" / rel
+        if not tpath.exists():
+            continue
+        jfns = _public_functions(ast.parse(jpath.read_text()))
+        tfns = _public_functions(ast.parse(tpath.read_text()))
+        for name in sorted(set(jfns) & set(tfns)):
+            yield f"{rel}:{name}", jfns[name], tfns[name]
+
+
+def test_shared_functions_keep_jax_parameters():
+    """For every public function or method that a module of both packages
+    defines, the JAX parameter names are a prefix of the port's (the
+    port's own additions, such as `device`, come last), so a call written
+    for the JAX package binds the same arguments."""
+    shared = list(_shared_functions())
+    assert len(shared) > 100  # the comparison finds the shared surface
+    bad = [(name, j, t) for name, j, t in shared if t[:len(j)] != j]
+    assert not bad, bad
+
+
+def test_api_members_added_for_the_jax_surface():
+    """scheduler.scale_model_input is the identity; the abstract bases
+    raise; the diffuser's shapes are NCHW; DiffusionHandles.to moves the
+    models; edit_batch and its runner take `mesh` before `chunk` and refuse
+    one (sharding is not ported)."""
+    from diffusionhandles_tpu_torch.diffuser import (GuidedDiffuser,
+                                                     GuidedStableDiffuser)
+    from diffusionhandles_tpu_torch.inverter import (NullInverter,
+                                                     StableNullInverter)
+    from diffusionhandles_tpu_torch.parallel import batch as tbatch
+    from diffusionhandles_tpu_torch.pipeline import DiffusionHandles
+    x = torch.randn(1, 4, 8, 8)
+    assert tsched.scale_model_input(x, 10) is x
+    with pytest.raises(NotImplementedError):
+        GuidedDiffuser(tconfig.GuidedDiffuserConfig()).encode_latent_image(x)
+    with pytest.raises(NotImplementedError):
+        NullInverter(None).invert(x, x, "")
+    assert issubclass(GuidedStableDiffuser, GuidedDiffuser)
+    assert issubclass(StableNullInverter, NullInverter)
+    h = DiffusionHandles(variant="tiny", device="cpu")
+    d = h.diffuser
+    assert d.get_image_shape() == (3, h.img_res, h.img_res)
+    assert d.get_feature_shape() == (4, d.latent_res, d.latent_res)
+    d.encode_prompt("a cat")
+    assert h.to("meta") is h and h.device == torch.device("meta")
+    assert d.models.unet.conv_in.weight.device.type == "meta"
+    assert not d._prompt_cache
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tbatch.edit_batch(h, None, "", None, None, None, None, None, [{}],
+                          object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tbatch.build_batched_guided_inference(d, 1, 1, "l2", 1, 1, object())

@@ -184,16 +184,16 @@ def test_remat_guidance_reaches_the_unet_and_batched_runner(rig,
     assert models.unet_config.remat == "dots"
     _, th, s, rec = rig
     built = []
-    real = tbatch._remat_unet
+    real = tbatch._unet_copy
 
-    def spy(unet, remat):
-        copy = real(unet, remat)
+    def spy(unet, **switches):
+        copy = real(unet, **switches)
         built.append(copy.config.remat)
         assert (copy.conv_in.weight.data_ptr()
                 == unet.conv_in.weight.data_ptr())  # the same storage
         return copy
 
-    monkeypatch.setattr(tbatch, "_remat_unet", spy)
+    monkeypatch.setattr(tbatch, "_unet_copy", spy)
     monkeypatch.delenv("DIFFHANDLES_BATCHED_REMAT", raising=False)
     plain = tbatch.edit_batch(th, *_inputs(s, rec), TRANSFORMS[1:2])
     for value, mode in (("dots", "dots"), ("1", True)):

@@ -230,3 +230,76 @@ def test_weight_schedule_matches_jax(schedule, optsteps):
     for got, want in zip(tguid.build_guidance_weight_schedule(*args),
                          jguid.build_guidance_weight_schedule(*args)):
         np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("method", ["bilinear", "bilinear_ac", "bicubic"])
+def test_resize_nhwc_nchw_match_jax_and_interpolate(method):
+    """resize_nhwc / resize_nchw, including the align-corners bilinear the
+    ZoeDepth neck upsamples with, against the JAX functions and
+    F.interpolate (align_corners=True for 'bilinear_ac')."""
+    x = np.random.RandomState(2).randn(2, 12, 20, 3).astype(np.float32)
+    for size in ((24, 40), (7, 9)):
+        got = tresize.resize_nhwc(_t(x), size, method)
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jresize.resize_nhwc(jnp.asarray(x),
+                                                        size, method)),
+            rtol=1e-5, atol=1e-5)
+        nchw = np.moveaxis(x, -1, 1)
+        got_nchw = tresize.resize_nchw(_t(nchw), size, method)
+        np.testing.assert_array_equal(got_nchw.numpy(),
+                                      np.moveaxis(got.numpy(), -1, 1))
+        ref = torch.nn.functional.interpolate(
+            _t(nchw), size=size, mode=method.replace("_ac", ""),
+            align_corners=method == "bilinear_ac")
+        np.testing.assert_allclose(got_nchw.numpy(), ref.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_erosion_and_laplacian_solve_match_jax():
+    """binary_erosion_iter (scipy semantics, border 0) bitwise, and
+    solve_laplacian_depth within harmonize_depth's 1e-5 of the scale."""
+    mask = np.random.RandomState(3).rand(40, 40) > 0.3
+    for n in (0, 1, 3):
+        np.testing.assert_array_equal(
+            tmorph.binary_erosion_iter(_t(mask), n).numpy(),
+            np.asarray(jmorph.binary_erosion_iter(jnp.asarray(mask), n)))
+    res = 48
+    yy, xx = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    bg = (2.0 + 0.01 * yy + 0.005 * xx).astype(np.float32)
+    hole = (yy > 15) & (yy < 30) & (xx > 12) & (xx < 35)
+    depth = bg.copy()
+    depth[hole] -= 0.4
+    got = tpois.solve_laplacian_depth(_t(depth), _t(bg), _t(hole))
+    want = jpois.solve_laplacian_depth(depth, bg, hole)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_lift_project_roundtrip_with_extrinsics():
+    """points_to_depth applies the inverse of depth_to_world_coords'
+    extrinsics (cam = R @ world + t), so a camera re-projects its own
+    lifted points onto its grid (the JAX package's test of the same name);
+    the splat equals the JAX package's."""
+    from scipy.spatial.transform import Rotation
+
+    res = 32
+    rng = np.random.RandomState(1)
+    depth = (2.0 + rng.rand(res, res)).astype(np.float32)
+    R = Rotation.from_rotvec([0.0, np.deg2rad(10.0), 0.0]).as_matrix()
+    t = np.array([0.05, -0.02, 0.3], np.float32)
+    pts = tdepth.depth_to_world_coords(_t(depth[None, None]), INTR,
+                                       extrinsics_R=R, extrinsics_t=t)
+    splat = tdepth.points_to_depth(pts.reshape(-1, 3), INTR, (res, res),
+                                   extrinsics_R=R, extrinsics_t=t)
+    got = splat.depth_map.numpy()
+    finite = np.isfinite(got)
+    assert finite.mean() > 0.95
+    np.testing.assert_allclose(got[finite], depth[finite], atol=2e-3)
+    want = jdepth.points_to_depth(pts.reshape(-1, 3).numpy(), INTR,
+                                  (res, res), extrinsics_R=R,
+                                  extrinsics_t=t)
+    np.testing.assert_array_equal(np.isfinite(np.asarray(want.depth_map)),
+                                  finite)
+    np.testing.assert_allclose(got[finite],
+                               np.asarray(want.depth_map)[finite],
+                               rtol=1e-5, atol=0)
