@@ -57,6 +57,18 @@ Phases, each reported on its own line:
      for bit; K1 and K2 launch; the per-sample seconds split, the recon
      PSNR/SSIM (seeded weights: not fidelity figures), and the identity
      npz loaded back equal to the tensors the inversion made;
+  4d. foreground (after 6, with the edit's models freed): the text-prompted
+     foreground path and text2img on seeded weights at release widths, fp32
+     with TF32 off but text2img, on the test-set sample: CLIPSegmenter at
+     clip_vit_b16() widths (the similarity map and mask), SAM ViT-H at 1024
+     (embed and a box-prompted decode, each timed with its peak memory;
+     the predictor's mask and IoU), GroundingDinoGrounder (Swin-T OGC, 512
+     input: logits, boxes, the 900 selected proposals, predict_boxes), each
+     held to the same model on the CPU (FG_*); then estimate_foreground
+     through LangSamSegmenter(grounder, SAM) writing a mask.png, and
+     StableText2Img on SD-2 at 512x512, bf16, TEXT2IMG_STEPS steps: finite,
+     repeatable bitwise, K1 launched at each of the U-Net's ten
+     self-attention sites per call and no general route;
   5. unet_reference: that U-Net once with the flash kernels and once with
      dense attention on the same input, which must agree;
   6. unet_flash_bwd_modes: that U-Net forward + backward to the latents with
@@ -111,6 +123,7 @@ or when no CUDA device is present. Imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2028,6 +2041,12 @@ TESTSET_TRANSFORMS = {
 }
 
 
+# where the test-set phase writes its sample and outputs (the foreground
+# phase reads the sample)
+TESTSET_DIR = pathlib.Path(__file__).resolve().parent / "build" / \
+    "testset_smoke"
+
+
 def _testset_sample(root, res: int) -> None:
     """A seeded textured image and a square foreground mask, written with
     the port's image_io; no depth.exr, bg.png or bg_depth.exr, so that the
@@ -2175,8 +2194,7 @@ def phase_testset(handles) -> dict:
     from diffusionhandles_tpu_torch.utils.image_io import (load_depth,
                                                            load_image,
                                                            read_png)
-    root = pathlib.Path(__file__).resolve().parent / "build" / \
-        "testset_smoke"
+    root = TESTSET_DIR
     shutil.rmtree(root, ignore_errors=True)
     res = handles.img_res
     _testset_sample(root, res)
@@ -2267,6 +2285,349 @@ def phase_testset(handles) -> dict:
     del est, lama
     _free_device_memory()
     return first
+
+
+# The foreground phase. CLIP ViT-B/16, SAM ViT-H and GroundingDINO (Swin-T
+# OGC) run fp32 with TF32 off, on the card and on the CPU on the same
+# seeded weights; the two differ in the order of their fp32 sums. The
+# similarity map (a cosine) is held within FG_SIM_ATOL; SAM's mask logits
+# and GroundingDINO's logits within FG_LOGIT_RTOL of their largest
+# magnitude, SAM's IoU within FG_IOU_ATOL and GroundingDINO's cxcywh boxes
+# within FG_BOX_ATOL (units of the image). A thresholded mask equals the
+# CPU's but where the card's value lies within that tolerance of the
+# threshold; those pixels are counted. GroundingDINO's 900 selected
+# proposals must be the CPU's, in the CPU's order, but for pairs whose CPU
+# scores lie within FG_LOGIT_RTOL of the largest score of each other (not
+# rows tied on both devices): a sum in another order may swap such a
+# pair, and with it the pair's queries, so its logits and boxes are held
+# against the CPU decoding the card's selection.
+FG_PROMPT = "a toy cube"
+FG_SIM_ATOL = 1e-4
+FG_LOGIT_RTOL = 1e-3
+FG_IOU_ATOL = 1e-3
+FG_BOX_ATOL = 1e-3
+TEXT2IMG_STEPS = 10
+
+
+def _flips(got, want, value, tol, thresh=0.0):
+    """(pixels where the masks differ, of those away from the threshold)."""
+    import numpy as np
+    differ = np.asarray(got) != np.asarray(want)
+    away = differ & (np.abs(np.asarray(value) - thresh) > tol)
+    return int(differ.sum()), int(away.sum())
+
+
+def _cpu_copy(module):
+    return {k: v.cpu() for k, v in module.state_dict().items()}
+
+
+def _clip_check(img):
+    """CLIPSegmenter at ViT-B/16 widths on the card, against the same
+    segmenter on the CPU."""
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.models.segmenter import CLIPSegmenter
+    from diffusionhandles_tpu_torch.models.weights_clip import clip_vit_b16
+    icfg, tcfg = clip_vit_b16()
+    seg, build_s = _timed(lambda: CLIPSegmenter(icfg, tcfg, device="cuda"))
+    seg.similarity_map(img, FG_PROMPT)  # first use
+    sim, seconds, peak = _timed_peak(lambda: seg.similarity_map(img,
+                                                                FG_PROMPT))
+    cpu = CLIPSegmenter(icfg, tcfg, image_params=_cpu_copy(seg.image_model),
+                        text_params=_cpu_copy(seg.text_model), device="cpu")
+    sim_cpu, cpu_seconds = _timed(lambda: cpu.similarity_map(img, FG_PROMPT))
+    mask = seg.select_foreground(img, FG_PROMPT)
+    mask_cpu = cpu.select_foreground(img, FG_PROMPT)
+    lo, hi = np.percentile(sim_cpu[0], [5, 95])
+    flips, away = _flips(sim[0] > (lo + hi) / 2, sim_cpu[0] > (lo + hi) / 2,
+                         sim[0], FG_SIM_ATOL, (lo + hi) / 2)
+    err = float(np.abs(sim - sim_cpu).max())
+    checks = {
+        "shape": sim.shape == (1,) + img.shape[2:],
+        "finite": bool(np.isfinite(sim).all()),
+        "sim_vs_cpu": err <= FG_SIM_ATOL,
+        "split_flips_at_threshold_only": away == 0,
+        "mask_vs_cpu": flips > 0 or bool(np.array_equal(mask, mask_cpu)),
+    }
+    _line("foreground_clip", widths="clip_vit_b16", build_seconds=build_s,
+          seconds=seconds, peak_bytes=peak, cpu_seconds=cpu_seconds,
+          max_abs_err=err, tol=FG_SIM_ATOL, split_flips=flips,
+          mask_share=float(mask.mean()), tf32=torch.backends.cuda.matmul.
+          allow_tf32, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"CLIP segmenter checks failed: {checks}")
+
+
+def _sam_run(sam, x, box):
+    """(embedding, mask logits, iou) of SamModel on a preprocessed input
+    and one box prompt, with no point token."""
+    import torch
+    dev = x.device
+    with torch.no_grad():
+        emb = sam.model.embed(x)
+        masks, iou = sam.model.decode(
+            emb, torch.zeros(1, 0, 2, device=dev),
+            torch.zeros(1, 0, dtype=torch.long, device=dev),
+            torch.as_tensor(box, device=dev).reshape(1, 2, 2))
+    return emb, masks, iou
+
+
+def _sam_check(img, box):
+    """PromptableSegmenter(sam_vit_h()) at 1024 on the card: embed and a
+    box-prompted decode timed, the predictor's mask; held to the whole
+    ViT-H on the CPU (about 20 s there). Returns the segmenter."""
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.models.sam import (PromptableSegmenter,
+                                                       sam_vit_h)
+    sam, build_s = _timed(lambda: PromptableSegmenter(sam_vit_h(),
+                                                      device="cuda"))
+    x, _, scale = sam._preprocess(img)
+    box_in = np.asarray(box, np.float32) * scale
+    _sam_run(sam, x, box_in)  # first use
+    with torch.no_grad():
+        emb, embed_s, embed_peak = _timed_peak(lambda: sam.model.embed(x))
+        _, decode_s, decode_peak = _timed_peak(lambda: sam.model.decode(
+            emb, torch.zeros(1, 0, 2, device="cuda"),
+            torch.zeros(1, 0, dtype=torch.long, device="cuda"),
+            torch.as_tensor(box_in, device="cuda").reshape(1, 2, 2)))
+    (logits, iou), predict_s = _timed(lambda: sam.mask_logits(img,
+                                                              boxes=box))
+    cpu = PromptableSegmenter(sam.config, params=_cpu_copy(sam.model),
+                              device="cpu")
+    _, m_card, i_card = _sam_run(sam, x, box_in)
+    (_, m_cpu, i_cpu), cpu_seconds = _timed(lambda: _sam_run(cpu, x.cpu(),
+                                                            box_in))
+    lg_cpu, iou_cpu = cpu.mask_logits(img, boxes=box)
+    m_card, m_cpu = m_card.cpu().numpy(), m_cpu.numpy()
+    scale_lg = float(np.abs(m_cpu).max())
+    err = float(np.abs(m_card - m_cpu).max())
+    iou_err = float(np.abs(i_card.cpu().numpy() - i_cpu.numpy()).max())
+    tol = FG_LOGIT_RTOL * scale_lg
+    flips, away = _flips(logits > 0, lg_cpu > 0, logits, tol)
+    checks = {
+        "finite": bool(np.isfinite(logits).all()
+                       and np.isfinite(emb.cpu().numpy()).all()),
+        "mask_shape": logits.shape == (1,) + img.shape[2:],
+        "logits_vs_cpu": bool(err <= tol),
+        "iou_vs_cpu": bool(iou_err <= FG_IOU_ATOL
+                           and abs(iou - iou_cpu) <= FG_IOU_ATOL),
+        "mask_flips_at_threshold_only": away == 0,
+    }
+    _line("foreground_sam", widths="sam_vit_h", img_size=sam.config.img_size,
+          build_seconds=build_s, embed_seconds=embed_s,
+          embed_peak_bytes=embed_peak, decode_seconds=decode_s,
+          decode_peak_bytes=decode_peak, predict_seconds=predict_s,
+          iou=iou, mask_pixels=int((logits > 0).sum()),
+          cpu_seconds=cpu_seconds, max_abs_err=err, tol=tol,
+          iou_err=iou_err, mask_flips=flips, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"SAM checks failed: {checks}")
+    return sam
+
+
+def _gdino_run(gr, x, ids, mask):
+    """(logits, boxes, the selected proposals, the selection scores)."""
+    import torch
+    tr = gr.model.transformer
+    seen = {}
+    hooks = [tr.enc_output_norm.register_forward_hook(
+        lambda m, a, out: seen.__setitem__("memory", out)),
+        tr.encoder.text_layers[-1].register_forward_hook(
+        lambda m, a, out: seen.__setitem__("txt", out))]
+    try:
+        with torch.no_grad():
+            logits, boxes, topk = gr.model(x, ids, mask, return_topk=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    txt = seen["txt"] * mask[..., None]
+    scores = torch.einsum("bsd,btd->bst", seen["memory"], txt).masked_fill(
+        ~mask[:, None, :], -float("inf")).amax(-1)
+    return logits, boxes, topk, scores
+
+
+@contextlib.contextmanager
+def _fixed_selection(indices):
+    """GroundingDINO's query selection returns `indices` inside the block
+    (the CPU reference then decodes the card's proposals)."""
+    from diffusionhandles_tpu_torch.models import groundingdino
+    real = groundingdino.select_topk
+    groundingdino.select_topk = lambda scores, k: indices.to(scores.device)
+    try:
+        yield
+    finally:
+        groundingdino.select_topk = real
+
+
+def _bert_vocab(path) -> str:
+    """A stand-in for bert-base-uncased's vocab.txt (30522 lines): the
+    special tokens at their release ids ([CLS] 101, [SEP] 102, '.' 1012,
+    '?' 1029) and the prompt's words, so a caption's ids are the same in
+    every process (the tokenizer's fallback without a vocab hashes with
+    Python's salted `hash`)."""
+    words = [f"[unused{i}]" for i in range(30522)]
+    for i, w in {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]",
+                 1012: ".", 1029: "?", 1037: "a", 9121: "toy",
+                 14291: "cube"}.items():
+        words[i] = w
+    path.write_text("\n".join(words))
+    return str(path)
+
+
+def _gdino_check(img, vocab: str):
+    """GroundingDinoGrounder(GroundingDinoConfig()) at its 512 input on
+    the card, against the same grounder on the CPU. The selection: the
+    card's 900 proposals must be the CPU's, in its order, but where two
+    proposals' CPU scores differ by less than the tolerance (an fp32 sum
+    in another order may swap such a pair, and split rows the CPU ties:
+    the card's GEMM may round equal rows differently; rows tied on both
+    sides must keep the index order). The logits and boxes: against the
+    CPU decoding the card's selection. Returns the grounder."""
+    import numpy as np
+
+    from diffusionhandles_tpu_torch.models.groundingdino import \
+        GroundingDinoGrounder
+    gr, build_s = _timed(lambda: GroundingDinoGrounder(vocab_path=vocab,
+                                                       device="cuda"))
+    x, ids, mask = gr.inputs(img, FG_PROMPT)
+    _gdino_run(gr, x, ids, mask)  # first use
+    (logits, boxes, topk, scores), seconds, peak = _timed_peak(
+        lambda: _gdino_run(gr, x, ids, mask))
+    (pb, ps), predict_s = _timed(lambda: gr.predict_boxes(img, FG_PROMPT))
+    cpu = GroundingDinoGrounder(gr.config, params=_cpu_copy(gr.model),
+                                vocab_path=vocab, device="cpu")
+    inputs = (x.cpu(), ids.cpu(), mask.cpu())
+    (_, _, tk_c, sc_c), cpu_seconds = _timed(lambda: _gdino_run(cpu,
+                                                                *inputs))
+    with _fixed_selection(topk.cpu()):
+        lg_c, bx_c, _, _ = _gdino_run(cpu, *inputs)
+        _, ps_c = cpu.predict_boxes(img, FG_PROMPT)
+    lg, lg_c = logits.cpu().numpy(), lg_c.numpy()
+    topk, tk_c = topk.cpu().numpy()[0], tk_c.numpy()[0]
+    sc, sc_c = scores.cpu().numpy()[0], sc_c.numpy()[0]
+    finite = np.isfinite(lg_c)
+    lg_err = float(np.abs(lg[finite] - lg_c[finite]).max())
+    box_err = float(np.abs(boxes.cpu().numpy() - bx_c.numpy()).max())
+    score_tol = FG_LOGIT_RTOL * float(np.abs(sc_c).max())
+    moved = topk != tk_c
+    gaps = np.abs(sc_c[topk] - sc_c[tk_c])[moved]
+    card_gaps = np.abs(sc[topk] - sc[tk_c])[moved]
+    values, counts = np.unique(sc_c, return_counts=True)
+    tied = np.isin(sc_c[tk_c], values[counts > 1])
+    _, card_counts = np.unique(sc, return_counts=True)
+    checks = {
+        "finite": bool(np.isfinite(boxes.cpu().numpy()).all()
+                       and np.isfinite(sc).all()),
+        "inf_pattern": bool(np.array_equal(np.isfinite(lg), finite)),
+        # a move within the tolerance, and never between rows tied on
+        # both sides (those go by index on each)
+        "selection_as_cpu_but_near_ties": bool(
+            ((gaps <= score_tol) & ((gaps > 0) | (card_gaps > 0))).all()),
+        "logits_vs_cpu": bool(lg_err <= FG_LOGIT_RTOL
+                              * np.abs(lg_c[finite]).max()),
+        "boxes_vs_cpu": bool(box_err <= FG_BOX_ATOL),
+        "predicted_scores_vs_cpu": len(ps) == len(ps_c) and bool(
+            np.abs(ps - ps_c).max() <= FG_IOU_ATOL),
+    }
+    _line("foreground_gdino", widths="groundingdino_swint_ogc",
+          input_size=gr.input_size, build_seconds=build_s, seconds=seconds,
+          peak_bytes=peak, predict_seconds=predict_s,
+          cpu_seconds=cpu_seconds, queries=int(topk.shape[0]),
+          proposals=int(sc.shape[0]), tied_rows=int(counts.max()),
+          tied_rows_card=int(card_counts.max()),
+          tied_rows_selected=int(tied.sum()), moved=int(moved.sum()),
+          moved_score_gaps=[float(g) for g in gaps[:8]],
+          moved_card_gaps=[float(g) for g in card_gaps[:8]],
+          score_tol=score_tol, score_err=float(np.abs(sc - sc_c).max()),
+          logit_err=lg_err, box_err=box_err, boxes=len(pb),
+          best_box=pb[0].tolist(), best_score=float(ps[0]), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"GroundingDINO checks failed: {checks}")
+    return gr
+
+
+def _text2img_check():
+    """StableText2Img on seeded SD-2 at 512x512, bf16 (the edit's dtype),
+    TEXT2IMG_STEPS steps: K1 carries the U-Net's self-attention, its
+    launches counted in the timed call alone."""
+    import numpy as np
+
+    from diffusionhandles_tpu_torch.config import GuidedDiffuserConfig
+    from diffusionhandles_tpu_torch.models.text2img import StableText2Img
+    t2i, build_s = _timed(lambda: StableText2Img(GuidedDiffuserConfig(
+        use_depth=False, num_timesteps=TEXT2IMG_STEPS), device="cuda"))
+    calls = _count_unet_calls(t2i.diffuser.models.unet)
+    t2i.generate(FG_PROMPT, seed=0)  # first use
+    calls["forward"] = 0
+    reset_launch_counts()
+    img, seconds, peak = _timed_peak(lambda: t2i.generate(FG_PROMPT, seed=0))
+    counts, unet_calls = launch_counts(), calls["forward"]
+    again = t2i.generate(FG_PROMPT, seed=0)
+    sites = sum(FLASH_SITES.values())
+    checks = {
+        "shape": img.shape == (1, 3, 512, 512),
+        "finite_in_unit_range": bool(np.isfinite(img).all()
+                                     and 0.0 <= img.min() <= img.max() <= 1.0),
+        "repeatable_bitwise": bool(np.array_equal(img, again)),
+        "k1_per_unet_call": counts["flash_fwd"] == sites * unet_calls
+        and unet_calls == TEXT2IMG_STEPS,
+        "no_general_route": _no_general(counts),
+    }
+    _line("foreground_text2img", model="sd2 (use_depth=False)",
+          dtype=t2i.diffuser.conf.dtype, steps=TEXT2IMG_STEPS,
+          build_seconds=build_s, seconds=seconds, peak_bytes=peak,
+          unet_calls=unet_calls, flash_fwd=counts["flash_fwd"],
+          flash_fwd_per_call=counts["flash_fwd"] / max(unet_calls, 1),
+          image_std=float(img.std()), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"text2img checks failed: {checks}")
+    return counts["flash_fwd"]
+
+
+def phase_foreground(root) -> int:
+    """The text-prompted foreground path and text2img (module docstring,
+    4d) on the test-set phase's 512x512 sample under `root`. Returns K1's
+    launches in the timed text2img call."""
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.models.segmenter import LangSamSegmenter
+    from diffusionhandles_tpu_torch.testset.preprocess import \
+        estimate_foreground
+    from diffusionhandles_tpu_torch.utils.image_io import (load_image,
+                                                           read_png)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sample = root / "inputs" / "sample" / "input.png"
+    img = load_image(sample)[None]
+    res = img.shape[-1]
+    box = [res // 3, res // 3, 2 * res // 3, 2 * res // 3]  # the sample's
+    _free_device_memory()
+    _clip_check(img)
+    _free_device_memory()
+    sam = _sam_check(img, box)
+    gr = _gdino_check(img, _bert_vocab(root / "vocab.txt"))
+    out = root / "foreground" / "mask.png"
+    out.parent.mkdir(exist_ok=True)
+    lang = LangSamSegmenter(grounder=gr, sam=sam)
+    _, seconds = _timed(lambda: estimate_foreground(
+        str(sample), FG_PROMPT, str(out), selector=lang))
+    mask = read_png(out)
+    checks = {"mask_png": mask.shape[:2] == img.shape[2:]
+              and set(np.unique(mask)) <= {0, 255}}
+    _line("foreground_estimate", selector="LangSamSegmenter(GroundingDINO, "
+          "SAM ViT-H)", seconds=seconds, mask_share=float((mask > 0).mean()),
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"estimate_foreground checks failed: {checks}")
+    del sam, gr, lang
+    _free_device_memory()
+    k1 = _text2img_check()
+    _free_device_memory()
+    return k1
 
 
 # 3x3 convs of the conv-kernel U-Net at 512x512 that pass the conv gate: 44
@@ -2645,6 +3006,7 @@ def main() -> int:
         default_config = default.diffuser.models.unet_config
         del default
         _free_device_memory()
+        phase_foreground(TESTSET_DIR)
         entries = phase_attention_forward_entries()
         launches.update({n: entries[n] for n in ("flash_fwd_unfolded",
                                                  "flash_fwd_stream")})

@@ -40,6 +40,17 @@ def _params(tree: Mapping) -> Mapping:
     return tree["params"] if "params" in tree else tree
 
 
+def _rename(rules, key: str):
+    """`key` renamed by the first (pattern, replacement) of `rules` whose
+    pattern matches it from its start (a replacement is a template or a
+    function of the match), or None."""
+    for pattern, repl in rules:
+        m = re.match(pattern, key)
+        if m:
+            return repl(m) if callable(repl) else m.expand(repl)
+    return None
+
+
 def _leaf(module_key: str, leaf: str, value: np.ndarray
           ) -> Tuple[str, torch.Tensor]:
     """(torch key, tensor) of one flax leaf under torch module path

@@ -5,12 +5,15 @@ The counterpart of the JAX package's `testset/preprocess.py`:
   estimate_depth      (reference: test/estimate_depth.py, ZoeDepth -> .exr)
   remove_foreground   (reference: test/remove_foreground.py, LaMa -> bg.png)
   estimate_foreground (reference: test/estimate_foreground.py, LangSAM ->
-                       mask.png): runs a given `selector`; the segmenter
-                       and SAM are not ported yet (ROADMAP.md queue 1).
+                       mask.png): the CLIP segmenter, or CLIP grounding
+                       into SAM with a `sam_checkpoint`.
 The estimators run on the GPU unless `device` says otherwise.
 
     python -m diffusionhandles_tpu_torch.testset.preprocess estimate_depth \\
         --img_path input.png --depth_path depth.exr
+    python -m diffusionhandles_tpu_torch.testset.preprocess \\
+        estimate_foreground --img_path input.png --prompt "a mug" \\
+        --mask_path mask.png [--sam_checkpoint sam_vit_h_4b8939.pth]
 """
 
 from __future__ import annotations
@@ -46,20 +49,28 @@ def remove_foreground(img_path: str, fg_mask_path: str, bg_path: str,
 
 
 def estimate_foreground(img_path: str, prompt: str, mask_path: str,
-                        selector=None, sam_checkpoint: str = None) -> None:
+                        selector=None, sam_checkpoint: str = None,
+                        device=None) -> None:
     """Text-prompted foreground mask (reference:
     estimate_foreground.py:11-42) from `selector.select_foreground(img
-    [1, 3, H, W], prompt) -> [1, 1, H, W]`."""
+    [1, 3, H, W], prompt) -> [1, 1, H, W]`. Without a selector: with
+    `sam_checkpoint`, the two-stage LangSamSegmenter (CLIP grounding ->
+    released-weights SAM), otherwise the CLIP-similarity segmenter."""
     if selector is None:
-        raise NotImplementedError(
-            "the CLIP segmenter and SAM are not ported yet (ROADMAP.md, "
-            "queue 1); pass a selector")
-    del sam_checkpoint  # selects the two-stage SAM pipeline, not ported
+        if sam_checkpoint is not None:
+            from diffusionhandles_tpu_torch.models.segmenter import \
+                LangSamSegmenter
+            selector = LangSamSegmenter(sam_checkpoint=sam_checkpoint,
+                                        device=device)
+        else:
+            from diffusionhandles_tpu_torch.models.segmenter import \
+                CLIPSegmenter
+            selector = CLIPSegmenter(device=device)
     mask = selector.select_foreground(load_image(img_path)[None], prompt)
     save_image(np.repeat(np.asarray(mask)[0], 3, axis=0), mask_path)
 
 
-def main():
+def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--device", default=None,
@@ -73,12 +84,23 @@ def main():
     p2.add_argument("--fg_mask_path", required=True)
     p2.add_argument("--bg_path", required=True)
     p2.add_argument("--dilation", type=int, default=3)
-    args = parser.parse_args()
+    p3 = sub.add_parser("estimate_foreground")
+    p3.add_argument("--img_path", required=True)
+    p3.add_argument("--prompt", required=True)
+    p3.add_argument("--mask_path", required=True)
+    p3.add_argument("--sam_checkpoint", default=None,
+                    help="released sam_vit_h .pth for the two-stage "
+                         "LangSAM pipeline")
+    args = parser.parse_args(argv)
     if args.cmd == "estimate_depth":
         estimate_depth(args.img_path, args.depth_path, device=args.device)
-    else:
+    elif args.cmd == "remove_foreground":
         remove_foreground(args.img_path, args.fg_mask_path, args.bg_path,
                           args.dilation, device=args.device)
+    else:
+        estimate_foreground(args.img_path, args.prompt, args.mask_path,
+                            sam_checkpoint=args.sam_checkpoint,
+                            device=args.device)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,11 @@ port with `models/weights.py`): the random network's fp32 trajectories
 stay comparable, as in tests/test_torch_port_pipeline.py. A config file's
 own switches are kept; the rig overrides only the timesteps, the
 guidance steps and the dtypes (and routes attention densely).
+
+The auxiliary models' parity tests (CLIP, SAM, GroundingDINO, text2img)
+take two helpers from here: `random_flax_params` (random JAX parameters
+made by shape, with no flax init to compile) and
+`near_threshold_mismatch` (masks compared but at their threshold).
 """
 
 import contextlib
@@ -139,3 +144,34 @@ def torch_on_one_thread():
     module that imports this runs torch on one thread."""
     with one_thread():
         yield
+
+
+def random_flax_params(init, seed: int, scale: float = 0.05):
+    """Seeded random values in the parameter tree that `init(key)` (a flax
+    `Module.init` closure) would make, found by shape alone (no compile):
+    kernels N(0, 1 / fan_in), norm scales 1 + scale * N(0, 1), every other
+    leaf scale * N(0, 1). numpy float32 leaves."""
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0))
+    rng = np.random.RandomState(seed)
+
+    def fill(path, s):
+        noise = rng.randn(*s.shape).astype(np.float32)
+        leaf = path[-1].key
+        if leaf == "kernel":
+            return noise / np.float32(np.sqrt(np.prod(s.shape[:-1])))
+        return noise * np.float32(scale) + (leaf == "scale")
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def near_threshold_mismatch(got, want, value, tol: float, thresh=0.0):
+    """The number of pixels where masks `got` and `want` differ while the
+    continuous `value` they threshold lies within `tol` of `thresh`; fails
+    if they differ anywhere else."""
+    got, want, value = (np.asarray(a) for a in (got, want, value))
+    differ = got != want
+    near = np.abs(value - thresh) <= tol
+    assert not (differ & ~near).any(), (
+        f"{int((differ & ~near).sum())} mask pixels differ away from the "
+        f"threshold")
+    return int(differ.sum())
