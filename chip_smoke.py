@@ -57,6 +57,24 @@ Phases, each reported on its own line:
      for bit; K1 and K2 launch; the per-sample seconds split, the recon
      PSNR/SSIM (seeded weights: not fidelity figures), and the identity
      npz loaded back equal to the tensors the inversion made;
+  4e. service (after 4c, on the default handles): the five services of
+     diffusionhandles_tpu_torch.service in this process on free loopback
+     ports (the core on the default handles, depth on 4c's ZoeDepth-NK,
+     the remover on its big-LaMa, the selector on a seeded CLIPSegmenter
+     at ViT-B/16 widths, text2img on a seeded TEXT2IMG_STEPS-step SD-2),
+     driven over HTTP by DiffhandlesPipeline on the test-set sample:
+     set_input_image, set_foreground from the selector and then from the
+     mask, the core's set_foreground with export_meshes,
+     transform_foreground (K1 and K2 counted in that request alone), the
+     depth and rgb previews, and a text2img generate. Every response must
+     be bitwise the same call made in the process on the same objects,
+     and the identity npz must load to the request's inversion tensors;
+     per request, the wall seconds split into the handler's and the
+     encode + transport + decode rest, and the body bytes; the previews'
+     seconds and the peak memory. Then rasterize_k (K = SOFT_K, softmax
+     blending) on the rgb preview's 512x512 scene, timed with its peak and
+     held to the port on the CPU (differing fragments counted against
+     SOFT_FID_SHARE), and LPIPS at 512x512 held to the CPU (LPIPS_RTOL);
   4d. foreground (after 6, with the edit's models freed): the text-prompted
      foreground path and text2img on seeded weights at release widths, fp32
      with TF32 off but text2img, on the test-set sample: CLIPSegmenter at
@@ -2177,10 +2195,10 @@ def _lama_check(img, mask):
     return lama
 
 
-def phase_testset(handles) -> dict:
+def phase_testset(handles):
     """The test-set path on the default handles (see the module
-    docstring, 4c). Returns the K1/K2 launches of the driver's first
-    run."""
+    docstring, 4c). Returns its ZoeDepth and LaMa models (the service
+    phase serves them)."""
     import shutil
     import tempfile
 
@@ -2282,9 +2300,396 @@ def phase_testset(handles) -> dict:
           checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"testset checks failed: {checks}")
-    del est, lama
-    _free_device_memory()
-    return first
+    return est, lama
+
+
+# The service phase. The five services run in this process on free
+# loopback ports (each binds port 0), on the models of the phases before:
+# the core on the default handles, depth on the test-set phase's
+# ZoeDepth-NK, the remover on its big-LaMa, the selector on a seeded CLIP
+# segmenter at ViT-B/16 widths, text2img on a seeded 10-step SD-2.
+# DiffhandlesPipeline drives them over HTTP; every response must be the
+# bits of the same call made here in the process on the same objects.
+# The soft raster (K = SOFT_K, softmax blending, PyTorch3D's sigma and
+# gamma) of the rgb preview's scene on the card is held to the port on
+# the CPU: its elementwise fp32 geometry differs only where the card
+# contracts a product into an FMA, which moves z by an ulp and can swap
+# two fragments within an ulp of each other (at most SOFT_FID_SHARE of
+# the fragments); where every level has the same face, the blended color
+# is held within SOFT_COLOR_ATOL (an ulp of z_inv is 6e-4 of a weight at
+# gamma 1e-4) and alpha within SOFT_ALPHA_ATOL. LPIPS at 512x512 (fp32,
+# TF32 off) is held to the CPU within LPIPS_RTOL.
+SOFT_K = 4
+SOFT_FID_SHARE = 1e-3
+SOFT_COLOR_ATOL = 2e-3
+SOFT_ALPHA_ATOL = 1e-5
+LPIPS_RTOL = 1e-4
+
+
+def _start_services(handles, est, lama, seg, t2i):
+    """The five services on free loopback ports: ({name: app}, pipeline
+    over them)."""
+    from diffusionhandles_tpu_torch.service import services
+    from diffusionhandles_tpu_torch.service.pipeline_app import \
+        DiffhandlesPipeline
+    apps = {"diffhandles": services.DiffhandlesWebapp(handles=handles,
+                                                      port=0),
+            "depth": services.DepthEstimatorWebapp(estimator=est, port=0),
+            "remover": services.ForegroundRemoverWebapp(remover=lama, port=0),
+            "selector": services.ForegroundSelectorWebapp(selector=seg,
+                                                          port=0),
+            "text2img": services.Text2ImgWebapp(generator=t2i, port=0)}
+    for app in apps.values():
+        app.start_background()
+    url = {k: f"http://127.0.0.1:{a.port}" for k, a in apps.items()}
+    pipeline = DiffhandlesPipeline(
+        diffhandles_url=url["diffhandles"], depth_url=url["depth"],
+        remover_url=url["remover"], selector_url=url["selector"],
+        text2img_url=url["text2img"], device=handles.device)
+    return apps, pipeline
+
+
+# each client method of the pipeline, and the service that answers it
+SERVICE_CALLS = (("diffhandles", "diffhandles", "set_input_image"),
+                 ("diffhandles", "diffhandles", "set_foreground"),
+                 ("diffhandles", "diffhandles", "transform_foreground"),
+                 ("depth_estimator", "depth", "estimate_depth"),
+                 ("remover", "remover", "remove_foreground"),
+                 ("selector", "selector", "select_foreground"),
+                 ("text2img", "text2img", "generate"))
+
+
+def _record_requests(pipeline, apps) -> list:
+    """Wrap the pipeline's client methods to record each request: its
+    arguments and response, the client's wall seconds and body bytes, and
+    the handler's seconds from its service."""
+    requests = []
+    for attr, service, method in SERVICE_CALLS:
+        client = getattr(pipeline, attr)
+
+        def call(*args, _fn=getattr(client, method), _client=client,
+                 _app=apps[service], _name=f"{service}/{method}", **kwargs):
+            out = _fn(*args, **kwargs)
+            requests.append(dict(name=_name, args=args, kwargs=kwargs,
+                                 out=out, client=dict(_client.last_call),
+                                 server=dict(_app.last_request)))
+            return out
+        setattr(client, method, call)
+    return requests
+
+
+def _request_line(req, bitwise: bool) -> None:
+    wall = req["client"]["seconds"]
+    handler = req["server"]["handler_seconds"]
+    _line("service_request", request=req["name"], seconds=wall,
+          handler_seconds=handler,
+          encode_transport_decode_seconds=wall - handler,
+          request_bytes=req["client"]["request_bytes"],
+          response_bytes=req["client"]["response_bytes"],
+          attempts=req["client"]["attempts"], bitwise_in_process=bitwise)
+
+
+def _same(a, b) -> bool:
+    """Equal bits: arrays, byte strings, or dicts of them."""
+    import numpy as np
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, bytes):
+        return a == b
+    return bool(np.array_equal(a, b)) and np.asarray(a).dtype == \
+        np.asarray(b).dtype
+
+
+def _identity_matches(blob, null, noise, acts, latents) -> dict:
+    """Each field of an identity npz against the tensors it was made
+    from (NCHW, stored fp32)."""
+    import io
+
+    import numpy as np
+    as_np = lambda t: t.float().cpu().numpy()
+    with np.load(io.BytesIO(blob)) as data:
+        got = {k: data[k] for k in data.files}
+    want = {"null_text_emb": null, "init_noise": noise,
+            "latent_image": latents,
+            **{f"activations{i + 1}": a for i, a in enumerate(acts)}}
+    return {k: bool(np.array_equal(got[k], as_np(v)))
+            for k, v in want.items()}
+
+
+def _preview_scene(state, device):
+    """The rgb preview's merged mesh (colored bg grid, colored and moved
+    fg) on `device`, and the intrinsics."""
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.diffuser import GuidedStableDiffuser
+    from diffusionhandles_tpu_torch.geometry.mesh import depth_to_mesh
+    from diffusionhandles_tpu_torch.geometry.mesh_transform import \
+        merge_meshes
+    from diffusionhandles_tpu_torch.geometry.transform import \
+        transform_points
+    K = GuidedStableDiffuser.get_depth_intrinsics()
+    img, bg_img = state.img[0], state.bg_img[0]
+    h, w = img.shape[-2:]
+    mask2d = state.fg_mask.reshape(h, w) > 0.5
+    color = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    bg = depth_to_mesh(state.bg_depth, K, device=device)
+    bg.add_vert_attribute("color", color(bg_img.reshape(3, -1).T))
+    fg = depth_to_mesh(state.depth, K, mask=mask2d, device=device)
+    fg.add_vert_attribute("color", color(
+        img.reshape(3, -1).T[mask2d.reshape(-1)]))
+    fg.verts = transform_points(
+        fg.verts, EDIT_TRANSFORM["rot_angle"],
+        np.asarray(EDIT_TRANSFORM["rot_axis"], np.float32),
+        np.asarray(EDIT_TRANSFORM["translation"], np.float32))
+    return merge_meshes(bg, fg), K
+
+
+def _soft_raster_check(state, device) -> dict:
+    """rasterize_k (SOFT_K levels) of the rgb preview's scene at 512x512
+    on `device` (the card) and its softmax blend of the vertex colors (the
+    renderer's 'softmax' blend_type, PyTorch3D's sigma and gamma), against
+    the same on the CPU."""
+    import numpy as np
+
+    from diffusionhandles_tpu_torch.ops.rasterize import (
+        big_faces, interpolate_attribute_k, project_verts, rasterize_k,
+        softmax_blend_weights)
+    res = state.img.shape[-1]
+    out = {}
+    for dev in ("card", "cpu"):
+        mesh, K = _preview_scene(state, device if dev == "card" else "cpu")
+        verts_px = project_verts(mesh.verts, K, res, res)
+        run = lambda: rasterize_k(verts_px, mesh.faces, res, res,
+                                  faces_per_pixel=SOFT_K)
+
+        def blend(kr):
+            w, _, alpha = softmax_blend_weights(kr)
+            color = interpolate_attribute_k(kr, mesh.faces,
+                                            mesh.vert_attributes["color"])
+            return (w[..., None] * color).sum(0), alpha
+
+        if dev == "card":
+            blend(run())  # first use
+            kr, seconds, peak = _timed_peak(run)
+        else:
+            kr, seconds = _timed(run)
+            peak = None
+        (color, alpha), blend_s = _timed(lambda: blend(kr))
+        out[dev] = dict(fid=kr.face_id.cpu().numpy(),
+                        zbuf=kr.zbuf.cpu().numpy(),
+                        color=color.cpu().numpy(), alpha=alpha.cpu().numpy(),
+                        seconds=seconds, blend_seconds=blend_s, peak=peak,
+                        faces=int(mesh.faces.shape[0]),
+                        big=int(big_faces(verts_px, mesh.faces).numel()))
+    g, c = out["card"], out["cpu"]
+    frags = int((c["fid"] >= 0).sum())
+    differ = int((g["fid"] != c["fid"]).sum())
+    agree = (g["fid"] == c["fid"]).all(0)
+    color_err = float(np.abs(g["color"] - c["color"])[agree].max())
+    alpha_err = float(np.abs(g["alpha"] - c["alpha"])[agree].max())
+    both = (g["fid"] >= 0) & (g["fid"] == c["fid"])
+    zbuf_err = float(np.abs(g["zbuf"][both] - c["zbuf"][both]).max())
+    checks = {
+        "fragments_differ_within_bound": differ <= SOFT_FID_SHARE * frags,
+        "every_level_filled": bool((g["fid"][-1] >= 0).any()),
+        "color_within_tol": color_err <= SOFT_COLOR_ATOL,
+        "alpha_within_tol": alpha_err <= SOFT_ALPHA_ATOL,
+        "finite": bool(np.isfinite(g["color"]).all()),
+    }
+    _line("service_soft_raster", faces_per_pixel=SOFT_K, res=res,
+          faces=g["faces"], big_faces=g["big"], seconds=g["seconds"],
+          peak_bytes=g["peak"], blend_seconds=g["blend_seconds"],
+          cpu_seconds=c["seconds"], cpu_blend_seconds=c["blend_seconds"],
+          fragments=frags, fragments_differ=differ,
+          tol_fragments=SOFT_FID_SHARE * frags,
+          pixels_all_levels_agree=float(agree.mean()),
+          zbuf_max_abs_err=zbuf_err, color_max_abs_err=color_err,
+          tol_color=SOFT_COLOR_ATOL, alpha_max_abs_err=alpha_err,
+          tol_alpha=SOFT_ALPHA_ATOL, checks=checks)
+    return checks
+
+
+def _lpips_check(a, b, device) -> dict:
+    """LPIPSMetric (seeded VGG16) at 512x512 on `device` (the card)
+    against the same weights on the CPU."""
+    from diffusionhandles_tpu_torch.models.lpips import LPIPSMetric
+    metric = LPIPSMetric(device=device)
+    metric(a, b)  # first use
+    d, seconds, peak = _timed_peak(lambda: metric(a, b))
+    cpu = LPIPSMetric(params=_cpu_copy(metric.model), device="cpu")
+    d_cpu, cpu_seconds = _timed(lambda: cpu(a, b))
+    checks = {"finite_positive": d > 0 and d == d,
+              "vs_cpu": abs(d - d_cpu) <= LPIPS_RTOL * abs(d_cpu),
+              "self_distance_zero": metric(a, a) == 0.0}
+    _line("service_lpips", size=list(a.shape[-2:]), distance=d,
+          distance_cpu=d_cpu, rel_err=abs(d - d_cpu) / abs(d_cpu),
+          tol=LPIPS_RTOL, seconds=seconds, peak_bytes=peak,
+          cpu_seconds=cpu_seconds, checks=checks)
+    return checks
+
+
+def _service_models():
+    """The selector's and text2img's models: a seeded CLIPSegmenter at
+    ViT-B/16 widths and a seeded TEXT2IMG_STEPS-step SD-2 on the card."""
+    from diffusionhandles_tpu_torch.config import GuidedDiffuserConfig
+    from diffusionhandles_tpu_torch.models.segmenter import CLIPSegmenter
+    from diffusionhandles_tpu_torch.models.text2img import StableText2Img
+    from diffusionhandles_tpu_torch.models.weights_clip import clip_vit_b16
+    return (CLIPSegmenter(*clip_vit_b16(), device="cuda"),
+            StableText2Img(GuidedDiffuserConfig(
+                use_depth=False, num_timesteps=TEXT2IMG_STEPS),
+                device="cuda"))
+
+
+def phase_service(handles, est, lama, seg, t2i, root) -> dict:
+    """The service layer (module docstring, 4e) on the test-set sample
+    under `root`, with the models given, on the handles' device. Returns
+    the K1/K2 launches of the transform request."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from diffusionhandles_tpu_torch.checkpoint import load_identity, to_nchw
+    from diffusionhandles_tpu_torch.geometry.mesh import depth_to_mesh
+    from diffusionhandles_tpu_torch.geometry.mesh_io import save_mesh_glb
+    from diffusionhandles_tpu_torch.utils.image_io import load_image
+    sdir = root / "inputs" / "sample"
+    img = load_image(sdir / "input.png")[None]
+    mask = load_image(sdir / "mask.png")[:1][None]
+    prompt = EDIT_PROMPT
+    apps, pipeline = _start_services(handles, est, lama, seg, t2i)
+    requests = _record_requests(pipeline, apps)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    same, steps = {}, {}
+    state = pipeline.state
+    try:
+        # 1. depth, then the inversion
+        _, steps["set_input_image"] = _timed(
+            lambda: pipeline.set_input_image(img, prompt))
+        rec = handles._recording
+        ident_vs_inversion = _identity_matches(
+            state.input_image_identity, rec["null"], rec["noise"],
+            rec["acts"], rec["latents"])
+        n = len(requests)
+        # 2. the foreground from the selector, then the sample's mask
+        _, steps["set_foreground_prompt"] = _timed(
+            lambda: pipeline.set_foreground(fg_prompt=FG_PROMPT))
+        selected = state.fg_mask
+        _, steps["set_foreground_mask"] = _timed(
+            lambda: pipeline.set_foreground(fg_mask=mask))
+        raw_bg = requests[-2]["out"]
+        # 3. the meshes of the core's set_foreground
+        meshes = pipeline.diffhandles.set_foreground(
+            state.depth, state.fg_mask, raw_bg, export_meshes=True)
+        # 4. the edit, its launches counted alone
+        reset_launch_counts()
+        (edited, _), steps["transform_foreground"] = _timed(
+            lambda: pipeline.transform_foreground(**EDIT_TRANSFORM))
+        launches = launch_counts()
+        # 5. the previews, in the process on the card
+        previews = {}
+        for mode in ("depth", "rgb"):
+            pipeline.preview_edit(mode=mode, **EDIT_TRANSFORM)  # first use
+            previews[mode], steps[f"preview_{mode}"] = _timed(
+                lambda: pipeline.preview_edit(mode=mode, **EDIT_TRANSFORM))
+        # 6. text2img
+        generated, steps["generate"] = _timed(
+            lambda: pipeline.text2img.generate(FG_PROMPT, seed=0))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for app in apps.values():
+            app.shutdown()
+
+    # each response against the same call made here
+    calls = {
+        "depth/estimate_depth": lambda a, k: est.estimate_depth(*a, **k),
+        "remover/remove_foreground":
+            lambda a, k: lama.remove_foreground(*a, **k),
+        "selector/select_foreground":
+            lambda a, k: seg.select_foreground(*a, **k),
+        "text2img/generate": lambda a, k: t2i.generate(*a, **k),
+    }
+
+    def core_set_foreground(a, k):
+        depth, fg_mask, bg_depth = (np.asarray(x, np.float32) for x in a[:3])
+        out = {"bg_depth_harmonized": handles.set_foreground(
+            depth, fg_mask, bg_depth)}
+        if k.get("export_meshes"):
+            intr = handles.diffuser.get_depth_intrinsics()
+            for name, d, m in (("bg_depth_mesh", bg_depth, None),
+                               ("fg_depth_mesh", depth, fg_mask[0, 0])):
+                path = root / f"{name}.glb"
+                save_mesh_glb(path, depth_to_mesh(d, intr, mask=m,
+                                                  device=handles.device))
+                out[name] = path.read_bytes()
+        return out
+
+    def core_transform(a, k):
+        ident = load_identity(io.BytesIO(a[0]))
+        out = handles.transform_foreground(
+            depth=a[1], prompt=a[2], fg_mask=a[3], bg_depth=a[4],
+            null_text_emb=ident["null_text_emb"],
+            init_noise=to_nchw(ident["init_noise"]),
+            activations=[to_nchw(x) for x in ident["activations"]],
+            rot_angle=float(k["rot_angle"]),
+            rot_axis=np.asarray(k["rot_axis"], np.float32),
+            translation=np.asarray(k["translation"], np.float32),
+            fg_weight=k["fg_weight"], bg_weight=k["bg_weight"])
+        return dict(zip(("edited_img", "edited_disparity"), out))
+
+    calls["diffhandles/set_foreground"] = core_set_foreground
+    calls["diffhandles/transform_foreground"] = core_transform
+    for i, req in enumerate(requests):
+        if req["name"] == "diffhandles/set_input_image":
+            a = req["args"]
+            null, noise = handles.invert_input_image(*a)
+            null, noise, acts, latents = handles.generate_input_image(
+                a[1], a[2], null, noise)
+            match = _identity_matches(req["out"], null, noise, acts, latents)
+            bitwise = all(match.values())
+        else:
+            bitwise = _same(req["out"], calls[req["name"]](req["args"],
+                                                           req["kwargs"]))
+        same[f"{i}:{req['name']}"] = bitwise
+        _request_line(req, bitwise)
+    identity_bytes = requests[n - 1]["client"]["response_bytes"]
+
+    res = handles.img_res
+    checks = {
+        "every_request_bitwise_in_process": all(same.values()),
+        # depth + core; selector, remover, depth, core; remover, depth,
+        # core; the meshes; the edit; text2img
+        "requests_answered": len(requests) == 12,
+        "identity_loads_to_the_inversion": all(ident_vs_inversion.values()),
+        "k1_k2_in_transform_request": launches["flash_fwd"] > 0
+        and launches["flash_bwd"] > 0,
+        "no_general_route": _no_general(launches),
+        "edited_shape_finite": edited.shape == (1, 3, res, res)
+        and bool(np.isfinite(edited).all()),
+        "selected_mask_binary": set(np.unique(selected)) <= {0.0, 1.0},
+        "meshes_glb": all(meshes[k][:4] == b"glTF" for k in
+                          ("bg_depth_mesh", "fg_depth_mesh")),
+        "preview_depth": previews["depth"].shape == (1, 1, res, res)
+        and 0.0 <= previews["depth"].min() <= previews["depth"].max() <= 1.0,
+        "preview_rgb": previews["rgb"].shape == (1, 3, res, res)
+        and bool(np.isfinite(previews["rgb"]).all()),
+        "generated": generated.shape == (1, 3, res, res),
+    }
+    checks.update(_soft_raster_check(state, handles.device))
+    checks.update(_lpips_check(img, edited, handles.device))
+    checks = {k: bool(v) for k, v in checks.items()}
+    _line("service", seconds=steps,
+          requests=len(requests), identity_npz_bytes=identity_bytes,
+          flash_fwd=launches["flash_fwd"], flash_bwd=launches["flash_bwd"],
+          peak_bytes=peak, resident_bytes=resident,
+          identity_vs_inversion=ident_vs_inversion, bitwise=same,
+          checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"service checks failed: {checks}")
+    return {k: launches[k] for k in ("flash_fwd", "flash_bwd")}
 
 
 # The foreground phase. CLIP ViT-B/16, SAM ViT-H and GroundingDINO (Swin-T
@@ -3000,7 +3405,10 @@ def main() -> int:
         single_seconds = phase_edit_paths(default, edit)
         phase_edit_batched(default, edit, single_seconds)
         del edit
-        phase_testset(default)
+        est, lama = phase_testset(default)
+        phase_service(default, est, lama, *_service_models(), TESTSET_DIR)
+        del est, lama
+        _free_device_memory()
         phase_unet_reference(default)
         launches = phase_unet_flash_bwd_modes(default)
         default_config = default.diffuser.models.unet_config

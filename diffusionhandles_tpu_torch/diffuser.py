@@ -222,7 +222,11 @@ class GuidedStableDiffuser(GuidedDiffuser):
                         dtype=np.float32)
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        # in the standard layout: a caller's strided array (an image read
+        # as HWC and transposed) would otherwise take other conv
+        # algorithms, and other bits, than the same values packed
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=self.device).contiguous()
 
     def init_depth(self, depth) -> torch.Tensor:
         """Disparity resized (bicubic) to the latent grid and normalized to

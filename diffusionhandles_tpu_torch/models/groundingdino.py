@@ -582,7 +582,8 @@ class GroundingDinoGrounder:
         """(image [1, 3, S, S] normalized, ids [1, L], mask [1, L]) on the
         device, as predict_boxes feeds the model."""
         s = self.input_size
-        x = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+        x = torch.as_tensor(np.ascontiguousarray(img, np.float32),
+                            device=self.device)
         x = resize_nchw(x, (s, s), "bilinear")
         mean = torch.tensor(_IMAGENET_MEAN, device=x.device)[:, None, None]
         std = torch.tensor(_IMAGENET_STD, device=x.device)[:, None, None]

@@ -266,8 +266,10 @@ class LamaInpainter(ForegroundRemover):
     def inpaint(self, image, mask) -> np.ndarray:
         """image [1, 3, H, W] in [0, 1], mask [1, 1, H, W] binary ->
         [1, 3, H, W]."""
-        x = torch.as_tensor(np.asarray(image, np.float32), device=self.device)
-        m = torch.as_tensor(np.asarray(mask, np.float32), device=self.device)
+        x = torch.as_tensor(np.ascontiguousarray(image, np.float32),
+                            device=self.device)
+        m = torch.as_tensor(np.ascontiguousarray(mask, np.float32),
+                            device=self.device)
         out = self.model(torch.cat([x * (1.0 - m), m], dim=1))
         return (out * m + x * (1.0 - m)).cpu().numpy()
 

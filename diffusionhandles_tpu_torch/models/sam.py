@@ -532,7 +532,8 @@ class PromptableSegmenter:
         s = self.config.img_size
         scale = s / max(h, w)
         nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
-        x = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+        x = torch.as_tensor(np.ascontiguousarray(img, np.float32),
+                            device=self.device)
         x = resize_nchw(x, (nh, nw), "bilinear")
         mean = torch.tensor(_PIXEL_MEAN, device=x.device)[:, None, None]
         std = torch.tensor(_PIXEL_STD, device=x.device)[:, None, None]

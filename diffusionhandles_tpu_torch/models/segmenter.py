@@ -108,7 +108,8 @@ class CLIPSegmenter(ForegroundSelector):
     def similarity_map(self, img: np.ndarray, prompt: str) -> np.ndarray:
         """Dense cosine similarity between patch tokens and the prompt,
         [1, H, W]."""
-        x = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+        x = torch.as_tensor(np.ascontiguousarray(img, np.float32),
+                            device=self.device)
         _, patches = self.image_model(x)
         ids = torch.tensor(self.tokenizer([prompt]), dtype=torch.long,
                            device=self.device)

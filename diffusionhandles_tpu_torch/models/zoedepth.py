@@ -376,7 +376,8 @@ class ZoeDepthEstimator(DepthEstimator):
 
     @torch.no_grad()
     def estimate_depth(self, img: np.ndarray) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+        x = torch.as_tensor(np.ascontiguousarray(img, np.float32),
+                            device=self.device)
         return self.model(x)[:, None].cpu().numpy()
 
 

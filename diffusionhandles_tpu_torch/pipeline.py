@@ -90,7 +90,11 @@ class DiffusionHandles:
         return self
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        # in the standard layout: a caller's strided array (an image read
+        # as HWC and transposed) would otherwise take other conv
+        # algorithms, and other bits, than the same values packed
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=self.device).contiguous()
 
     def _disparity(self, depth) -> torch.Tensor:
         return normalize_depth(1.0 / self._tensor(depth))

@@ -190,7 +190,8 @@ def test_diffusion_handles(test_set_path: str, input_dir: str,
 
         # the reconstruction from the latent (reference :121-126) and the
         # recon-vs-input scores (meaningful with released weights only;
-        # LPIPS needs the perceptual weights, not ported: null)
+        # LPIPS needs converted VGG16 perceptual weights, which no release
+        # file here holds: null, as in the JAX driver)
         rec_chw = handles.diffuser.decode_latent_image(
             latent_image)[0].cpu().numpy()
         save_image(rec_chw, sample_out / "recon.png")
@@ -298,7 +299,7 @@ def test_diffusion_handles(test_set_path: str, input_dir: str,
             mean_recon_psnr_db=round(float(np.mean(vals_p)), 3),
             mean_recon_ssim=round(float(np.mean(vals_s)), 4),
             lpips_note=("LPIPS requires converted VGG16 perceptual "
-                        "weights (models/lpips.py, not ported yet); null."),
+                        "weights (models/lpips.py); null without them."),
         )
         with open(output_dir / "metrics.json", "w") as f:
             json.dump(artifact, f, indent=2)

@@ -39,7 +39,7 @@ img { max-width: 192px; display: block; }
 <tr>
 <td>{{ sample.name }}{% if sample.psnr is not none %}
   <div class="caption">recon PSNR: {{ "%.2f" | format(sample.psnr) }} dB{% if sample.ssim is not none %} / SSIM {{ "%.3f" | format(sample.ssim) }}{% endif %}
-  <br>LPIPS: n/a without converted VGG16 weights (models/lpips.py, not ported yet)
+  <br>LPIPS: n/a without converted VGG16 weights (models/lpips.py)
   </div>{% endif %}</td>
 <td><img src="{{ sample.input }}"></td>
 <td><img src="{{ sample.mask }}"></td>

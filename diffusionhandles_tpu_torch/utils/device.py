@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -20,6 +21,13 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return torch.device("cuda")
+
+
+def host_array(x) -> np.ndarray:
+    """A tensor on any device, or an array-like, as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 @contextlib.contextmanager

@@ -122,6 +122,9 @@ def _entry_points():
     from diffusionhandles_tpu_torch import pipeline as tpipeline
     from diffusionhandles_tpu_torch.geometry import mesh_transform as tmt
     from diffusionhandles_tpu_torch.geometry import transform as ttrans
+    from diffusionhandles_tpu_torch.models import lpips as tlpips
+    from diffusionhandles_tpu_torch.service import \
+        pipeline_app as tpipeline_app
     depth = np.full((1, 1, 16, 16), 2.0, np.float32)
     fg = np.zeros_like(depth)
     fg[..., 5:10, 5:10] = 1.0
@@ -144,6 +147,9 @@ def _entry_points():
                 latent_res=8, **kw),
         "transform_depth_mesh": lambda **kw: tmt.transform_depth_mesh(
             depth, depth, fg, np.eye(3), rot_angle=5.0, **kw),
+        "DiffhandlesPipeline": lambda **kw: tpipeline_app.DiffhandlesPipeline(
+            **kw),
+        "LPIPSMetric": lambda **kw: tlpips.LPIPSMetric(**kw),
     }
 
 
@@ -151,7 +157,8 @@ def _entry_points():
                                   "create_sd_models",
                                   "transform_depth_pc_processed",
                                   "transform_depth", "process_correspondences",
-                                  "transform_depth_mesh"])
+                                  "transform_depth_mesh",
+                                  "DiffhandlesPipeline", "LPIPSMetric"])
 def test_entry_points_without_device_raise_without_cuda(name, monkeypatch):
     """With no device and no CUDA, an entry point raises instead of running
     on the CPU; with device="cpu" it runs there."""
@@ -174,7 +181,7 @@ def test_default_device_is_cuda(monkeypatch):
 # ---------------------------------------------------------------------------
 
 ROOT = pathlib.Path(__file__).parents[1]
-FORBIDDEN = ("jax", "flax", "diffusionhandles_tpu")
+FORBIDDEN = ("jax", "flax", "diffusionhandles_tpu", "aiohttp")
 # packages the GPU machine does not have: a function may import one (and
 # is then not called there), a module may not
 NOT_AT_MODULE_LEVEL = ("cv2", "imageio", "PIL", "yaml", "safetensors")
@@ -221,9 +228,11 @@ def _port_sources():
 def test_forbidden_import_check_catches_imports():
     src = ("import jax.numpy as jnp\nfrom flax import linen\n"
            "from diffusionhandles_tpu.ops import conv\n"
-           "import diffusionhandles_tpu_torch.ops\n")
+           "import diffusionhandles_tpu_torch.ops\n"
+           "def serve():\n    from aiohttp import web\n")
     found = [m for m in _imports(ast.parse(src)) if _forbidden(m)]
-    assert found == ["jax.numpy", "flax", "diffusionhandles_tpu.ops"]
+    assert found == ["jax.numpy", "flax", "diffusionhandles_tpu.ops",
+                     "aiohttp"]
 
 
 def test_module_level_import_check_catches_imports():
@@ -240,8 +249,9 @@ def test_module_level_import_check_catches_imports():
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     """No module of the port, and no line of chip_smoke.py, imports jax,
-    flax or the JAX package (the exact module or a submodule; the port's
-    own diffusionhandles_tpu_torch is not one), and none imports cv2,
+    flax, the JAX package or aiohttp (the exact module or a submodule;
+    the port's own diffusionhandles_tpu_torch is not one; the services
+    serve on the standard library), and none imports cv2,
     imageio, PIL, yaml or safetensors when it is imported (the GPU
     machine has none of them)."""
     tree = ast.parse(path.read_text())
