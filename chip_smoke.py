@@ -43,6 +43,22 @@ Phases, each reported on its own line:
      rounding-level nudge gives (BATCH_*); and a batch-4 U-Net with twin
      rows bitwise, cuDNN off, and with conv_per_image (the batched edit's
      route), cuDNN on;
+  4f. unet_conv_modes (after 4b, on the default handles): one guidance
+     forward + backward of that U-Net at 512x512 with each
+     UNetConfig.conv3x3_kernel value (False, True, 'hybrid', 'mixed') on
+     its weights: eps and the latents' gradient against the default's,
+     K7's forward and dx launches of the call (conv 47 / 47, hybrid 0 /
+     47, mixed 47 / 0), no general route, the median device ms;
+  4g. multi_gpu: a world of one over NCCL joined in this process under the
+     env contract (DIFFHANDLES_COORDINATOR, ...), edit_batch of 4b's
+     transforms with mesh=make_mesh(1) bitwise the mesh=None images;
+     then TP_RANKS_ON_CARD ranks spawned over gloo on this card, the sd2
+     U-Net sharded over a model axis of 2 (parallel/sharding.py): one
+     guidance forward + backward in fp32 (TF32 off) against the
+     replicated U-Net in the bands of tests/test_tensor_parallel.py, one
+     with bf16 compute within UNET_RTOL, each rank's parameter bytes,
+     replicated attentions and K1/K2 launches; the process groups are
+     destroyed after; and the number of cards;
   4c. testset: the test-set path at full width on seeded inputs at 512x512
      written with the port's image_io: ZoeDepthEstimator (ZoeDepth-NK,
      BEiT-L-384, the flip batch of 2) and LamaInpainter (big-LaMa), each
@@ -1952,11 +1968,12 @@ def _unet_twin_rows(handles) -> dict:
                 torch.equal(grad_pi[0], grad_pi[2]))}
 
 
-def phase_edit_batched(handles, edit, single_seconds: float) -> dict:
+def phase_edit_batched(handles, edit, single_seconds: float):
     """edit_batch on the default handles: one transform at batch 1 (the
     single edit's bits), then 3 transforms (the first and the last
     identical) in a chunk of 4, EDIT_TIMESTEPS steps, with remat off and
-    then 'dots'. Returns the K1/K2 launches of the remat-off run."""
+    then 'dots'. Returns edit_batch's positional arguments, the
+    transforms and the remat-off run's images."""
     import numpy as np
     import torch
 
@@ -2037,7 +2054,231 @@ def phase_edit_batched(handles, edit, single_seconds: float) -> dict:
     os.environ.pop(BATCHED_REMAT_ENV, None)
     if saved is not None:
         os.environ[BATCHED_REMAT_ENV] = saved
-    return runs[False]["launches"]
+    return args, transforms, runs[False]["imgs"]
+
+
+# The conv3x3_kernel values of the conv-modes phase ('hybrid': K7's dx
+# under cuDNN's forward; 'mixed': K7's forward over a plain fp32 backward)
+CONV_MODES = {"default": False, "conv": True, "hybrid": "hybrid",
+              "mixed": "mixed"}
+CONV_MODE_REPEATS = 2
+
+
+def phase_unet_conv_modes(handles) -> None:
+    """One guidance forward + backward (the latents' gradient) of the sd2
+    U-Net at 512x512, bf16, on the handles' seeded weights, with each
+    conv3x3_kernel value (CONV_MODES): eps and the gradient against the
+    default U-Net's within UNET_RTOL, K7's forward and dx launches of the
+    call (hybrid: dx only; mixed: forward only), no general route, and the
+    median device ms of the call."""
+    import torch
+    unet = handles.diffuser.models.unet
+    x, t, ctx = _unet_input(unet, handles.diffuser.latent_res, 6)
+    ref, checks = None, {}
+    for name, mode in CONV_MODES.items():
+        # K7 (forward, dx) per call: every eligible conv each way the mode
+        # runs K7
+        want = (CONV3_SITES * (mode in (True, "mixed")),
+                CONV3_SITES * (mode in (True, "hybrid")))
+        u = _swapped_unet(unet, conv3x3_kernel=mode) if mode else unet
+        reset_launch_counts()
+        eps, grad = _latents_grad(u, x, t, ctx)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        got = (counts["conv3x3_fwd"], counts["conv3x3_dx"])
+        ref = ref or (eps, grad)
+        err_e, tol_e = _rel_err(eps, ref[0], UNET_RTOL)
+        err_g, tol_g = _rel_err(grad, ref[1], UNET_RTOL)
+        ms = _device_ms(lambda: _latents_grad(u, x, t, ctx),
+                        repeats=CONV_MODE_REPEATS)
+        checks[name] = (got == want and _no_general(counts)
+                        and err_e <= tol_e and err_g <= tol_g
+                        and bool(torch.isfinite(eps).all())
+                        and bool(torch.isfinite(grad).all()))
+        _line("unet_conv_modes", mode=name, conv3x3_kernel=mode,
+              conv3x3_fwd=got[0], conv3x3_dx=got[1], expected=list(want),
+              fwd_bwd_ms=ms, max_abs_err_eps=err_e, tol_eps=tol_e,
+              max_abs_err_grad=err_g, tol_grad=tol_g, ok=checks[name])
+        del u
+    if not all(checks.values()):
+        raise AssertionError(f"conv modes failed: {checks}")
+
+
+# Tensor parallelism on the card: two ranks of a process group on this one
+# card, the sd2 U-Net sharded over a model axis of 2. NCCL refuses two
+# ranks on one device; gloo stages CUDA tensors through the host. A check
+# by hand on the card's torch (2.11, two ranks on one H100) found gloo's
+# all_reduce, all_gather and broadcast right on CUDA fp32, bf16 and fp16
+# tensors, so the phase runs TP_RANKS_ON_CARD ranks; 0 would leave TP=2 to
+# the CPU tests (tests/test_torch_port_parallel.py).
+TP_RANKS_ON_CARD = 2
+TP_DIR = pathlib.Path(__file__).resolve().parent / "build" / "multi_gpu"
+# the bands of tests/test_tensor_parallel.py: the forward (fp32) ...
+TP_FWD_RTOL, TP_FWD_ATOL = 2e-4, 2e-5
+# ... and the gradient, its atol a share of the largest gradient
+TP_GRAD_RTOL, TP_GRAD_ATOL = 5e-3, 2e-3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _in_band(got, want, rtol, atol) -> dict:
+    """Elementwise |got - want| <= atol + rtol |want|: the worst excess
+    over the bound (<= 0 inside) and the largest error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return {"max_abs_err": err.max().item(),
+            "worst_over_band": (err - atol - rtol * want.abs()).max().item()}
+
+
+def _tp_rank(rank: int, port: int, world: int) -> None:
+    """One rank of the TP=2 check (spawned): joins over gloo on card 0,
+    builds the sd2 U-Net with the handles' seeded weights in fp32 (TF32
+    off), and runs one guidance forward + backward of it sharded over the
+    model axis, in fp32 and then with bf16 compute; rank 0 also runs the
+    replicated U-Net. Writes its results to TP_DIR."""
+    import torch
+    import torch.distributed as dist
+
+    from diffusionhandles_tpu_torch.diffuser import seeded_init_
+    from diffusionhandles_tpu_torch.models.unet import (UNet2DConditionModel,
+                                                        UNetConfig)
+    from diffusionhandles_tpu_torch.parallel.distributed import \
+        init_distributed
+    from diffusionhandles_tpu_torch.parallel.mesh import make_mesh
+    from diffusionhandles_tpu_torch.parallel.sharding import shard_unet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", world, rank, local_device_ids=[0],
+                     backend="gloo")
+    mesh = make_mesh(world, model_parallel=world)
+    cfg = UNetConfig(dtype=torch.float32, param_dtype=torch.float32,
+                     flash_attention=True)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(cfg)
+    seeded_init_(unet, torch.Generator(device="cuda").manual_seed(0))
+    unet.eval().requires_grad_(False)
+    x, t, ctx = _unet_input(unet, 64, 7)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        rep = _swapped_unet(unet, dtype=dtype)
+        tp = shard_unet(_swapped_unet(unet, dtype=dtype), mesh)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        eps, grad = _latents_grad(tp, x, t, ctx)
+        torch.cuda.synchronize()
+        row = {"seconds": time.perf_counter() - start,
+               "launches": {k: n for k, n in launch_counts().items() if n},
+               "param_bytes": sum(p.numel() * p.element_size()
+                                  for p in tp.parameters()),
+               "replicated_param_bytes": sum(
+                   p.numel() * p.element_size() for p in rep.parameters()),
+               "replicated_attentions": sum(
+                   type(m).__name__ == "Attention" for m in tp.modules()),
+               "finite": bool(torch.isfinite(eps).all()
+                              and torch.isfinite(grad).all())}
+        if rank == 0:
+            eps_r, grad_r = _latents_grad(rep, x, t, ctx)
+            row["eps"] = _in_band(eps, eps_r, TP_FWD_RTOL, TP_FWD_ATOL)
+            row["grad"] = _in_band(
+                grad, grad_r, TP_GRAD_RTOL,
+                TP_GRAD_ATOL * max(grad_r.abs().max().item(), 1.0))
+            row["eps_rel"] = _rel_err(eps, eps_r, UNET_RTOL)
+            row["grad_rel"] = _rel_err(grad, grad_r, UNET_RTOL)
+        res[name] = row
+        del rep, tp
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    with open(TP_DIR / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_multi_gpu(handles, batched) -> None:
+    """Multi-GPU editing as far as one card shows it. (1) A world of one
+    over NCCL in this process, joined under the env contract
+    (maybe_init_from_env): edit_batch of the batched phase's transforms
+    with mesh=make_mesh(1) must equal its mesh=None images bitwise. (2)
+    TP_RANKS_ON_CARD ranks over gloo on this card (_tp_rank): the sharded
+    U-Net's eps within the forward band of the replicated one's and its
+    latents' gradient within the gradient band (fp32), bf16 within
+    UNET_RTOL; each rank's parameter bytes, replicated attentions and K1/K2
+    launches. (3) The number of cards: figures across cards need more than
+    one."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from diffusionhandles_tpu_torch.parallel.batch import edit_batch
+    from diffusionhandles_tpu_torch.parallel.distributed import \
+        maybe_init_from_env
+    from diffusionhandles_tpu_torch.parallel.mesh import make_mesh
+    args, transforms, want = batched
+    env = {"DIFFHANDLES_COORDINATOR": f"localhost:{_free_port()}",
+           "DIFFHANDLES_NUM_PROCESSES": "1", "DIFFHANDLES_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        info = maybe_init_from_env()
+        backend = dist.get_backend()
+        mesh = make_mesh(1)
+        reset_launch_counts()
+        imgs, seconds = _timed(lambda: edit_batch(
+            handles, *args, transforms, mesh, chunk=4))
+        launches = launch_counts()
+    finally:
+        for k in env:
+            os.environ.pop(k)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    world1 = {"info": info, "backend": backend, "mesh": list(mesh.shape),
+              "seconds": seconds, "flash_fwd": launches["flash_fwd"],
+              "flash_bwd": launches["flash_bwd"],
+              "bitwise_mesh_none": bool(np.array_equal(imgs, want))}
+    checks = {"world1_nccl": backend == "nccl",
+              "world1_bitwise": world1["bitwise_mesh_none"]}
+
+    tp = {"tp_ranks_on_card": TP_RANKS_ON_CARD}
+    if TP_RANKS_ON_CARD:
+        _free_device_memory()
+        for old in TP_DIR.glob("rank*.json"):
+            old.unlink()
+        start = time.perf_counter()
+        mp.spawn(_tp_rank, args=(_free_port(), TP_RANKS_ON_CARD),
+                 nprocs=TP_RANKS_ON_CARD)
+        tp["seconds"] = time.perf_counter() - start
+        ranks = [json.loads((TP_DIR / f"rank{r}.json").read_text())
+                 for r in range(TP_RANKS_ON_CARD)]
+        tp["ranks"] = ranks
+        r0 = ranks[0]
+        checks.update({
+            "tp_gloo": all(r["backend"] == "gloo" for r in ranks),
+            "tp_finite": all(r[d]["finite"] for r in ranks
+                             for d in ("fp32", "bf16")),
+            "tp_fp32_eps_in_band": r0["fp32"]["eps"]["worst_over_band"] <= 0,
+            "tp_fp32_grad_in_band": (r0["fp32"]["grad"]["worst_over_band"]
+                                     <= 0),
+            "tp_bf16_within_unet_rtol": all(
+                r0["bf16"][k][0] <= r0["bf16"][k][1]
+                for k in ("eps_rel", "grad_rel")),
+            "tp_k1_k2_each_rank": all(
+                r["bf16"]["launches"].get("flash_fwd", 0) > 0
+                and r["bf16"]["launches"].get("flash_bwd", 0) > 0
+                for r in ranks),
+            "tp_params_sharded": all(
+                r["fp32"]["param_bytes"]
+                < 0.6 * r["fp32"]["replicated_param_bytes"] for r in ranks)})
+    else:
+        tp["reason"] = ("gloo in this torch refuses a CUDA collective the "
+                        "TP path needs (hand check)")
+    _line("multi_gpu", world1=world1, tp=tp,
+          device_count=torch.cuda.device_count(), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"multi-GPU checks failed: {checks}")
 
 
 # The test-set phase. ZoeDepth-NK and big-LaMa run fp32 with TF32 off, on
@@ -3403,8 +3644,12 @@ def main() -> int:
         default, _, _, _, edit = phase_edit("edit", EDIT_TIMESTEPS,
                                             ("flash_fwd", "flash_bwd"))
         single_seconds = phase_edit_paths(default, edit)
-        phase_edit_batched(default, edit, single_seconds)
+        batched = phase_edit_batched(default, edit, single_seconds)
         del edit
+        _free_device_memory()
+        phase_unet_conv_modes(default)
+        phase_multi_gpu(default, batched)
+        del batched
         est, lama = phase_testset(default)
         phase_service(default, est, lama, *_service_models(), TESTSET_DIR)
         del est, lama

@@ -18,8 +18,9 @@ the fused GroupNorm switches on (`UNetConfig.fused_gn_conv`, `fused_gn`),
 the resnet halves and the GroupNorm sites take the kernels of
 `ops/gn_conv.py` and `ops/groupnorm.py` where the JAX package's gates send
 them; with `UNetConfig.conv3x3_kernel`, the resnet and upsampler 3x3 convs
-take the conv kernel of `ops/conv.py` where its gate passes. The parameters
-are the same either way.
+take the conv kernel of `ops/conv.py` where its gate passes ('hybrid': its
+dx kernel under the library forward; 'mixed': its forward kernel over a
+plain backward). The parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -36,12 +37,18 @@ from torch.utils import checkpoint as ckpt
 
 from diffusionhandles_tpu_torch.ops import groupnorm
 from diffusionhandles_tpu_torch.ops.attention import dot_product_attention
-from diffusionhandles_tpu_torch.ops.conv import (conv3x3, conv3x3_ok,
+from diffusionhandles_tpu_torch.ops.conv import (conv3x3, conv3x3_hybrid,
+                                                 conv3x3_mixed, conv3x3_ok,
                                                  in_kernel_layout,
                                                  to_kernel_layout)
 from diffusionhandles_tpu_torch.ops.gn_conv import (gn_silu_conv3x3,
                                                     gn_silu_conv3x3_ok,
                                                     gn_silu_conv3x3_ref)
+
+
+# UNetConfig.conv3x3_kernel -> the conv op of ops/conv.py it selects
+CONV3X3_MODES = {False: None, True: conv3x3, "hybrid": conv3x3_hybrid,
+                 "mixed": conv3x3_mixed}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +61,12 @@ class UNetConfig:
     fused_gn mirrors its pallas_gn=True: the transformer norms,
     conv_norm_out and, without fused_gn_conv, the resnet norms take the
     GroupNorm op (ops/groupnorm.py). conv3x3_kernel mirrors its
-    pallas_conv=True: the resnet and upsampler 3x3 convs take the conv op
-    (ops/conv.py) where its gate passes; conv_in, conv_out and the
+    pallas_conv=True, 'hybrid' and 'mixed': the resnet and upsampler 3x3
+    convs take the conv op (ops/conv.py: conv3x3, conv3x3_hybrid,
+    conv3x3_mixed) where its gate passes; conv_in, conv_out and the
     downsamplers stay F.conv2d, as they stay XLA convs there. fused_gn_conv
-    and conv3x3_kernel are two values of that one JAX field, so they
-    exclude each other.
+    and conv3x3_kernel are values of that one JAX field, so they exclude
+    each other.
 
     conv_per_image runs every Conv2d of a batch image by image, so that an
     image's output does not depend on its position in the batch: at batch
@@ -88,7 +96,9 @@ class UNetConfig:
     flash_attention: bool = False
     fused_gn_conv: bool = False
     fused_gn: bool = False
-    conv3x3_kernel: bool = False
+    # False | True | 'hybrid' | 'mixed' (the JAX UNetConfig.pallas_conv
+    # values that select conv3x3, conv3x3_hybrid and conv3x3_mixed)
+    conv3x3_kernel: Union[bool, str] = False
     conv_per_image: bool = False
     # False | True (each down and up block recomputed in the backward) |
     # 'dots' (the matmul and convolution outputs saved, the rest
@@ -100,6 +110,9 @@ class UNetConfig:
             raise ValueError("fused_gn_conv and conv3x3_kernel are two "
                              "values of the JAX package's pallas_conv; "
                              "set at most one")
+        if self.conv3x3_kernel not in CONV3X3_MODES:
+            raise ValueError(f"conv3x3_kernel={self.conv3x3_kernel!r}: "
+                             "False, True, 'hybrid' or 'mixed'")
         if self.remat not in (False, True, "dots"):
             raise ValueError(f"remat={self.remat!r}: False, True or 'dots'")
 
@@ -158,17 +171,19 @@ class Conv2d(nn.Conv2d):
 
 
 class Conv3x3(Conv2d):
-    """A 3x3 SAME Conv2d (same parameters) that, with `kernel`, runs the
-    conv op of ops/conv.py where its gate passes (the JAX package's
-    Conv3x3 with impl 'pallas'), else F.conv2d. With `kernel` the weight is
-    held in the kernel's layout (channels-last), set at construction and
-    again after every state-dict load: `load_state_dict(assign=True)`
-    replaces the parameter with the source tensor."""
+    """A 3x3 SAME Conv2d (same parameters) that, with `kernel` (a value of
+    UNetConfig.conv3x3_kernel), runs that conv op of ops/conv.py where its
+    gate passes (the JAX package's Conv3x3 with impl 'pallas', 'hybrid' or
+    'mixed'), else F.conv2d. With any `kernel` the weight is held in the
+    kernel's layout (channels-last; the hybrid dx kernel reads it too),
+    set at construction and again after every state-dict load:
+    `load_state_dict(assign=True)` replaces the parameter with the source
+    tensor."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
-                 kernel: bool = False):
+                 kernel: Union[bool, str] = False):
         super().__init__(in_channels, out_channels, 3, padding=1,
                          dtype=dtype, param_dtype=param_dtype)
         self.kernel = kernel
@@ -188,7 +203,7 @@ class Conv3x3(Conv2d):
         if self.kernel and conv3x3_ok(
                 (b, h, w, ci), (3, 3, ci, self.out_channels),
                 dtype_bytes=torch.finfo(dt).bits // 8):
-            return (conv3x3(x.to(dt), self.weight)
+            return (CONV3X3_MODES[self.kernel](x.to(dt), self.weight)
                     + self.bias.to(dt)[:, None, None])
         return super()._forward_one(x)
 
@@ -244,7 +259,7 @@ class ResnetBlock2D(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, temb_ch: Optional[int],
                  groups: int, eps: float, dtype, param_dtype,
                  fused_gn_conv: bool = False, fused_gn: bool = False,
-                 conv3x3_kernel: bool = False):
+                 conv3x3_kernel: Union[bool, str] = False):
         super().__init__()
         self.dtype = dtype
         self.fused_gn_conv, self.fused_gn = fused_gn_conv, fused_gn
@@ -414,7 +429,7 @@ class Downsample2D(nn.Module):
 
 class Upsample2D(nn.Module):
     def __init__(self, channels: int, dtype, param_dtype,
-                 conv3x3_kernel: bool = False):
+                 conv3x3_kernel: Union[bool, str] = False):
         super().__init__()
         self.conv = Conv3x3(channels, channels, dtype=dtype,
                             param_dtype=param_dtype, kernel=conv3x3_kernel)

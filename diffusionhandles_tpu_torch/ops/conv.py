@@ -26,6 +26,10 @@ else the general kernel (`csrc/conv_general.cu`: fp32, fp16 or bf16, any
 channel count; tf32 products on the tensor cores, fp32 as three passes,
 split over K by `plan_conv3x3_general`), counted as `conv3x3_fwd_general` /
 `conv3x3_dx_general`.
+
+The JAX package's two mixed routes are here too: `conv3x3_hybrid` (the
+library's forward, this kernel's dx; its `pallas_conv='hybrid'`) and
+`conv3x3_mixed` (this kernel's forward, a plain backward; 'mixed').
 """
 
 from __future__ import annotations
@@ -588,11 +592,78 @@ class Conv3x3Function(torch.autograd.Function):
         return dx, dw
 
 
+def _records_grad(x, w) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+
+
 def conv3x3(x, w):
     """3x3 SAME stride-1 conv over x [B, Ci, H, W], no bias. Callers gate
     with conv3x3_ok. Where no gradient is recorded (the pipeline's
     inference calls) the forward runs without the autograd Function, which
     costs ~20 us of host time a call."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if _records_grad(x, w):
         return Conv3x3Function.apply(x, w)
+    return conv3x3_fwd(x, w)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's two mixed routes (conv.py:172-183 and 284-310): the
+# kernel on one side of the custom VJP only
+# ---------------------------------------------------------------------------
+
+def library_conv3x3(x, w):
+    """The library's 3x3 SAME conv with the kernel's numerics: y in x's
+    dtype, the fp32 sum of products of x and w cast to x's dtype, rounded
+    once. On the card cuDNN's half-precision convs sum in fp32 and round
+    once; on the CPU the fp32 sum is taken explicitly (conv3x3_fwd_ref)."""
+    if x.device.type == "cpu":
+        return conv3x3_fwd_ref(x, w)
+    return F.conv2d(x, w.to(x.dtype), padding=1)
+
+
+class Conv3x3HybridFunction(Conv3x3Function):
+    """The JAX package's conv3x3_hybrid: the library conv forward (XLA's
+    there) with Conv3x3Function's backward, dx on the kernel's dx route,
+    dw the plain recomputation made only when asked for."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return library_conv3x3(x, w)
+
+
+class Conv3x3MixedFunction(torch.autograd.Function):
+    """The JAX package's conv3x3_mixed: the kernel's forward with the
+    backward of its `_taps_dx_dw`. That backward is plain jnp there, no
+    Pallas kernel, so this is its counterpart and not a port of a kernel:
+    dx and dw are the fp32 sums rounded once (conv3x3_dx_ref,
+    conv3x3_dw), each made only when asked for."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3x3_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx = conv3x3_dx_ref(dy, w, x.dtype) if need[0] else None
+        dw = conv3x3_dw(x, dy, w.dtype) if need[1] else None
+        return dx, dw
+
+
+def conv3x3_hybrid(x, w):
+    """3x3 SAME stride-1 conv, no bias: the library forward and the
+    kernel's dx (Conv3x3HybridFunction). Callers gate with conv3x3_ok."""
+    if _records_grad(x, w):
+        return Conv3x3HybridFunction.apply(x, w)
+    return library_conv3x3(x, w)
+
+
+def conv3x3_mixed(x, w):
+    """3x3 SAME stride-1 conv, no bias: the kernel's forward and a plain
+    backward (Conv3x3MixedFunction). Callers gate with conv3x3_ok."""
+    if _records_grad(x, w):
+        return Conv3x3MixedFunction.apply(x, w)
     return conv3x3_fwd(x, w)

@@ -7,8 +7,15 @@ depths and correspondences are batched. Each guidance iteration is ONE
 batch-B U-Net forward + backward (the energy is the sum of the per-sample
 losses, so its gradient to the batched latents is the stack of the
 per-sample gradients), and each denoising step ONE batch-2B
-classifier-free-guidance pass. The JAX package's sharding over a 'data'
-mesh axis is not ported: this runs on one device.
+classifier-free-guidance pass.
+
+Over a ('data', 'model') mesh (`parallel/mesh.py`) every rank makes the
+same call: rank (d, m) runs the data slice d of the transforms with the
+U-Net sharded over the model axis (`parallel/sharding.py`; the VAE and the
+text encoder stay replicated, as in the JAX package), and the final
+latents are all-gathered over the data axis, so every rank returns every
+image. A data axis that does not divide the batch raises, as the JAX
+package's jit with P('data') does; `chunk` pads to a batch it divides.
 
 Equal transforms in one batch give equal bits, as in the JAX package: at
 batch > 1 the U-Net runs its convolutions image by image
@@ -33,6 +40,11 @@ from diffusionhandles_tpu_torch.guidance import (
     background_orig_precompute, build_guidance_weight_schedule,
     foreground_loss_apply, foreground_orig_precompute)
 from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
+from diffusionhandles_tpu_torch.parallel.sharding import (axis_size,
+                                                          gather_batch,
+                                                          shard_batch,
+                                                          shard_params,
+                                                          shard_unet)
 from diffusionhandles_tpu_torch.scheduler import ddim_step
 
 
@@ -73,22 +85,29 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
     At B > 1 both passes run copies of the diffuser's U-Net on the same
     weights with conv_per_image set; at B = 1 they run it as the single
     edit does.
-    mesh: the JAX package's 'data' axis; sharding is not ported, so it
-    must be None.
+    mesh: a ('data', 'model') DeviceMesh, or None. With one, every rank
+    calls run with the whole batch: it runs its data slice (B over the
+    data axis, which must divide B) on copies of the U-Net sharded over
+    the model axis (where that is > 1), and returns every rank's latents.
     remat: the recompute of the GRAD-path U-Net in this runner only
     ('dots', or any other non-empty value for whole blocks); the CFG pass
     does not recompute. None reads DIFFHANDLES_BATCHED_REMAT (unset:
     off)."""
-    if mesh is not None:
-        raise NotImplementedError("sharding edit_batch over a mesh is not "
-                                  "ported; pass mesh=None")
     if remat is None:
         remat = os.environ.get("DIFFHANDLES_BATCHED_REMAT") or None
     remat = ("dots" if remat == "dots" else True) if remat else False
     unet = diffuser.models.unet
+    tensor_parallel = mesh is not None and axis_size(mesh, "model") > 1
 
     def unets(b: int):
         """(grad-path U-Net, CFG U-Net) for batch b."""
+        if tensor_parallel:  # copies holding one set of this rank's shards
+            local = shard_params(unet.state_dict(), mesh, "model",
+                                 unet.config)
+            grad = _unet_copy(unet, remat=remat, conv_per_image=b > 1)
+            cfg = _unet_copy(unet, conv_per_image=b > 1)
+            return (shard_unet(grad, mesh, params=local),
+                    shard_unet(cfg, mesh, params=local))
         if b > 1:
             return (_unet_copy(unet, remat=remat, conv_per_image=True),
                     _unet_copy(unet, conv_per_image=True))
@@ -146,6 +165,12 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
 
     def run(init_latents, depth64, uncond_seq, cond, acts_orig, fgw, bgw,
             pcs):
+        if mesh is not None:
+            init_latents = shard_batch(init_latents, mesh)
+            depth64 = (None if depth64 is None
+                       else shard_batch(depth64, mesh))
+            pcs = ProcessedCorrespondences(*(shard_batch(f, mesh)
+                                             for f in pcs))
         latents = init_latents
         b = latents.shape[0]
         grad_unet, cfg_unet = unets(b)
@@ -163,7 +188,7 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
                     latents = latents - glr * grad
             latents = cfg_batch(cfg_unet, latents, depth64, uncond_seq[i],
                                 cond, i)
-        return latents
+        return latents if mesh is None else gather_batch(latents, mesh)
 
     return run
 
@@ -181,12 +206,13 @@ def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
                transforms: List[dict], mesh=None, chunk: int = 0,
                return_disparities: bool = False):
     """Run N transforms of one inverted image as ONE batched guided
-    denoising on the handles' device.
+    denoising on the handles' device (over a mesh: on every rank, each
+    running its share; see the module docstring).
 
     transforms: dicts with 'rotation_angle', 'rotation_axis',
       'translation' (the photogen transforms.json schema).
-    mesh: must be None (sharding over the JAX package's 'data' axis is
-      not ported).
+    mesh: a ('data', 'model') DeviceMesh (parallel/mesh.make_mesh) whose
+      data axis divides the batch, or None.
     chunk: when nonzero, the transforms go in fixed batches of this size,
       the last padded by repeating its final transform (the padded rows are
       discarded).
@@ -199,9 +225,6 @@ def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
     from diffusionhandles_tpu_torch.geometry.transform import (
         transform_depth, transform_depth_pc_processed)
 
-    if mesh is not None:
-        raise NotImplementedError("sharding edit_batch over a mesh is not "
-                                  "ported; pass mesh=None")
     if chunk and len(transforms) != chunk:
         imgs_all, disps_all = [], []
         for i in range(0, len(transforms), chunk):
@@ -209,7 +232,7 @@ def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
             pad = chunk - len(sub)
             imgs, disps = edit_batch(
                 handles, depth, prompt, fg_mask, bg_depth, null_text_emb,
-                init_noise, activations, sub + [sub[-1]] * pad,
+                init_noise, activations, sub + [sub[-1]] * pad, mesh=mesh,
                 return_disparities=True)
             imgs_all.append(imgs[:len(sub)])
             disps_all.append(disps[:len(sub)])
@@ -252,7 +275,7 @@ def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
                  for a in activations]
     run = build_batched_guided_inference(
         d, conf.num_optsteps, conf.guidance_max_step, conf.bg_loss_type,
-        conf.fg_patch_size, conf.bg_patch_size)
+        conf.fg_patch_size, conf.bg_patch_size, mesh=mesh)
     latents = run(init_lat, torch.stack(depth64s) if conf.use_depth
                   else None, uncond_seq, cond, acts_orig, fgw, bgw,
                   stack_pcs(pcs))

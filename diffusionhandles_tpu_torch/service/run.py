@@ -6,7 +6,10 @@ Names: pipeline, diffhandles, depth, remover, selector, text2img, on ports
 launcher's names, ports and checkpoint flags. The services serve on the
 GPU. The pipeline service finds the others at DIFFHANDLES_{CORE, DEPTH,
 REMOVER, SELECTOR, TEXT2IMG}_URL (deploy/k8s sets these to its Service
-names), else on the local ports.
+names), else on the local ports. Under the env contract of
+`parallel/distributed.py` (DIFFHANDLES_COORDINATOR, _NUM_PROCESSES,
+_PROCESS_ID) the process first joins the launcher's process group on its
+GPU.
 """
 
 from __future__ import annotations
@@ -38,15 +41,16 @@ def main(argv=None):
     parser.add_argument("--bert_vocab", default=None)
     args = parser.parse_args(argv)
 
-    # The JAX launcher joins a multi-controller runtime under this
-    # contract; the port has no multi-host placement yet (ROADMAP.md,
-    # queue 1 item 6, multi-GPU), and serving as one process would ignore
-    # the launcher's layout.
-    if os.environ.get("DIFFHANDLES_COORDINATOR"):
-        raise NotImplementedError(
-            "DIFFHANDLES_COORDINATOR is set, but the PyTorch services do "
-            "not join a multi-host runtime (ROADMAP.md queue 1 item 6, "
-            "multi-GPU); unset it to serve on one process")
+    # Multi-host placement: join the launcher's process group when it set
+    # the env contract (parallel/distributed.py), before any model loads.
+    from diffusionhandles_tpu_torch.parallel.distributed import \
+        maybe_init_from_env
+    dist = maybe_init_from_env()
+    if dist is not None:
+        print(f"joined distributed runtime: process "
+              f"{dist['process_id']}/{dist['num_processes']}, "
+              f"{dist['local_devices']} local / {dist['global_devices']} "
+              f"global devices", flush=True)
 
     from diffusionhandles_tpu_torch.service import pipeline_app, services
     port = args.port or DEFAULT_PORTS[args.service]

@@ -312,8 +312,9 @@ def test_shared_functions_keep_jax_parameters():
 def test_api_members_added_for_the_jax_surface():
     """scheduler.scale_model_input is the identity; the abstract bases
     raise; the diffuser's shapes are NCHW; DiffusionHandles.to moves the
-    models; edit_batch and its runner take `mesh` before `chunk` and refuse
-    one (sharding is not ported)."""
+    models; edit_batch and its runner take `mesh` before `chunk` and
+    accept one: on a world of one (make_mesh(1)) edit_batch gives the
+    mesh=None rows bitwise."""
     from diffusionhandles_tpu_torch.diffuser import (GuidedDiffuser,
                                                      GuidedStableDiffuser)
     from diffusionhandles_tpu_torch.inverter import (NullInverter,
@@ -336,8 +337,31 @@ def test_api_members_added_for_the_jax_surface():
     assert h.to("meta") is h and h.device == torch.device("meta")
     assert d.models.unet.conv_in.weight.device.type == "meta"
     assert not d._prompt_cache
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tbatch.edit_batch(h, None, "", None, None, None, None, None, [{}],
-                          object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tbatch.build_batched_guided_inference(d, 1, 1, "l2", 1, 1, object())
+    import torch.distributed as dist
+
+    from diffusionhandles_tpu_torch.parallel.mesh import make_mesh
+    from torch_port_rig import one_thread, sample
+    conf = tconfig.DiffusionHandlesConfig()
+    g = conf.guided_diffuser
+    g.num_timesteps, g.guidance_max_step, g.num_optsteps = 2, 1, 1
+    g.dtype = g.param_dtype = g.activation_store_dtype = "float32"
+    h = DiffusionHandles(conf, variant="tiny", device="cpu")
+    s = sample(h.img_res)
+    trs = [{"rotation_angle": 10.0, "rotation_axis": [0, 1, 0]},
+           {"translation": [0.05, 0.0, 0.0]}]
+    with one_thread():  # bitwise reruns on the CPU
+        null, noise, acts, _ = h.generate_input_image(s["depth"], "a cube")
+        args = (s["depth"], "a cube", s["fg_mask"], s["bg_depth"], null,
+                noise, acts, trs)
+        want = tbatch.edit_batch(h, *args)
+        mesh = make_mesh(1, device="cpu")
+        try:
+            assert mesh.shape == (1, 1)
+            assert mesh.mesh_dim_names == ("data", "model")
+            got = tbatch.edit_batch(h, *args, mesh)
+            assert callable(tbatch.build_batched_guided_inference(
+                h.diffuser, 1, 1, "l2", 1, 1, mesh))
+        finally:
+            dist.destroy_process_group()
+    assert got.shape == (2, 3, h.img_res, h.img_res)
+    np.testing.assert_array_equal(got, want)

@@ -664,10 +664,27 @@ def test_save_denoising_steps_raises_as_in_jax(rig, mesh_of_services,
 # The launcher
 # ---------------------------------------------------------------------------
 
-def test_run_refuses_a_multi_host_launch(monkeypatch):
-    monkeypatch.setenv("DIFFHANDLES_COORDINATOR", "10.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        trun.main(["depth", "--variant", "tiny"])
+def test_run_refuses_a_multi_host_launch(monkeypatch, capsys):
+    """Under the env contract the launcher joins the process group on its
+    GPU before it serves: with no GPU it raises (it never joins over gloo
+    on its own); joined, it prints the JAX launcher's line and serves."""
+    monkeypatch.setenv("DIFFHANDLES_COORDINATOR", "localhost:1")
+    monkeypatch.setenv("DIFFHANDLES_NUM_PROCESSES", "2")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trun.main(["depth", "--variant", "tiny"])
+    from diffusionhandles_tpu_torch.parallel import distributed
+    served = []
+    monkeypatch.setattr(distributed, "maybe_init_from_env", lambda: dict(
+        process_id=1, num_processes=2, local_devices=1, global_devices=2))
+    monkeypatch.setattr(tbase.Webapp, "run", lambda self: served.append(
+        self))
+    monkeypatch.setattr(tapp, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    trun.main(["pipeline"])
+    assert isinstance(served[-1], tapp.DiffhandlesPipelineWebapp)
+    assert ("joined distributed runtime: process 1/2, 1 local / 2 global "
+            "devices") in capsys.readouterr().out
 
 
 def test_run_pipeline_discovers_its_services(monkeypatch):
