@@ -1,0 +1,3 @@
+"""Idle share of the device over an edit's traced calls, in percent."""
+
+from benchmark.readers import idle_share as read  # noqa: F401
