@@ -53,6 +53,7 @@ from diffusionhandles_tpu_torch.ops.resize import resize_hw
 from diffusionhandles_tpu_torch.scheduler import (add_noise, ddim_step,
                                                   make_ddim_schedule)
 from diffusionhandles_tpu_torch.utils.device import resolve_device
+from diffusionhandles_tpu_torch.utils.profiling import span
 from diffusionhandles_tpu_torch.utils.rng import seeded_randn
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -255,15 +256,18 @@ class GuidedStableDiffuser(GuidedDiffuser):
     @torch.no_grad()
     def encode_latent_image(self, image) -> torch.Tensor:
         """[1, 3, H, W] in [0, 1] -> scaled latents [1, 4, h, w]."""
-        image = self._tensor(image)
-        return (self.models.vae.encode(image * 2.0 - 1.0)
-                * self.models.vae_config.scaling_factor)
+        with span("vae.encode"):
+            image = self._tensor(image)
+            return (self.models.vae.encode(image * 2.0 - 1.0)
+                    * self.models.vae_config.scaling_factor)
 
     @torch.no_grad()
     def decode_latent_image(self, latents) -> torch.Tensor:
         """Scaled latents -> image [1, 3, H, W] clipped to [0, 1]."""
-        z = self._tensor(latents) / self.models.vae_config.scaling_factor
-        return torch.clamp(self.models.vae.decode(z) / 2.0 + 0.5, 0.0, 1.0)
+        with span("vae.decode"):
+            z = self._tensor(latents) / self.models.vae_config.scaling_factor
+            return torch.clamp(self.models.vae.decode(z) / 2.0 + 0.5, 0.0,
+                               1.0)
 
     def seeded_init_latents(self) -> torch.Tensor:
         """Zeros noised to timesteps[0] with the seeded CPU noise
@@ -283,20 +287,22 @@ class GuidedStableDiffuser(GuidedDiffuser):
         return torch.cat([latents, depth64.expand(b, -1, -1, -1)], dim=1)
 
     def timestep(self, step_idx: int) -> torch.Tensor:
-        return torch.tensor(int(self.schedule.timesteps[step_idx]),
-                            device=self.device)
+        with span("sync.timestep"):
+            return torch.tensor(int(self.schedule.timesteps[step_idx]),
+                                device=self.device)
 
     def cfg_step(self, latents, depth64, uncond_t, cond, step_idx: int):
         """One classifier-free-guidance DDIM step (batch-2 U-Net pass).
         Returns (new latents, the cond row's activations)."""
-        lat2 = torch.cat([latents, latents], dim=0)
-        ctx = torch.stack([uncond_t, cond[0]], dim=0)
-        eps, acts, _ = self.models.unet(self.unet_in(lat2, depth64),
-                                        self.timestep(step_idx), ctx)
-        gs = self.conf.guidance_scale
-        noise_pred = eps[0] + gs * (eps[1] - eps[0])
-        return (ddim_step(self.schedule, noise_pred[None], step_idx,
-                          latents), acts)
+        with span("cfg.step"):
+            lat2 = torch.cat([latents, latents], dim=0)
+            ctx = torch.stack([uncond_t, cond[0]], dim=0)
+            eps, acts, _ = self.models.unet(self.unet_in(lat2, depth64),
+                                            self.timestep(step_idx), ctx)
+            gs = self.conf.guidance_scale
+            noise_pred = eps[0] + gs * (eps[1] - eps[0])
+            return (ddim_step(self.schedule, noise_pred[None], step_idx,
+                              latents), acts)
 
     # ------------------------------------------------------------------
 
@@ -337,12 +343,13 @@ class GuidedStableDiffuser(GuidedDiffuser):
         _, acts, _ = self.models.unet(self.unet_in(latents, depth64),
                                       self.timestep(step_idx), cond)
         loss = 0.0
-        for k in range(3):
-            loss = loss + float(fgw[k]) * foreground_loss_apply(
-                fg_pre[k], acts[k][0], pc, conf.fg_patch_size, size)
-            loss = loss + float(bgw[k]) * background_loss_apply(
-                bg_pre[k], acts[k][0], pc, conf.bg_patch_size, size,
-                conf.bg_loss_type)
+        with span("guidance.energy"):
+            for k in range(3):
+                loss = loss + float(fgw[k]) * foreground_loss_apply(
+                    fg_pre[k], acts[k][0], pc, conf.fg_patch_size, size)
+                loss = loss + float(bgw[k]) * background_loss_apply(
+                    bg_pre[k], acts[k][0], pc, conf.bg_patch_size, size,
+                    conf.bg_loss_type)
         return loss
 
     def guided_inference(self, latents, depth, uncond_embeddings,
@@ -386,39 +393,45 @@ class GuidedStableDiffuser(GuidedDiffuser):
         steps = []
 
         for i in range(T):
-            if i < conf.guidance_max_step:
-                # latent-independent halves of the losses, once per step
-                fg_pre = [foreground_orig_precompute(
-                    acts_orig[k][i], pc, conf.fg_patch_size, size)
-                    for k in range(3)]
-                bg_pre = [background_orig_precompute(
-                    acts_orig[k][i], pc, conf.bg_patch_size, size,
-                    conf.bg_loss_type) for k in range(3)]
-                for it in range(conf.num_optsteps):
-                    lat = latents.detach().requires_grad_(True)
-                    with torch.enable_grad():
-                        energy = self.guidance_energy(
-                            lat, depth64, cond, i, fg_pre, bg_pre,
-                            fgw[i, it], bgw[i, it], pc)
-                        (grad,) = torch.autograd.grad(energy, lat)
-                    latents = latents - conf.guidance_lr * grad
-            # past guidance_max_step "post opt" is the previous step's
-            # latents, as the reference's empty opt loop leaves them
-            post_opt = latents
-            with torch.no_grad():
-                latents, _ = self.cfg_step(latents, depth64, uncond_seq[i],
-                                           cond, i)
-            if save_denoising_steps:
-                steps.append((self._decoded_nhwc(post_opt),
-                              self._decoded_nhwc(latents)))
+            with span("step"):
+                if i < conf.guidance_max_step:
+                    # latent-independent halves of the losses, once per step
+                    fg_pre = [foreground_orig_precompute(
+                        acts_orig[k][i], pc, conf.fg_patch_size, size)
+                        for k in range(3)]
+                    bg_pre = [background_orig_precompute(
+                        acts_orig[k][i], pc, conf.bg_patch_size, size,
+                        conf.bg_loss_type) for k in range(3)]
+                    for it in range(conf.num_optsteps):
+                        with span("guidance.opt_step"):
+                            lat = latents.detach().requires_grad_(True)
+                            with torch.enable_grad():
+                                energy = self.guidance_energy(
+                                    lat, depth64, cond, i, fg_pre, bg_pre,
+                                    fgw[i, it], bgw[i, it], pc)
+                                with span("guidance.backward"):
+                                    (grad,) = torch.autograd.grad(energy,
+                                                                  lat)
+                            with span("guidance.update"):
+                                latents = latents - conf.guidance_lr * grad
+                # past guidance_max_step "post opt" is the previous step's
+                # latents, as the reference's empty opt loop leaves them
+                post_opt = latents
+                with torch.no_grad():
+                    latents, _ = self.cfg_step(latents, depth64,
+                                               uncond_seq[i], cond, i)
+                if save_denoising_steps:
+                    steps.append((self._decoded_nhwc(post_opt),
+                                  self._decoded_nhwc(latents)))
         image = self.decode_latent_image(latents)
         if save_denoising_steps:
             return image, {"opt": steps}
         return image
 
     def _decoded_nhwc(self, latents) -> np.ndarray:
-        return self.decode_latent_image(latents).permute(
-            0, 2, 3, 1).cpu().numpy()
+        image = self.decode_latent_image(latents).permute(0, 2, 3, 1)
+        with span("sync.step_decode_to_host"):
+            return image.cpu().numpy()
 
     def process_correspondences(self, correspondences, img_res: int,
                                 bg_erosion: int = 0

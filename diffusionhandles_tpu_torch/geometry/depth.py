@@ -18,6 +18,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from diffusionhandles_tpu_torch.utils.profiling import span
+
 
 def normalize_depth(depth: torch.Tensor, bounds=None,
                     return_bounds: bool = False):
@@ -66,11 +68,16 @@ def depth_to_world_coords(depth: torch.Tensor, intrinsics,
         raise RuntimeError(
             f"Expected depth to have at least 2 pixels per dim, got {h}x{w}")
     dev = depth.device
-    k_inv = torch.linalg.inv(torch.as_tensor(
-        intrinsics, dtype=torch.float32).cpu()).to(dev)
+    with span("sync.intrinsics_to_host"):
+        k = torch.as_tensor(intrinsics, dtype=torch.float32).cpu()
+    k_inv = torch.linalg.inv(k)
+    with span("sync.intrinsics_inverse"):
+        k_inv = k_inv.to(dev)
     coord = image_plane_coords(h, w, dev)
     pts = depth[..., None] * _mat3_apply(k_inv, coord)
-    pts = pts * torch.tensor([-1.0, -1.0, 1.0], device=dev)
+    with span("sync.axis_flip"):
+        flip = torch.tensor([-1.0, -1.0, 1.0], device=dev)
+    pts = pts * flip
     if extrinsics_R is not None or extrinsics_t is not None:
         rot = (torch.eye(3) if extrinsics_R is None else torch.as_tensor(
             extrinsics_R, dtype=torch.float32)).to(dev)
@@ -128,7 +135,9 @@ def points_to_depth(points: torch.Tensor, intrinsics: torch.Tensor,
                   if point_mask is None else point_mask.bool())
     valid = (torch.ones(n, dtype=torch.bool, device=dev)
              if valid is None else valid.bool())
-    pts = points * torch.tensor([-1.0, -1.0, 1.0], device=dev)
+    with span("sync.axis_flip"):
+        flip = torch.tensor([-1.0, -1.0, 1.0], device=dev)
+    pts = points * flip
     proj = torch.einsum("ij,nj->ni", intrinsics.float(), pts)
     u = proj[:, 0] / proj[:, 2]
     v = proj[:, 1] / proj[:, 2]

@@ -28,18 +28,22 @@ from diffusionhandles_tpu_torch.ops.poisson import poisson_solve
 from diffusionhandles_tpu_torch.utils.correspondences import \
     pack_correspondences
 from diffusionhandles_tpu_torch.utils.device import resolve_device
+from diffusionhandles_tpu_torch.utils.profiling import span
 
 
 def rodrigues_rotate(points, rot_axis, rot_angle_deg: float):
     """Rotate [N, 3] points about the origin (reference:
     depth_transform.py:446-454)."""
-    axis = torch.as_tensor(rot_axis, dtype=torch.float32,
-                           device=points.device)
+    with span("sync.rotation_axis"):
+        axis = torch.as_tensor(rot_axis, dtype=torch.float32,
+                               device=points.device)
     axis = axis / torch.linalg.norm(axis)
     angle = torch.tensor(np.float32(rot_angle_deg), dtype=torch.float32) * (
         math.pi / 180.0)
-    c, s = torch.cos(angle).to(points.device), torch.sin(angle).to(
-        points.device)
+    with span("sync.rotation_angle"):
+        c = torch.cos(angle).to(points.device)
+    with span("sync.rotation_angle"):
+        s = torch.sin(angle).to(points.device)
     term1 = points * c
     term2 = torch.linalg.cross(axis.expand_as(points), points) * s
     term3 = axis * (points * axis).sum(-1, keepdim=True) * (1 - c)
@@ -71,8 +75,10 @@ def transform_point_cloud(points, rot_axis, rot_angle_deg, translation,
     mf = m.reshape(-1, 1)
     centroid = (flat * mf).sum(0) / torch.clamp(mf.sum(), min=1e-12)
     out = rodrigues_rotate(flat - centroid, rot_axis, rot_angle_deg)
-    out = out + centroid + torch.as_tensor(translation, dtype=torch.float32,
-                                           device=points.device)
+    with span("sync.translation"):
+        t = torch.as_tensor(translation, dtype=torch.float32,
+                            device=points.device)
+    out = out + centroid + t
     return out.reshape(h, w, 3), m.reshape(-1) > 0.5
 
 
@@ -115,9 +121,12 @@ def _edit_inputs(depth, bg_depth, fg_mask, rot_angle, rot_axis,
     """The inputs as fp32 tensors on `device` (depth and bg_depth
     [1, 1, H, W], fg [H, W]) and the transform with its defaults."""
     hw = (np.shape(depth)[-2], np.shape(depth)[-1])
-    depth, bg_depth, fg = (
-        torch.as_tensor(a, dtype=torch.float32, device=device)
-        for a in (depth, bg_depth, fg_mask))
+    moved = []
+    for a in (depth, bg_depth, fg_mask):
+        with span("sync.edit_inputs"):
+            moved.append(torch.as_tensor(a, dtype=torch.float32,
+                                         device=device))
+    depth, bg_depth, fg = moved
     rot_axis = (np.array([0.0, 1.0, 0.0], np.float32) if rot_axis is None
                 else np.asarray(rot_axis, np.float32))
     translation = (np.zeros(3, np.float32) if translation is None
@@ -178,10 +187,14 @@ def transform_depth_pc(depth, bg_depth, fg_mask, intrinsics,
     device = resolve_device(device)
     depth, bg_depth, fg, rot_angle, rot_axis, translation = _edit_inputs(
         depth, bg_depth, fg_mask, rot_angle, rot_axis, translation, device)
-    if not bool((fg > 0.5).any()):
+    with span("sync.foreground_any"):
+        no_fg = not bool((fg > 0.5).any())
+    if no_fg:
         return _empty_result(depth, use_input_depth_normalization)
     img_res = _check_square(fg.shape)
-    intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=device)
+    with span("sync.intrinsics"):
+        intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
+                               device=device)
     inpainted, u, v, visible, cleaned = _transform_depth_pc_device(
         depth, bg_depth, fg, intr, rot_axis, rot_angle, translation,
         img_res, use_input_depth_normalization)
@@ -214,7 +227,9 @@ def transform_depth_pc_processed(depth, bg_depth, fg_mask, intrinsics,
         depth, bg_depth, fg_mask, rot_angle, rot_axis, translation, device)
     img_res = _check_square(fg.shape)
     n = img_res * img_res
-    if not bool((fg > 0.5).any()):
+    with span("sync.foreground_any"):
+        no_fg = not bool((fg > 0.5).any())
+    if no_fg:
         # no foreground: the disparity is the input's, and no point binds
         none = torch.zeros(n, dtype=torch.long, device=device)
         pc = process_correspondences_device(
@@ -223,7 +238,9 @@ def transform_depth_pc_processed(depth, bg_depth, fg_mask, intrinsics,
             latent_res=latent_res)
         return normalize_depth(1.0 / depth), pc
 
-    intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=device)
+    with span("sync.intrinsics"):
+        intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
+                               device=device)
     inpainted, u, v, visible, cleaned = _transform_depth_pc_device(
         depth, bg_depth, fg, intr, rot_axis, rot_angle, translation,
         img_res, use_input_depth_normalization)

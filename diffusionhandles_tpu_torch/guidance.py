@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from diffusionhandles_tpu_torch.ops.resize import resize_hw
 from diffusionhandles_tpu_torch.utils.device import resolve_device
+from diffusionhandles_tpu_torch.utils.profiling import span
 
 EPS = 1e-10  # reference: losses.py:75
 
@@ -142,7 +143,8 @@ def process_correspondences_device(u, v, visible, cleaned, fg,
     key = ((oyl * L + oxl) * L + tyl) * L + txl
     sentinel = L ** 4
     key = torch.where(keep, key, torch.full_like(key, sentinel))
-    uniq, counts = torch.unique(key, return_counts=True)
+    with span("sync.correspondence_unique"):
+        uniq, counts = torch.unique(key, return_counts=True)
     # the fixed-size unique of the JAX package: max_corr + 1 sorted slots,
     # padded with the sentinel
     size = max_corr + 1

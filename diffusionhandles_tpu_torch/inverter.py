@@ -24,6 +24,7 @@ import torch
 
 from diffusionhandles_tpu_torch.diffuser import GuidedStableDiffuser
 from diffusionhandles_tpu_torch.scheduler import ddim_next_step, ddim_step
+from diffusionhandles_tpu_torch.utils.profiling import span
 
 
 class NullInverter:
@@ -64,8 +65,9 @@ class StableNullInverter(NullInverter):
         traj = [latent0]
         latent = latent0
         for i in range(S):
-            eps = self._unet(latent, depth64, cond, S - 1 - i)[0]
-            latent = ddim_next_step(self.model.schedule, eps, i, latent)
+            with span("invert.ddim_step"):
+                eps = self._unet(latent, depth64, cond, S - 1 - i)[0]
+                latent = ddim_next_step(self.model.schedule, eps, i, latent)
             traj.append(latent)
         return torch.stack(traj)
 
@@ -91,34 +93,42 @@ class StableNullInverter(NullInverter):
                                            - np.float32(i) / np.float32(100)))
             thresh = float(np.float32(epsilon)
                            + np.float32(i) * np.float32(2e-5))
-            with torch.no_grad():
-                eps_cond, cond_acts, _ = self._unet(latent_cur, depth64, cond,
-                                                   i)
-            if record:
-                recorded.append([a[0].to(m.act_dtype) for a in cond_acts])
+            with span("null_text.step"):
+                with torch.no_grad():
+                    eps_cond, cond_acts, _ = self._unet(latent_cur, depth64,
+                                                       cond, i)
+                if record:
+                    recorded.append([a[0].to(m.act_dtype)
+                                     for a in cond_acts])
 
-            uncond = uncond.detach().clone().requires_grad_(True)
-            opt = torch.optim.Adam([uncond], lr=lr)
-            j, last_loss = 0, float("inf")
-            while j < num_inner_steps and (j == 0 or last_loss >= thresh):
-                with torch.enable_grad():
+                uncond = uncond.detach().clone().requires_grad_(True)
+                opt = torch.optim.Adam([uncond], lr=lr)
+                j, last_loss = 0, float("inf")
+                while j < num_inner_steps and (j == 0 or last_loss >= thresh):
+                    with span("null_text.inner"):
+                        with torch.enable_grad():
+                            eps_u = self._unet(latent_cur, depth64, uncond,
+                                               i)[0]
+                            eps = eps_u + gs * (eps_cond - eps_u)
+                            rec = ddim_step(schedule, eps, i, latent_cur)
+                            loss = torch.mean((rec - latent_prev) ** 2)
+                            opt.zero_grad(set_to_none=True)
+                            with span("null_text.backward"):
+                                loss.backward()
+                        with span("null_text.adam"):
+                            opt.step()
+                        # the data-dependent early stop
+                        with span("sync.null_text_loss"):
+                            last_loss = loss.item()
+                    j += 1
+                if verbose:
+                    print(f"null-text step {i + 1}/{S}: {j} iterations, "
+                          f"loss {last_loss:.3e}", flush=True)
+                uncond = uncond.detach()
+                with torch.no_grad():
                     eps_u = self._unet(latent_cur, depth64, uncond, i)[0]
                     eps = eps_u + gs * (eps_cond - eps_u)
-                    rec = ddim_step(schedule, eps, i, latent_cur)
-                    loss = torch.mean((rec - latent_prev) ** 2)
-                    opt.zero_grad(set_to_none=True)
-                    loss.backward()
-                opt.step()
-                last_loss = loss.item()  # the data-dependent early stop
-                j += 1
-            if verbose:
-                print(f"null-text step {i + 1}/{S}: {j} iterations, "
-                      f"loss {last_loss:.3e}", flush=True)
-            uncond = uncond.detach()
-            with torch.no_grad():
-                eps_u = self._unet(latent_cur, depth64, uncond, i)[0]
-                eps = eps_u + gs * (eps_cond - eps_u)
-                latent_cur = ddim_step(schedule, eps, i, latent_cur)
+                    latent_cur = ddim_step(schedule, eps, i, latent_cur)
             uncond_seq.append(uncond)
         uncond_seq = torch.stack(uncond_seq)
         if not record:

@@ -56,6 +56,7 @@ from diffusionhandles_tpu_torch.utils.cuda_build import (ELEM_CODES,
                                                          load_library,
                                                          raise_on, route,
                                                          run_route, stream_of)
+from diffusionhandles_tpu_torch.utils.profiling import span
 
 # Launches of each kernel wrapper, the Hopper kernels' and the general
 # kernels' (`<name>_general`), since the last reset_launch_counts().
@@ -63,6 +64,8 @@ LAUNCHES: Dict[str, int] = {
     n: 0 for k in ("flash_fwd", "flash_fwd_unfolded", "flash_fwd_stream",
                    "flash_bwd", "flash_bwd_twopass", "flash_bwd_fold")
     for n in (k, general(k))}
+# the span of each wrapper's launch, by its LAUNCHES key
+_SPANS = {n: "kernel." + n for n in LAUNCHES}
 
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_general.cu",
                   "flash_general_bwd.cu")
@@ -413,18 +416,19 @@ def _fwd_launch(q, k, v, f32_sum: bool, name: str,
     b, sq, h, d = q.shape
     sk = k.shape[1]
     plan = plan or plan_flash(b, h, sq, sk)
-    lib = kernel_library()
-    (q, sq_), (k, sk_), (v, sv_) = (_tma_operand(x) for x in (q, k, v))
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    strides = _strides_arg((sq_, sk_, sv_))
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"flash_fwd_{HALF_SUFFIX[q.dtype]}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), strides.buffer_info()[0], b, sq, sk, h,
-            *plan.launch_args(), int(f32_sum), stream_of(q))
-    raise_on(err, name)
-    LAUNCHES[name] += 1
+    with span(_SPANS[name]):
+        lib = kernel_library()
+        (q, sq_), (k, sk_), (v, sv_) = (_tma_operand(x) for x in (q, k, v))
+        o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+        strides = _strides_arg((sq_, sk_, sv_))
+        with torch.cuda.device(q.device):
+            err = getattr(lib, f"flash_fwd_{HALF_SUFFIX[q.dtype]}")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), strides.buffer_info()[0], b, sq, sk, h,
+                *plan.launch_args(), int(f32_sum), stream_of(q))
+        raise_on(err, name)
+        LAUNCHES[name] += 1
     return o, lse
 
 
@@ -461,25 +465,26 @@ def _bwd_cuda(q, k, v, o, lse, do, name: str, fold_delta: bool = False):
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b * h, sq):
         raise ValueError(f"lse must be fp32 [{b * h}, {sq}], got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    lib = kernel_library()
-    operands = [_tma_operand(x) for x in (q, k, v, o, do)]
-    (q, _), (k, _), (v, _), (o, _), (do, _) = operands
-    lse = lse.contiguous()
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    sqp = math.ceil(sq / BWD_PAD) * BWD_PAD
-    scratch = torch.empty((2 * b * h * sqp,), dtype=torch.float32,
-                          device=q.device)
-    strides = _strides_arg([st for _, st in operands])
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"flash_bwd_{HALF_SUFFIX[q.dtype]}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), scratch.data_ptr(), strides.buffer_info()[0], b,
-            sq, sk, h, int(fold_delta), stream_of(q))
-    raise_on(err, name)
-    LAUNCHES[name] += 1
+    with span(_SPANS[name]):
+        lib = kernel_library()
+        operands = [_tma_operand(x) for x in (q, k, v, o, do)]
+        (q, _), (k, _), (v, _), (o, _), (do, _) = operands
+        lse = lse.contiguous()
+        dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+        sqp = math.ceil(sq / BWD_PAD) * BWD_PAD
+        scratch = torch.empty((2 * b * h * sqp,), dtype=torch.float32,
+                              device=q.device)
+        strides = _strides_arg([st for _, st in operands])
+        with torch.cuda.device(q.device):
+            err = getattr(lib, f"flash_bwd_{HALF_SUFFIX[q.dtype]}")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), scratch.data_ptr(), strides.buffer_info()[0],
+                b, sq, sk, h, int(fold_delta), stream_of(q))
+        raise_on(err, name)
+        LAUNCHES[name] += 1
     return dq, dk, dv
 
 
@@ -522,16 +527,18 @@ def _fwd_general(q, k, v, f32_sum: bool, name: str):
     _check_general(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    strides = _strides_arg(x.stride() for x in (q, k, v))
-    with torch.cuda.device(q.device):
-        err = kernel_library().flash_general_fwd(
-            elem_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), strides.buffer_info()[0], b, sq,
-            sk, h, d, int(f32_sum), 1.0 / math.sqrt(d), stream_of(q))
-    raise_on(err, general(name))
-    LAUNCHES[general(name)] += 1
+    with span(_SPANS[general(name)]):
+        o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+        strides = _strides_arg(x.stride() for x in (q, k, v))
+        with torch.cuda.device(q.device):
+            err = kernel_library().flash_general_fwd(
+                elem_code(q.dtype), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                strides.buffer_info()[0], b, sq, sk, h, d, int(f32_sum),
+                1.0 / math.sqrt(d), stream_of(q))
+        raise_on(err, general(name))
+        LAUNCHES[general(name)] += 1
     return o, lse
 
 
@@ -545,21 +552,23 @@ def _bwd_general(q, k, v, o, lse, do, name: str, mode: int):
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b * h, sq):
         raise ValueError(f"lse must be fp32 [{b * h}, {sq}], got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    lse = lse.contiguous()
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    delta = torch.empty((b * h * sq,), dtype=torch.float32, device=q.device)
-    strides = _strides_arg(x.stride() for x in (q, k, v, o, do))
-    with torch.cuda.device(q.device):
-        err = kernel_library().flash_general_bwd(
-            elem_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            strides.buffer_info()[0], b, sq, sk, h, d, mode,
-            1.0 / math.sqrt(d), stream_of(q))
-    raise_on(err, general(name))
-    LAUNCHES[general(name)] += 1
+    with span(_SPANS[general(name)]):
+        lse = lse.contiguous()
+        dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+        delta = torch.empty((b * h * sq,), dtype=torch.float32,
+                            device=q.device)
+        strides = _strides_arg(x.stride() for x in (q, k, v, o, do))
+        with torch.cuda.device(q.device):
+            err = kernel_library().flash_general_bwd(
+                elem_code(q.dtype), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                delta.data_ptr(), strides.buffer_info()[0], b, sq, sk, h, d,
+                mode, 1.0 / math.sqrt(d), stream_of(q))
+        raise_on(err, general(name))
+        LAUNCHES[general(name)] += 1
     return dq, dk, dv
 
 

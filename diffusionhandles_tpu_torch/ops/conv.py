@@ -50,11 +50,14 @@ from diffusionhandles_tpu_torch.utils.cuda_build import (ELEM_CODES,
                                                          load_library,
                                                          raise_on, route,
                                                          run_route, stream_of)
+from diffusionhandles_tpu_torch.utils.profiling import span
 
 # Launches of each kernel wrapper, the Hopper kernel's and the general
 # kernel's (`<name>_general`), since the last reset_launch_counts().
 LAUNCHES: Dict[str, int] = {
     n: 0 for k in ("conv3x3_fwd", "conv3x3_dx") for n in (k, general(k))}
+# the span of each wrapper's launch, by its LAUNCHES key
+_SPANS = {n: "kernel." + n for n in LAUNCHES}
 
 # One library for the conv kernels and the fused GN+SiLU+conv kernels
 # (ops/gn_conv.py), which run these GEMMs (csrc/conv.cuh).
@@ -462,18 +465,21 @@ def _launch(name, src, w, plan: Optional[ConvPlan] = None):
     kch, nch = (co, ci) if name == "conv3x3_dx" else (ci, co)
     b, h, wd = _check(src, w, ci, co)
     plan = plan or plan_conv3x3(b, h, wd, kch, nch)
-    out = torch.empty((b, nch, h, wd), dtype=src.dtype,
-                      device=src.device, memory_format=torch.channels_last)
-    part = (torch.empty((plan.splits * b * h * wd * nch,),
-                        dtype=torch.float32, device=src.device)
-            if plan.splits > 1 else None)
-    entry = getattr(kernel_library(), f"{name}_{HALF_SUFFIX[src.dtype]}")
-    with torch.cuda.device(src.device):
-        err = entry(src.data_ptr(), w.data_ptr(), out.data_ptr(),
-                    None if part is None else part.data_ptr(), b, h, wd, ci,
-                    co, *plan.launch_args(), stream_of(src))
-    raise_on(err, name)
-    LAUNCHES[name] += 1
+    with span(_SPANS[name]):
+        out = torch.empty((b, nch, h, wd), dtype=src.dtype,
+                          device=src.device,
+                          memory_format=torch.channels_last)
+        part = (torch.empty((plan.splits * b * h * wd * nch,),
+                            dtype=torch.float32, device=src.device)
+                if plan.splits > 1 else None)
+        entry = getattr(kernel_library(),
+                        f"{name}_{HALF_SUFFIX[src.dtype]}")
+        with torch.cuda.device(src.device):
+            err = entry(src.data_ptr(), w.data_ptr(), out.data_ptr(),
+                        None if part is None else part.data_ptr(), b, h, wd,
+                        ci, co, *plan.launch_args(), stream_of(src))
+        raise_on(err, name)
+        LAUNCHES[name] += 1
     return out
 
 
@@ -524,19 +530,20 @@ def _general_launch(name, src, w, dtype,
                dtypes=tuple(ELEM_CODES))
     b, _, h, wd = src.shape
     plan = plan or plan_conv3x3_general(b, h, wd, kch, nch)
-    out = torch.empty((b, nch, h, wd), dtype=dtype, device=src.device,
-                      memory_format=torch.channels_last)
-    part = (torch.empty((plan.splits * b * h * wd * nch,),
-                        dtype=torch.float32, device=src.device)
-            if plan.splits > 1 else None)
-    with torch.cuda.device(src.device):
-        err = kernel_library().conv3x3_general(
-            elem_code(dtype), int(name == "conv3x3_dx"), src.data_ptr(),
-            w.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(), b, h, wd, ci, co,
-            *plan.launch_args(), stream_of(src))
-    raise_on(err, general(name))
-    LAUNCHES[general(name)] += 1
+    with span(_SPANS[general(name)]):
+        out = torch.empty((b, nch, h, wd), dtype=dtype, device=src.device,
+                          memory_format=torch.channels_last)
+        part = (torch.empty((plan.splits * b * h * wd * nch,),
+                            dtype=torch.float32, device=src.device)
+                if plan.splits > 1 else None)
+        with torch.cuda.device(src.device):
+            err = kernel_library().conv3x3_general(
+                elem_code(dtype), int(name == "conv3x3_dx"), src.data_ptr(),
+                w.data_ptr(), out.data_ptr(),
+                None if part is None else part.data_ptr(), b, h, wd, ci, co,
+                *plan.launch_args(), stream_of(src))
+        raise_on(err, general(name))
+        LAUNCHES[general(name)] += 1
     return out
 
 

@@ -56,6 +56,7 @@ from diffusionhandles_tpu_torch.utils.cuda_build import (ELEM_CODES,
                                                          elem_code, general,
                                                          raise_on, route,
                                                          run_route, stream_of)
+from diffusionhandles_tpu_torch.utils.profiling import span
 
 # Launches of each kernel wrapper, the Hopper kernels' and the general
 # instances' (`<name>_general`), since the last reset_launch_counts().
@@ -237,27 +238,28 @@ def _fwd_launch(x, gamma, beta, w, groups: int, eps: float,
     reach every kernel instance): (y, mean, rsig)."""
     b, ci, co, h, wd = _check_conv(x, w, groups)
     plan = plan or plan_conv3x3(b, h, wd, ci, co)
-    dev = x.device
-    y = torch.empty((b, co, h, wd), dtype=x.dtype, device=dev,
-                    memory_format=torch.channels_last)
-    z = torch.empty_like(x)
-    mean = torch.empty((b, groups), dtype=torch.float32, device=dev)
-    rsig = torch.empty_like(mean)
-    sums = _slot_sums(b, h, wd, ci, dev)
-    part = (torch.empty((plan.splits * b * h * wd * co,),
-                        dtype=torch.float32, device=dev)
-            if plan.splits > 1 else None)
-    g32 = gamma.float().contiguous()
-    b32 = beta.float().contiguous()
-    with torch.cuda.device(dev):
-        err = getattr(kernel_library(),
-                      f"gn_conv_fwd_{HALF_SUFFIX[x.dtype]}")(
-            x.data_ptr(), g32.data_ptr(), b32.data_ptr(), w.data_ptr(),
-            y.data_ptr(), z.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
-            sums.data_ptr(), None if part is None else part.data_ptr(), b,
-            h, wd, ci, co, groups, eps, *plan.launch_args(), stream_of(x))
-    raise_on(err, "gn_silu_conv3x3_fwd")
-    LAUNCHES["gn_silu_conv3x3_fwd"] += 1
+    with span("kernel.gn_silu_conv3x3_fwd"):
+        dev = x.device
+        y = torch.empty((b, co, h, wd), dtype=x.dtype, device=dev,
+                        memory_format=torch.channels_last)
+        z = torch.empty_like(x)
+        mean = torch.empty((b, groups), dtype=torch.float32, device=dev)
+        rsig = torch.empty_like(mean)
+        sums = _slot_sums(b, h, wd, ci, dev)
+        part = (torch.empty((plan.splits * b * h * wd * co,),
+                            dtype=torch.float32, device=dev)
+                if plan.splits > 1 else None)
+        g32 = gamma.float().contiguous()
+        b32 = beta.float().contiguous()
+        with torch.cuda.device(dev):
+            err = getattr(kernel_library(),
+                          f"gn_conv_fwd_{HALF_SUFFIX[x.dtype]}")(
+                x.data_ptr(), g32.data_ptr(), b32.data_ptr(), w.data_ptr(),
+                y.data_ptr(), z.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
+                sums.data_ptr(), None if part is None else part.data_ptr(), b,
+                h, wd, ci, co, groups, eps, *plan.launch_args(), stream_of(x))
+        raise_on(err, "gn_silu_conv3x3_fwd")
+        LAUNCHES["gn_silu_conv3x3_fwd"] += 1
     return y, mean, rsig
 
 
@@ -272,26 +274,27 @@ def _dx_launch(x, gamma, beta, w, mean, rsig, dy, groups: int,
         raise ValueError(f"gn_silu_conv3x3: dy {tuple(dy.shape)} is not a "
                          f"channels-last {(b, co, h, wd)}")
     plan = plan or plan_conv3x3(b, h, wd, co, ci, f32_out=True)
-    dev = x.device
-    dx = torch.empty_like(x)
-    part = torch.empty((plan.splits * b * h * wd * ci,), dtype=torch.float32,
-                       device=dev)
-    dxh = torch.empty((b * h * wd * ci,), dtype=torch.float32, device=dev)
-    sums = _slot_sums(b, h, wd, ci, dev)
-    t12 = torch.empty((2 * b * groups,), dtype=torch.float32, device=dev)
-    g32 = gamma.float().contiguous()
-    b32 = beta.float().contiguous()
-    mean, rsig = mean.contiguous(), rsig.contiguous()
-    with torch.cuda.device(dev):
-        err = getattr(kernel_library(),
-                      f"gn_conv_dx_{HALF_SUFFIX[x.dtype]}")(
-            x.data_ptr(), g32.data_ptr(), b32.data_ptr(), w.data_ptr(),
-            mean.data_ptr(), rsig.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            part.data_ptr(), dxh.data_ptr(), sums.data_ptr(),
-            t12.data_ptr(), b, h, wd, ci, co, groups, *plan.launch_args(),
-            stream_of(x))
-    raise_on(err, "gn_silu_conv3x3_dx")
-    LAUNCHES["gn_silu_conv3x3_dx"] += 1
+    with span("kernel.gn_silu_conv3x3_dx"):
+        dev = x.device
+        dx = torch.empty_like(x)
+        part = torch.empty((plan.splits * b * h * wd * ci,),
+                           dtype=torch.float32, device=dev)
+        dxh = torch.empty((b * h * wd * ci,), dtype=torch.float32, device=dev)
+        sums = _slot_sums(b, h, wd, ci, dev)
+        t12 = torch.empty((2 * b * groups,), dtype=torch.float32, device=dev)
+        g32 = gamma.float().contiguous()
+        b32 = beta.float().contiguous()
+        mean, rsig = mean.contiguous(), rsig.contiguous()
+        with torch.cuda.device(dev):
+            err = getattr(kernel_library(),
+                          f"gn_conv_dx_{HALF_SUFFIX[x.dtype]}")(
+                x.data_ptr(), g32.data_ptr(), b32.data_ptr(), w.data_ptr(),
+                mean.data_ptr(), rsig.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                part.data_ptr(), dxh.data_ptr(), sums.data_ptr(),
+                t12.data_ptr(), b, h, wd, ci, co, groups, *plan.launch_args(),
+                stream_of(x))
+        raise_on(err, "gn_silu_conv3x3_dx")
+        LAUNCHES["gn_silu_conv3x3_dx"] += 1
     return dx
 
 
@@ -334,27 +337,28 @@ def gn_silu_conv3x3_fwd_general(x, gamma, beta, w, groups: int,
     w = _operand(w, x.dtype)
     b, ci, co, h, wd = _check_general(x, w, groups)
     plan = plan_conv3x3_general(b, h, wd, ci, co)
-    dev = x.device
-    part = (torch.empty((plan.splits * b * h * wd * co,),
-                        dtype=torch.float32, device=dev)
-            if plan.splits > 1 else None)
-    y = torch.empty((b, co, h, wd), dtype=x.dtype, device=dev,
-                    memory_format=torch.channels_last)
-    z = torch.empty_like(x)
-    mean = torch.empty((b, groups), dtype=torch.float32, device=dev)
-    rsig = torch.empty_like(mean)
-    sums = _slot_sums(b, h, wd, ci, dev)
-    g32 = gamma.float().contiguous()
-    b32 = beta.float().contiguous()
-    with torch.cuda.device(dev):
-        err = kernel_library().gn_conv_fwd_general(
-            elem_code(x.dtype), x.data_ptr(), g32.data_ptr(), b32.data_ptr(),
-            w.data_ptr(), y.data_ptr(), z.data_ptr(), mean.data_ptr(),
-            rsig.data_ptr(), sums.data_ptr(),
-            None if part is None else part.data_ptr(), b, h, wd, ci, co,
-            groups, eps, *plan.launch_args(), stream_of(x))
-    raise_on(err, "gn_silu_conv3x3_fwd_general")
-    LAUNCHES["gn_silu_conv3x3_fwd_general"] += 1
+    with span("kernel.gn_silu_conv3x3_fwd_general"):
+        dev = x.device
+        part = (torch.empty((plan.splits * b * h * wd * co,),
+                            dtype=torch.float32, device=dev)
+                if plan.splits > 1 else None)
+        y = torch.empty((b, co, h, wd), dtype=x.dtype, device=dev,
+                        memory_format=torch.channels_last)
+        z = torch.empty_like(x)
+        mean = torch.empty((b, groups), dtype=torch.float32, device=dev)
+        rsig = torch.empty_like(mean)
+        sums = _slot_sums(b, h, wd, ci, dev)
+        g32 = gamma.float().contiguous()
+        b32 = beta.float().contiguous()
+        with torch.cuda.device(dev):
+            err = kernel_library().gn_conv_fwd_general(
+                elem_code(x.dtype), x.data_ptr(), g32.data_ptr(),
+                b32.data_ptr(), w.data_ptr(), y.data_ptr(), z.data_ptr(),
+                mean.data_ptr(), rsig.data_ptr(), sums.data_ptr(),
+                None if part is None else part.data_ptr(), b, h, wd, ci, co,
+                groups, eps, *plan.launch_args(), stream_of(x))
+        raise_on(err, "gn_silu_conv3x3_fwd_general")
+        LAUNCHES["gn_silu_conv3x3_fwd_general"] += 1
     return y, mean, rsig
 
 
@@ -371,25 +375,27 @@ def gn_silu_conv3x3_dx_general(x, gamma, beta, w, mean, rsig, dy,
         raise ValueError(f"gn_silu_conv3x3: dy {tuple(dy.shape)} is not "
                          f"{(b, co, h, wd)}")
     plan = plan_conv3x3_general(b, h, wd, co, ci, f32_out=True)
-    dev = x.device
-    dx = torch.empty_like(x)
-    part = torch.empty((plan.splits * b * h * wd * ci,), dtype=torch.float32,
-                       device=dev)
-    dxh = torch.empty((b * h * wd * ci,), dtype=torch.float32, device=dev)
-    sums = _slot_sums(b, h, wd, ci, dev)
-    t12 = torch.empty((2 * b * groups,), dtype=torch.float32, device=dev)
-    g32 = gamma.float().contiguous()
-    b32 = beta.float().contiguous()
-    mean, rsig = mean.contiguous(), rsig.contiguous()
-    with torch.cuda.device(dev):
-        err = kernel_library().gn_conv_dx_general(
-            elem_code(x.dtype), x.data_ptr(), g32.data_ptr(), b32.data_ptr(),
-            w.data_ptr(), mean.data_ptr(), rsig.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), dxh.data_ptr(), sums.data_ptr(),
-            t12.data_ptr(), b, h, wd, ci, co, groups, *plan.launch_args(),
-            stream_of(x))
-    raise_on(err, "gn_silu_conv3x3_dx_general")
-    LAUNCHES["gn_silu_conv3x3_dx_general"] += 1
+    with span("kernel.gn_silu_conv3x3_dx_general"):
+        dev = x.device
+        dx = torch.empty_like(x)
+        part = torch.empty((plan.splits * b * h * wd * ci,),
+                           dtype=torch.float32, device=dev)
+        dxh = torch.empty((b * h * wd * ci,), dtype=torch.float32, device=dev)
+        sums = _slot_sums(b, h, wd, ci, dev)
+        t12 = torch.empty((2 * b * groups,), dtype=torch.float32, device=dev)
+        g32 = gamma.float().contiguous()
+        b32 = beta.float().contiguous()
+        mean, rsig = mean.contiguous(), rsig.contiguous()
+        with torch.cuda.device(dev):
+            err = kernel_library().gn_conv_dx_general(
+                elem_code(x.dtype), x.data_ptr(), g32.data_ptr(),
+                b32.data_ptr(), w.data_ptr(), mean.data_ptr(),
+                rsig.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                part.data_ptr(), dxh.data_ptr(), sums.data_ptr(),
+                t12.data_ptr(), b, h, wd, ci, co, groups,
+                *plan.launch_args(), stream_of(x))
+        raise_on(err, "gn_silu_conv3x3_dx_general")
+        LAUNCHES["gn_silu_conv3x3_dx_general"] += 1
     return dx
 
 

@@ -49,11 +49,14 @@ from diffusionhandles_tpu_torch.utils.cuda_build import (ELEM_CODES,
                                                          load_library,
                                                          raise_on, route,
                                                          run_route)
+from diffusionhandles_tpu_torch.utils.profiling import span
 
 # Launches of each kernel wrapper, the bf16 instance's and the general
 # instances' (`<name>_general`), since the last reset_launch_counts().
 LAUNCHES: Dict[str, int] = {
     n: 0 for k in ("gn_silu_fwd", "gn_silu_bwd") for n in (k, general(k))}
+# the span of each wrapper's launch, by its LAUNCHES key
+_SPANS = {n: "kernel." + n for n in LAUNCHES}
 # Tensors the wrappers copied into or out of the kernel's layout (x or dy
 # neither dense NCHW nor dense channels-last, or 16-byte misaligned; a
 # channels-last x whose channels make no 16-byte slab).
@@ -498,15 +501,16 @@ def _fwd_stats(x, gamma, beta, groups: int, eps: float, act: bool,
         raise ValueError(f"gn_silu kernel: gamma and beta must be on "
                          f"{x.device}")
     prep = _prep(False, x, out_dtype, g.dtype, groups, act, eps, plan)
-    xk = _operand(x, prep.fmt, prep.copy)
-    y = torch.empty_like(xk, dtype=out_dtype)
-    stats = torch.empty((2, x.shape[0], groups), dtype=torch.float32,
-                        device=x.device)
-    err = _launch(kernel_library().gn_fwd, x.device, ctypes.byref(prep.call),
-                  xk.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(),
-                  stats.data_ptr())
-    raise_on(err, name)
-    LAUNCHES[name] += 1
+    with span(_SPANS[name]):
+        xk = _operand(x, prep.fmt, prep.copy)
+        y = torch.empty_like(xk, dtype=out_dtype)
+        stats = torch.empty((2, x.shape[0], groups), dtype=torch.float32,
+                            device=x.device)
+        err = _launch(kernel_library().gn_fwd, x.device,
+                      ctypes.byref(prep.call), xk.data_ptr(), g.data_ptr(),
+                      bt.data_ptr(), y.data_ptr(), stats.data_ptr())
+        raise_on(err, name)
+        LAUNCHES[name] += 1
     return _restored(y, x, prep), stats
 
 
@@ -521,20 +525,23 @@ def _bwd_uv(x, dy, gamma, beta, mean_ptr: int, rsig_ptr: int, groups: int,
                          f"{tuple(x.shape)}")
     g, bt = _params(x, gamma, beta)
     prep = _prep(True, x, x.dtype, g.dtype, groups, act, 0.0, plan)
-    xk = _operand(x, prep.fmt, prep.copy)
-    dyk = _operand(dy, prep.fmt,
-                   not dy.is_contiguous(memory_format=prep.fmt))
-    b, c = x.shape[:2]
-    dx = torch.empty_like(xk)
-    uv = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
-    t12 = (torch.empty((2, b, groups), dtype=torch.float32, device=x.device)
-           if prep.streaming else None)
-    err = _launch(kernel_library().gn_bwd, x.device, ctypes.byref(prep.call),
-                  xk.data_ptr(), dyk.data_ptr(), g.data_ptr(), bt.data_ptr(),
-                  mean_ptr, rsig_ptr, dx.data_ptr(), uv.data_ptr(),
-                  None if t12 is None else t12.data_ptr())
-    raise_on(err, name)
-    LAUNCHES[name] += 1
+    with span(_SPANS[name]):
+        xk = _operand(x, prep.fmt, prep.copy)
+        dyk = _operand(dy, prep.fmt,
+                       not dy.is_contiguous(memory_format=prep.fmt))
+        b, c = x.shape[:2]
+        dx = torch.empty_like(xk)
+        uv = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+        t12 = (torch.empty((2, b, groups), dtype=torch.float32,
+                           device=x.device)
+               if prep.streaming else None)
+        err = _launch(kernel_library().gn_bwd, x.device,
+                      ctypes.byref(prep.call), xk.data_ptr(), dyk.data_ptr(),
+                      g.data_ptr(), bt.data_ptr(), mean_ptr, rsig_ptr,
+                      dx.data_ptr(), uv.data_ptr(),
+                      None if t12 is None else t12.data_ptr())
+        raise_on(err, name)
+        LAUNCHES[name] += 1
     return _restored(dx, x, prep), uv
 
 

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from diffusionhandles_tpu_torch.utils.profiling import span
+
 
 @functools.lru_cache(maxsize=64)
 def ellipse_kernel(ksize: int) -> np.ndarray:
@@ -45,7 +47,8 @@ def _count_conv(mask: torch.Tensor, se: np.ndarray, pad_value: float):
     ay, ax = kh // 2, kw // 2
     padded = F.pad(mask.float()[None, None],
                    (ax, kw - 1 - ax, ay, kh - 1 - ay), value=pad_value)
-    weight = torch.from_numpy(se).to(mask.device)[None, None]
+    with span("sync.structuring_element"):
+        weight = torch.from_numpy(se).to(mask.device)[None, None]
     return F.conv2d(padded, weight)[0, 0]
 
 

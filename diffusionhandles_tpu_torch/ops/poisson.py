@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from diffusionhandles_tpu_torch.utils.profiling import span
+
 
 def _neighbor_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum of the 4 neighbours of an [H, W] array, zero outside."""
@@ -47,7 +49,9 @@ def masked_poisson_cg(image, mask, rhs_extra: Optional[torch.Tensor] = None,
     rs = torch.dot(r.flatten(), r.flatten())
     thresh = tol * rs
     for _ in range(maxiter):
-        if not bool(rs > thresh):
+        with span("sync.poisson_residual"):
+            done = not bool(rs > thresh)
+        if done:
             break
         ap = matvec(p)
         alpha = rs / (torch.dot(p.flatten(), ap.flatten()) + 1e-30)

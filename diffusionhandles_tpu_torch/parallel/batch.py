@@ -46,6 +46,7 @@ from diffusionhandles_tpu_torch.parallel.sharding import (axis_size,
                                                           shard_params,
                                                           shard_unet)
 from diffusionhandles_tpu_torch.scheduler import ddim_step
+from diffusionhandles_tpu_torch.utils.profiling import request, span
 
 
 def stack_pcs(pcs: Sequence[ProcessedCorrespondences]
@@ -126,14 +127,15 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
         _, acts, _ = grad_unet(diffuser.unet_in(latents, depth64),
                                diffuser.timestep(step_idx), ctx)
         loss = 0.0
-        for r in range(b):
-            pc = _row(pcs, r)
-            for k in range(3):
-                loss = loss + float(fgw_it[k]) * foreground_loss_apply(
-                    fg_pre[r][k], acts[k][r], pc, fg_patch, act_size)
-                loss = loss + float(bgw_it[k]) * background_loss_apply(
-                    bg_pre[r][k], acts[k][r], pc, bg_patch, act_size,
-                    bg_loss_type)
+        with span("guidance.energy"):
+            for r in range(b):
+                pc = _row(pcs, r)
+                for k in range(3):
+                    loss = loss + float(fgw_it[k]) * foreground_loss_apply(
+                        fg_pre[r][k], acts[k][r], pc, fg_patch, act_size)
+                    loss = loss + float(bgw_it[k]) * background_loss_apply(
+                        bg_pre[r][k], acts[k][r], pc, bg_patch, act_size,
+                        bg_loss_type)
         return loss
 
     def orig_precompute(acts_t, pcs, b):
@@ -152,16 +154,17 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
     @torch.no_grad()
     def cfg_batch(cfg_unet, latents, depth64, uncond_t, cond, step_idx):
         """One batch-2B CFG DDIM step: context [uncond x B, cond x B]."""
-        b = latents.shape[0]
-        lat2 = torch.cat([latents, latents], 0)
-        d2 = torch.cat([depth64, depth64], 0) if depth64 is not None \
-            else None
-        ctx = torch.cat([uncond_t.expand(b, -1, -1),
-                         cond[0].expand(b, -1, -1)], 0)
-        eps, _, _ = cfg_unet(diffuser.unet_in(lat2, d2),
-                             diffuser.timestep(step_idx), ctx)
-        noise_pred = eps[:b] + gs * (eps[b:] - eps[:b])
-        return ddim_step(schedule, noise_pred, step_idx, latents)
+        with span("cfg.step"):
+            b = latents.shape[0]
+            lat2 = torch.cat([latents, latents], 0)
+            d2 = torch.cat([depth64, depth64], 0) if depth64 is not None \
+                else None
+            ctx = torch.cat([uncond_t.expand(b, -1, -1),
+                             cond[0].expand(b, -1, -1)], 0)
+            eps, _, _ = cfg_unet(diffuser.unet_in(lat2, d2),
+                                 diffuser.timestep(step_idx), ctx)
+            noise_pred = eps[:b] + gs * (eps[b:] - eps[:b])
+            return ddim_step(schedule, noise_pred, step_idx, latents)
 
     def run(init_latents, depth64, uncond_seq, cond, acts_orig, fgw, bgw,
             pcs):
@@ -175,19 +178,24 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
         b = latents.shape[0]
         grad_unet, cfg_unet = unets(b)
         for i in range(schedule.num_inference_steps):
-            if i < guidance_max_step:
-                fg_pre, bg_pre = orig_precompute([a[i] for a in acts_orig],
-                                                 pcs, b)
-                for it in range(num_optsteps):
-                    lat = latents.detach().requires_grad_(True)
-                    with torch.enable_grad():
-                        energy = batch_energy(grad_unet, lat, depth64, cond,
-                                              i, fg_pre, bg_pre, fgw[i, it],
-                                              bgw[i, it], pcs)
-                        (grad,) = torch.autograd.grad(energy, lat)
-                    latents = latents - glr * grad
-            latents = cfg_batch(cfg_unet, latents, depth64, uncond_seq[i],
-                                cond, i)
+            with span("step"):
+                if i < guidance_max_step:
+                    fg_pre, bg_pre = orig_precompute(
+                        [a[i] for a in acts_orig], pcs, b)
+                    for it in range(num_optsteps):
+                        with span("guidance.opt_step"):
+                            lat = latents.detach().requires_grad_(True)
+                            with torch.enable_grad():
+                                energy = batch_energy(
+                                    grad_unet, lat, depth64, cond, i, fg_pre,
+                                    bg_pre, fgw[i, it], bgw[i, it], pcs)
+                                with span("guidance.backward"):
+                                    (grad,) = torch.autograd.grad(energy,
+                                                                  lat)
+                            with span("guidance.update"):
+                                latents = latents - glr * grad
+                latents = cfg_batch(cfg_unet, latents, depth64,
+                                    uncond_seq[i], cond, i)
         return latents if mesh is None else gather_batch(latents, mesh)
 
     return run
@@ -225,65 +233,75 @@ def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
     from diffusionhandles_tpu_torch.geometry.transform import (
         transform_depth, transform_depth_pc_processed)
 
-    if chunk and len(transforms) != chunk:
-        imgs_all, disps_all = [], []
-        for i in range(0, len(transforms), chunk):
-            sub = transforms[i:i + chunk]
-            pad = chunk - len(sub)
-            imgs, disps = edit_batch(
-                handles, depth, prompt, fg_mask, bg_depth, null_text_emb,
-                init_noise, activations, sub + [sub[-1]] * pad, mesh=mesh,
-                return_disparities=True)
-            imgs_all.append(imgs[:len(sub)])
-            disps_all.append(disps[:len(sub)])
-        imgs = np.concatenate(imgs_all)
-        disps = np.concatenate(disps_all)
-        return (imgs, disps) if return_disparities else imgs
+    with request("edit_batch"):
+        if chunk and len(transforms) != chunk:
+            imgs_all, disps_all = [], []
+            for i in range(0, len(transforms), chunk):
+                sub = transforms[i:i + chunk]
+                pad = chunk - len(sub)
+                imgs, disps = edit_batch(
+                    handles, depth, prompt, fg_mask, bg_depth,
+                    null_text_emb, init_noise, activations,
+                    sub + [sub[-1]] * pad, mesh=mesh,
+                    return_disparities=True)
+                imgs_all.append(imgs[:len(sub)])
+                disps_all.append(disps[:len(sub)])
+            imgs = np.concatenate(imgs_all)
+            disps = np.concatenate(disps_all)
+            return (imgs, disps) if return_disparities else imgs
 
-    d = handles.diffuser
-    conf = d.conf
-    mode = handles.conf.depth_transform_mode
-    K = d.get_depth_intrinsics()
-    depth_res = int(max(np.shape(depth)[-2:]))
-    depth64s, pcs, disparities = [], [], []
-    for tr in transforms:
-        if mode == "pc":
-            edited_disparity, pc = transform_depth_pc_processed(
-                depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
-                intrinsics=K, bg_erosion=conf.bg_erosion,
-                max_corr=conf.max_correspondences, latent_res=d.latent_res,
-                device=d.device, **_transform_kwargs(tr))
-        else:
-            edited_disparity, corr = transform_depth(
-                depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
-                intrinsics=K, depth_transform_mode=mode, device=d.device,
-                **_transform_kwargs(tr))
-            pc = d.process_correspondences(corr, depth_res, conf.bg_erosion)
-        depth64s.append(d.init_depth(edited_disparity)[0])
-        pcs.append(pc)
-        disparities.append(edited_disparity)
+        d = handles.diffuser
+        conf = d.conf
+        mode = handles.conf.depth_transform_mode
+        K = d.get_depth_intrinsics()
+        depth_res = int(max(np.shape(depth)[-2:]))
+        depth64s, pcs, disparities = [], [], []
+        with span("depth_transform"):
+            for tr in transforms:
+                if mode == "pc":
+                    edited_disparity, pc = transform_depth_pc_processed(
+                        depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
+                        intrinsics=K, bg_erosion=conf.bg_erosion,
+                        max_corr=conf.max_correspondences,
+                        latent_res=d.latent_res, device=d.device,
+                        **_transform_kwargs(tr))
+                else:
+                    edited_disparity, corr = transform_depth(
+                        depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
+                        intrinsics=K, depth_transform_mode=mode,
+                        device=d.device, **_transform_kwargs(tr))
+                    pc = d.process_correspondences(corr, depth_res,
+                                                   conf.bg_erosion)
+                depth64s.append(d.init_depth(edited_disparity)[0])
+                pcs.append(pc)
+                disparities.append(edited_disparity)
 
-    B = len(transforms)
-    T = d.schedule.num_inference_steps
-    cond = d.encode_prompt(prompt)
-    uncond_seq = _stack_uncond(null_text_emb, T, d.device)
-    init_lat = d._tensor(init_noise)[0].expand(B, -1, -1, -1).contiguous()
-    fgw, bgw = build_guidance_weight_schedule(
-        conf.fg_weight, conf.bg_weight, conf.guidance_max_step, T,
-        conf.num_optsteps, conf.guidance_schedule_type)
-    acts_orig = [torch.as_tensor(a, device=d.device).to(d.act_dtype)
-                 for a in activations]
-    run = build_batched_guided_inference(
-        d, conf.num_optsteps, conf.guidance_max_step, conf.bg_loss_type,
-        conf.fg_patch_size, conf.bg_patch_size, mesh=mesh)
-    latents = run(init_lat, torch.stack(depth64s) if conf.use_depth
-                  else None, uncond_seq, cond, acts_orig, fgw, bgw,
-                  stack_pcs(pcs))
-    # one image at a time, as the single edit decodes
-    images = torch.cat([d.decode_latent_image(lat[None])
-                        for lat in latents]).cpu().numpy()
-    if return_disparities:
-        disps = np.stack([dd.reshape(1, *dd.shape[-2:]).cpu().numpy()
-                          for dd in disparities])
-        return images, disps
-    return images
+        B = len(transforms)
+        T = d.schedule.num_inference_steps
+        cond = d.encode_prompt(prompt)
+        uncond_seq = _stack_uncond(null_text_emb, T, d.device)
+        init_lat = d._tensor(init_noise)[0].expand(B, -1, -1,
+                                                   -1).contiguous()
+        fgw, bgw = build_guidance_weight_schedule(
+            conf.fg_weight, conf.bg_weight, conf.guidance_max_step, T,
+            conf.num_optsteps, conf.guidance_schedule_type)
+        acts_orig = [torch.as_tensor(a, device=d.device).to(d.act_dtype)
+                     for a in activations]
+        run = build_batched_guided_inference(
+            d, conf.num_optsteps, conf.guidance_max_step, conf.bg_loss_type,
+            conf.fg_patch_size, conf.bg_patch_size, mesh=mesh)
+        latents = run(init_lat, torch.stack(depth64s) if conf.use_depth
+                      else None, uncond_seq, cond, acts_orig, fgw, bgw,
+                      stack_pcs(pcs))
+        # one image at a time, as the single edit decodes
+        images = torch.cat([d.decode_latent_image(lat[None])
+                            for lat in latents])
+        with span("sync.image_to_host"):
+            images = images.cpu().numpy()
+        if not return_disparities:
+            return images
+        disps = []
+        for dd in disparities:
+            with span("sync.disparity_to_host"):
+                disps.append(dd.reshape(1, *dd.shape[-2:]).cpu().numpy())
+        return images, np.stack(disps)

@@ -35,6 +35,7 @@ from diffusionhandles_tpu_torch.geometry.transform import (
 from diffusionhandles_tpu_torch.inverter import StableNullInverter
 from diffusionhandles_tpu_torch.ops.poisson import harmonize_depth
 from diffusionhandles_tpu_torch.utils.device import resolve_device
+from diffusionhandles_tpu_torch.utils.profiling import request, span
 
 
 def _same(a, b) -> bool:
@@ -42,7 +43,10 @@ def _same(a, b) -> bool:
         return True
     a = torch.as_tensor(a, dtype=torch.float32)
     b = torch.as_tensor(b, dtype=torch.float32, device=a.device)
-    return a.shape == b.shape and bool(torch.equal(a, b))
+    if a.shape != b.shape:
+        return False
+    with span("sync.same_recording"):
+        return bool(torch.equal(a, b))
 
 
 class DiffusionHandles:
@@ -93,8 +97,9 @@ class DiffusionHandles:
         # in the standard layout: a caller's strided array (an image read
         # as HWC and transposed) would otherwise take other conv
         # algorithms, and other bits, than the same values packed
-        return torch.as_tensor(x, dtype=torch.float32,
-                               device=self.device).contiguous()
+        with span("sync.host_inputs"):
+            return torch.as_tensor(x, dtype=torch.float32,
+                                   device=self.device).contiguous()
 
     def _disparity(self, depth) -> torch.Tensor:
         return normalize_depth(1.0 / self._tensor(depth))
@@ -105,19 +110,21 @@ class DiffusionHandles:
         img [1, 3, H, W] in [0, 1]; depth [1, 1, H, W] (depth, not
         disparity). Returns (null_text_emb [T, 1, 77, D],
         init_noise [1, 4, h, w]) as device tensors."""
-        fused = self.conf.guided_diffuser.fused_recording
-        out = self.inverter.invert(self._tensor(img), self._disparity(depth),
-                                   prompt, num_inner_steps=5,
-                                   record_activations=fused,
-                                   return_recon=False)
-        _, init_noise, null_text_emb = out[:3]
-        if fused:
-            acts, final_latents = out[3]
-            self._recording = {
-                "prompt": prompt, "depth": np.asarray(depth, np.float32),
-                "null": null_text_emb, "noise": init_noise, "acts": acts,
-                "latents": final_latents}
-        return null_text_emb, init_noise
+        with request("invert"):
+            fused = self.conf.guided_diffuser.fused_recording
+            out = self.inverter.invert(self._tensor(img),
+                                       self._disparity(depth), prompt,
+                                       num_inner_steps=5,
+                                       record_activations=fused,
+                                       return_recon=False)
+            _, init_noise, null_text_emb = out[:3]
+            if fused:
+                acts, final_latents = out[3]
+                self._recording = {
+                    "prompt": prompt, "depth": np.asarray(depth, np.float32),
+                    "null": null_text_emb, "noise": init_noise,
+                    "acts": acts, "latents": final_latents}
+            return null_text_emb, init_noise
 
     def generate_input_image(self, depth, prompt: str, null_text_emb=None,
                              init_noise=None):
@@ -127,21 +134,22 @@ class DiffusionHandles:
 
         Returns (null_text_emb [T, 1, 77, D], init_noise [1, 4, h, w],
         activations: 3 stacks [T, C, H, W], latents [1, 4, h, w])."""
-        rec = self._recording
-        if (rec is not None and self.conf.guided_diffuser.fused_recording
-                and null_text_emb is not None and init_noise is not None
-                and prompt == rec["prompt"]
-                and np.array_equal(np.asarray(depth, np.float32),
-                                   rec["depth"])
-                and _same(null_text_emb, rec["null"])
-                and _same(init_noise, rec["noise"])):
-            return (rec["null"], rec["noise"], list(rec["acts"]),
-                    rec["latents"])
-        acts, latents, uncond, init_latents = \
-            self.diffuser.initial_inference(
-                init_latents=init_noise, depth=self._disparity(depth),
-                uncond_embeddings=null_text_emb, prompt=prompt)
-        return uncond[:, None], init_latents, acts, latents
+        with request("record"):
+            rec = self._recording
+            if (rec is not None and self.conf.guided_diffuser.fused_recording
+                    and null_text_emb is not None and init_noise is not None
+                    and prompt == rec["prompt"]
+                    and np.array_equal(np.asarray(depth, np.float32),
+                                       rec["depth"])
+                    and _same(null_text_emb, rec["null"])
+                    and _same(init_noise, rec["noise"])):
+                return (rec["null"], rec["noise"], list(rec["acts"]),
+                        rec["latents"])
+            acts, latents, uncond, init_latents = \
+                self.diffuser.initial_inference(
+                    init_latents=init_noise, depth=self._disparity(depth),
+                    uncond_embeddings=null_text_emb, prompt=prompt)
+            return uncond[:, None], init_latents, acts, latents
 
     def set_foreground(self, depth, fg_mask, bg_depth) -> np.ndarray:
         """Infill the foreground hole of the input depth from the bg
@@ -152,7 +160,8 @@ class DiffusionHandles:
         bg2d = self._tensor(bg_depth).reshape(hw)
         mask2d = self._tensor(fg_mask).reshape(hw) > 0.5
         out = harmonize_depth(depth2d, bg2d, mask2d)
-        return out.cpu().numpy()[None, None]
+        with span("sync.set_foreground_to_host"):
+            return out.cpu().numpy()[None, None]
 
     def transform_foreground(self, depth, prompt: str, fg_mask, bg_depth,
                              null_text_emb, init_noise, activations,
@@ -168,37 +177,44 @@ class DiffusionHandles:
         [1, 1, H, W]) as numpy and, with save_denoising_steps, the
         per-step decodes ({"opt": [(img_opt, img_step)] * T}, numpy
         [1, H, W, 3]) as a third item."""
-        gconf = self.conf.guided_diffuser
-        intrinsics = self.diffuser.get_depth_intrinsics()
-        edit = dict(rot_angle=rot_angle, rot_axis=rot_axis,
-                    translation=translation,
-                    use_input_depth_normalization=(
-                        use_input_depth_normalization))
-        if self.conf.depth_transform_mode == "pc":
-            # correspondence binning on the device: no per-point host trip
-            edited_disparity, pc = transform_depth_pc_processed(
-                depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
-                intrinsics=intrinsics, bg_erosion=gconf.bg_erosion,
-                max_corr=gconf.max_correspondences,
-                latent_res=self.diffuser.latent_res, device=self.device,
-                **edit)
-            correspondences = None
-        else:
-            edited_disparity, correspondences = transform_depth(
-                depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
-                intrinsics=intrinsics,
-                depth_transform_mode=self.conf.depth_transform_mode,
-                device=self.device, **edit)
-            pc = None
-        results = self.diffuser.guided_inference(
-            latents=init_noise, depth=edited_disparity,
-            uncond_embeddings=null_text_emb, prompt=prompt,
-            activations_orig=activations, correspondences=correspondences,
-            processed_correspondences=pc, fg_weight=fg_weight,
-            bg_weight=bg_weight,
-            save_denoising_steps=gconf.save_denoising_steps)
-        disparity = edited_disparity.cpu().numpy()
-        if gconf.save_denoising_steps:
-            edited, steps = results
-            return edited.cpu().numpy(), disparity, steps
-        return results.cpu().numpy(), disparity
+        with request("edit"):
+            gconf = self.conf.guided_diffuser
+            intrinsics = self.diffuser.get_depth_intrinsics()
+            edit = dict(rot_angle=rot_angle, rot_axis=rot_axis,
+                        translation=translation,
+                        use_input_depth_normalization=(
+                            use_input_depth_normalization))
+            with span("depth_transform"):
+                if self.conf.depth_transform_mode == "pc":
+                    # correspondence binning on the device: no per-point
+                    # host trip
+                    edited_disparity, pc = transform_depth_pc_processed(
+                        depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
+                        intrinsics=intrinsics, bg_erosion=gconf.bg_erosion,
+                        max_corr=gconf.max_correspondences,
+                        latent_res=self.diffuser.latent_res,
+                        device=self.device, **edit)
+                    correspondences = None
+                else:
+                    edited_disparity, correspondences = transform_depth(
+                        depth=depth, bg_depth=bg_depth, fg_mask=fg_mask,
+                        intrinsics=intrinsics,
+                        depth_transform_mode=self.conf.depth_transform_mode,
+                        device=self.device, **edit)
+                    pc = None
+            results = self.diffuser.guided_inference(
+                latents=init_noise, depth=edited_disparity,
+                uncond_embeddings=null_text_emb, prompt=prompt,
+                activations_orig=activations,
+                correspondences=correspondences,
+                processed_correspondences=pc, fg_weight=fg_weight,
+                bg_weight=bg_weight,
+                save_denoising_steps=gconf.save_denoising_steps)
+            with span("sync.disparity_to_host"):
+                disparity = edited_disparity.cpu().numpy()
+            edited = results[0] if gconf.save_denoising_steps else results
+            with span("sync.image_to_host"):
+                image = edited.cpu().numpy()
+            if gconf.save_denoising_steps:
+                return image, disparity, results[1]
+            return image, disparity

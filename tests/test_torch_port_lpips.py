@@ -1,14 +1,15 @@
-"""LPIPS and the phase timers: PyTorch port vs the JAX package on the CPU.
+"""LPIPS: PyTorch port vs the JAX package on the CPU; the port's device
+trace.
 
 LPIPS runs the same weights in both packages (random JAX parameters made
 by shape, carried into the port by `lpips_state_dict`) on 64x64 images,
 within LPIPS_RTOL: VGG16's 13 fp32 convs sum in other orders in XLA and
 ATen. `convert_lpips_weights` maps a torchvision-named dict the test
-writes to what the JAX converter makes of it. The phase timers keep the
-JAX module's semantics and report format.
+writes to what the JAX converter makes of it. `device_trace` writes the
+program's spans into its chrome trace.
 """
 
-import time
+import json
 
 import jax
 import numpy as np
@@ -16,7 +17,6 @@ import pytest
 import torch
 
 from diffusionhandles_tpu.models import lpips as jlpips
-from diffusionhandles_tpu.utils import profiling as jprof
 from diffusionhandles_tpu_torch.models import lpips as tlpips
 from diffusionhandles_tpu_torch.utils import profiling as tprof
 from torch_port_rig import random_flax_params
@@ -90,38 +90,11 @@ def test_lpips_seeded_default():
     assert d[0] > 0
 
 
-def test_phase_timers_keep_jax_semantics(tmp_path):
-    """phase_timer accumulates seconds and calls per name (also when the
-    block raises), timings() and report() read them, report(reset=True)
-    and reset() clear them; the report's format is the JAX module's."""
-    tprof.reset()
-    with tprof.phase_timer("a"):
-        time.sleep(0.01)
-    with tprof.phase_timer("a"):
-        pass
-    with pytest.raises(ValueError):
-        with tprof.phase_timer("b"):
-            raise ValueError
-    t = tprof.timings()
-    assert set(t) == {"a", "b"} and t["a"] >= 0.01
-    assert tprof._counts["a"] == 2 and tprof._counts["b"] == 1
-    saved = dict(jprof._totals), dict(jprof._counts)
-    try:
-        jprof.reset()
-        jprof._totals.update(tprof._totals)
-        jprof._counts.update(tprof._counts)
-        assert tprof.report() == jprof.report()
-    finally:
-        jprof.reset()
-        jprof._totals.update(saved[0])
-        jprof._counts.update(saved[1])
-    assert tprof.report(reset=True).splitlines()[1].startswith("a ")
-    assert tprof.timings() == {}
-    with tprof.phase_timer("c"):
-        pass
-    tprof.reset()
-    assert tprof.report().splitlines() == [
-        "phase                          total_s   calls   mean_s"]
+def test_device_trace_holds_spans(tmp_path):
+    """device_trace writes a chrome trace that holds the program's spans
+    opened inside it, as CPU events."""
     with tprof.device_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        with tprof.span("unet"):
+            torch.ones(4).sum()
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert "unet" in {e.get("name") for e in trace["traceEvents"]}
