@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from diffusionhandles_tpu_torch.models import unet_graphs
 from diffusionhandles_tpu_torch.ops import groupnorm
 from diffusionhandles_tpu_torch.ops.attention import dot_product_attention
 from diffusionhandles_tpu_torch.ops.conv import (conv3x3, conv3x3_hybrid,
@@ -45,6 +46,10 @@ from diffusionhandles_tpu_torch.ops.gn_conv import (gn_silu_conv3x3,
                                                     gn_silu_conv3x3_ok,
                                                     gn_silu_conv3x3_ref)
 from diffusionhandles_tpu_torch.utils.profiling import span
+
+# U-Net calls by path, "eager", "capture" and "replay" (unet_graphs.py),
+# beside the kernels' LAUNCHES
+GRAPH_CALLS = unet_graphs.GRAPH_CALLS
 
 
 # UNetConfig.conv3x3_kernel -> the conv op of ops/conv.py it selects
@@ -618,6 +623,17 @@ class UNet2DConditionModel(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv2d):
                 m.per_image = cfg.conv_per_image
+        self._graphs = unet_graphs.UNetGraphs()
+
+    def _apply(self, fn, *args, **kwargs):
+        # the graphs read the parameters in place: drop them where the
+        # parameters may become other tensors
+        self._graphs = unet_graphs.UNetGraphs()
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._graphs = unet_graphs.UNetGraphs()
+        return super().load_state_dict(*args, **kwargs)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 capture_attention: bool = False):
@@ -626,43 +642,52 @@ class UNet2DConditionModel(nn.Module):
 
         Returns eps [B, out, H, W] fp32, the three decoder activations
         (fp32, NCHW) and, with `capture_attention`, a dict of cross-attention
-        probability lists ('down', 'mid', 'up'), else None."""
+        probability lists ('down', 'mid', 'up'), else None. On CUDA a
+        signature's later calls replay CUDA graphs of its second
+        (`unet_graphs.py`), with the same kernels and the same results."""
         with span("unet"):
-            cfg = self.config
-            dt = cfg.dtype
-            timesteps = torch.as_tensor(timesteps, device=sample.device)
-            if timesteps.ndim == 0:
-                timesteps = timesteps.expand(sample.shape[0])
-            temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
-                                      cfg.flip_sin_to_cos, cfg.freq_shift)
-            temb = self.time_embedding.linear_1(temb.to(dt))
-            temb = self.time_embedding.linear_2(F.silu(temb))
-            context = encoder_hidden_states.to(dt)
+            return self._graphs.call(self, self._forward, sample, timesteps,
+                                     encoder_hidden_states,
+                                     capture_attention)
 
-            x = self.conv_in(sample.to(dt))
-            skips = [x]
-            attn_down = []
-            for i, block in enumerate(self.down_blocks):
-                x, block_skips, probs = _remat_call(
-                    cfg.remat, block, x, temb, context, capture_attention)
-                skips.extend(block_skips)
-                if cfg.down_block_types[i] == "CrossAttnDownBlock2D":
-                    attn_down.append(probs)
-            x, attn_mid = self.mid_block(x, temb, context, capture_attention)
+    def _forward(self, sample, timesteps, encoder_hidden_states,
+                 capture_attention: bool):
+        """The eager forward (`forward`)."""
+        cfg = self.config
+        dt = cfg.dtype
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                  cfg.flip_sin_to_cos, cfg.freq_shift)
+        temb = self.time_embedding.linear_1(temb.to(dt))
+        temb = self.time_embedding.linear_2(F.silu(temb))
+        context = encoder_hidden_states.to(dt)
 
-            activations, attn_up = [], []
-            for i, block in enumerate(self.up_blocks):
-                num_layers = cfg.layers_per_block + 1
-                block_skips = skips[-num_layers:]
-                skips = skips[:-num_layers]
-                x, probs = _remat_call(cfg.remat, block, x, block_skips, temb,
-                                       context, capture_attention)
-                if cfg.up_block_types[i] == "CrossAttnUpBlock2D":
-                    activations.append(x.float())
-                    attn_up.append(probs)
+        x = self.conv_in(sample.to(dt))
+        skips = [x]
+        attn_down = []
+        for i, block in enumerate(self.down_blocks):
+            x, block_skips, probs = _remat_call(
+                cfg.remat, block, x, temb, context, capture_attention)
+            skips.extend(block_skips)
+            if cfg.down_block_types[i] == "CrossAttnDownBlock2D":
+                attn_down.append(probs)
+        x, attn_mid = self.mid_block(x, temb, context, capture_attention)
 
-            eps = self.conv_out(gn_silu(self.conv_norm_out, x, dt,
-                                        fused=cfg.fused_gn))
-            attn = ({"down": attn_down, "mid": attn_mid, "up": attn_up}
-                    if capture_attention else None)
-            return eps.float(), tuple(activations), attn
+        activations, attn_up = [], []
+        for i, block in enumerate(self.up_blocks):
+            num_layers = cfg.layers_per_block + 1
+            block_skips = skips[-num_layers:]
+            skips = skips[:-num_layers]
+            x, probs = _remat_call(cfg.remat, block, x, block_skips, temb,
+                                   context, capture_attention)
+            if cfg.up_block_types[i] == "CrossAttnUpBlock2D":
+                activations.append(x.float())
+                attn_up.append(probs)
+
+        eps = self.conv_out(gn_silu(self.conv_norm_out, x, dt,
+                                    fused=cfg.fused_gn))
+        attn = ({"down": attn_down, "mid": attn_mid, "up": attn_up}
+                if capture_attention else None)
+        return eps.float(), tuple(activations), attn
