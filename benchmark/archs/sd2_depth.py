@@ -1,11 +1,15 @@
-"""Build one configuration's models: the measured program's and the plain
-reference's, on the same weight tensors.
+"""The SD-2-depth family: `UNet2DConditionModel` with the depth as a fifth
+input channel, one text tower, no added conditioning; the VAE and the
+OpenCLIP-H text encoder. Builds the measured program, the tap at its U-Net
+and the plain reference, on the same weight tensors.
 
-A configuration file (`configs/<name>.json`) holds the published widths
-under "unet", "vae" and "text_encoder" (diffusers' and transformers' key
-names), the U-Net route switches under "route", the guided diffuser's
-settings under "guided_diffuser" and the depth transform's mode. Nothing
-here is specific to one configuration.
+A configuration of this family (`"arch": "sd2_depth"`) holds the published
+widths under "unet", "vae" and "text_encoder" (diffusers' and
+transformers' key names), the U-Net route switches under "route", the
+guided diffuser's settings under "guided_diffuser" and the depth
+transform's mode. The harness reaches the family only through
+`program_modules`, `program_handles`, `image_res`, `tap` and `shared`; the
+entries and the control also use `warmup_handles` and `reference_models`.
 """
 
 from __future__ import annotations
@@ -16,14 +20,18 @@ from typing import Dict
 
 import torch
 
+from benchmark import check
+from benchmark.reference.pipeline import RefDDIMSchedule, hash_token_ids
 from benchmark.reference.sd import (RefCLIPConfig, RefCLIPText, RefUNet,
                                     RefUNetConfig, RefVAE, RefVAEConfig)
+from benchmark.tap import UNetTap
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 
 
 def image_res(cfg: dict) -> int:
+    """The image's side in pixels."""
     n = len(cfg["vae"]["block_out_channels"])
     return cfg["unet"]["sample_size"] * 2 ** (n - 1)
 
@@ -154,3 +162,36 @@ def reference_models(cfg: dict, weights: Dict[str, dict], device,
         mod.load_state_dict(sd, strict=True)
         mod.eval().requires_grad_(False)
     return Reference(unet, vae, clip, cfg["vae"]["scaling_factor"])
+
+
+def tap(cfg: dict) -> UNetTap:
+    """The tap at `UNet2DConditionModel.__call__(sample, timestep,
+    encoder_hidden_states)`: the latents are the first `out_channels`
+    channels of the sample (the rest is the depth), and a call records a
+    graph when the sample or the text context requires grad."""
+    from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
+    channels = cfg["unet"]["out_channels"]
+
+    def parse(args, kwargs):
+        x = args[0] if args else kwargs["sample"]
+        ctx = args[2] if len(args) > 2 else kwargs.get(
+            "encoder_hidden_states")
+        t = args[1] if len(args) > 1 else kwargs["timestep"]
+        return x.detach()[:, :channels], t, (x, ctx)
+    return UNetTap(UNet2DConditionModel, parse)
+
+
+def shared(cfg: dict, weights: Dict[str, dict], prompt: str,
+           device) -> check.Shared:
+    """The reference's models on `weights`, the prompt and the empty prompt
+    through its text encoder, and the DDIM schedule."""
+    ref = reference_models(cfg, weights, device)
+    vocab = cfg["text_encoder"]["vocab_size"]
+    n = cfg["text_encoder"]["max_position_embeddings"]
+    ids = torch.tensor([hash_token_ids(prompt, vocab, n),
+                        hash_token_ids("", vocab, n)], device=device)
+    with torch.no_grad():
+        emb = ref.clip(ids)
+    sched = RefDDIMSchedule(cfg["guided_diffuser"]["num_timesteps"])
+    return check.Shared(cfg, ref, sched, emb[:1], emb[1:],
+                        torch.device(device))

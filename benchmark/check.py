@@ -27,7 +27,8 @@ activations and carried back through the reference's forward
 (`guidance`); the energies are L1 distances, whose gradient flips sign
 wherever a residual is near zero, so a step computed from other
 activations than the program's would differ by rounding alone (PERF.md).
-`null_loss` judges a null-text step by its effect. The candidate is the
+`null_loss` judges the null-text steps by their effect on the step's
+loss, pooled over the sampled steps (`loss_missed`). The candidate is the
 program or, for the control, the reference itself computed at a lower
 precision (control.py), read through the same functions.
 """
@@ -35,20 +36,22 @@ precision (control.py), read through the same functions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 import numpy as np
 import torch
 
 from benchmark import traffic
-from benchmark.models import Reference
 from benchmark.reference import geometry
 from benchmark.reference.pipeline import (RefDDIMSchedule, RefWeightSchedule,
                                           cfg_update, ddim_inversion_update,
-                                          guidance_update, hash_token_ids,
-                                          init_depth, null_text_step,
+                                          guidance_update, init_depth,
+                                          null_text_step,
                                           process_correspondences,
                                           seeded_start_latents)
+
+if TYPE_CHECKING:
+    from benchmark.archs.sd2_depth import Reference
 
 
 def rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -91,7 +94,7 @@ def _disparity(depth) -> torch.Tensor:
 @dataclasses.dataclass
 class Shared:
     """What the reference derives once per run from the benchmark's
-    inputs."""
+    inputs (the model family's `shared` builds it)."""
 
     cfg: dict
     ref: Reference
@@ -107,17 +110,6 @@ class Shared:
     @property
     def latent_res(self) -> int:
         return self.cfg["unet"]["sample_size"]
-
-
-def shared(cfg: dict, ref: Reference, prompt: str, device) -> Shared:
-    vocab = cfg["text_encoder"]["vocab_size"]
-    n = cfg["text_encoder"]["max_position_embeddings"]
-    ids = torch.tensor([hash_token_ids(prompt, vocab, n),
-                        hash_token_ids("", vocab, n)], device=device)
-    with torch.no_grad():
-        emb = ref.clip(ids)
-    sched = RefDDIMSchedule(cfg["guided_diffuser"]["num_timesteps"])
-    return Shared(cfg, ref, sched, emb[:1], emb[1:], torch.device(device))
 
 
 def _decode(sh: Shared, latents) -> torch.Tensor:
@@ -447,6 +439,22 @@ def parse_invert_calls(calls, steps: int, inner: int):
     return D, L, J
 
 
+def loss_missed(losses) -> float:
+    """The share of the reference's fall of the null-text loss that the
+    candidate's embeddings miss: over steps of (loss of the embedding
+    before the step, of the reference's, of the candidate's), the sum of
+    each step's excess over the reference's loss (a step where the
+    candidate's loss is lower counts 0) over the sum of the reference's
+    falls. Pooled, because near t = 0 a step's fall lies under the
+    loss's float32 rounding, where a step's own ratio is one rounding
+    over another."""
+    missed = sum(max(got - want, 0.0) for _, want, got in losses)
+    fall = sum(before - want for before, want, _ in losses)
+    if fall <= 0:
+        return 0.0 if missed <= 0 else float("inf")
+    return missed / fall
+
+
 def _null_loss(unet, sched, step, latent_cur, latent_prev, depth64, uncond,
                cond, gs) -> float:
     """The null-text loss of `uncond` at `step`: the mean squared error of
@@ -520,8 +528,8 @@ class InvertCheck:
         out["inversion"] = steps.pooled()
         # null-text optimisation, from the program's embedding before it:
         # the change of the embedding, and the share of the reference's
-        # fall of the step's loss that the program's embedding misses
-        steps, excess = Steps(), []
+        # fall of the steps' loss that the program's embeddings miss
+        steps, losses = Steps(), []
         for i in s["null_text"]:
             latent_prev = traj[self.steps - 1 - i]
             u0 = self._uncond_before(i)
@@ -533,13 +541,11 @@ class InvertCheck:
                                   self.inner)[0] if ctl
                    else self.null[i].reshape(want.shape))
             steps.add(u0, got, want)
-            losses = [_null_loss(ref_unet, sched, i, self.L[i], latent_prev,
-                                 self.depth64, u, sh.cond, gs)
-                      for u in (u0, want, got)]
-            excess.append((losses[2] - losses[1])
-                          / max(losses[0] - losses[1], 1e-30))
+            losses.append([_null_loss(ref_unet, sched, i, self.L[i],
+                                      latent_prev, self.depth64, u, sh.cond,
+                                      gs) for u in (u0, want, got)])
         out["null_text"] = steps.pooled()
-        out["null_loss"] = max(excess)
+        out["null_loss"] = loss_missed(losses)
         # CFG steps with the optimised embeddings, and the recording
         steps, aerrs = Steps(), []
         for i in sorted(set(s["cfg"]) | set(s["recording"])):

@@ -73,8 +73,9 @@ def _faults():
 
 
 def control_readings(chk, sh, weights):
-    from benchmark import check, models
-    ctl = models.reference_models(sh.cfg, weights, sh.device)
+    from benchmark import check, harness
+    arch = harness.load_module("archs", sh.cfg["arch"])
+    ctl = arch.reference_models(sh.cfg, weights, sh.device)
     fp8_(ctl.unet)
     fp8_(ctl.vae)
     if not isinstance(chk, check.EditCheck):

@@ -102,7 +102,7 @@ def layout_copy_matcher():
 
 @functools.lru_cache(maxsize=None)
 def _meta_models(cfg_json: str):
-    from benchmark.models import _unet_fields, _vae_fields
+    from benchmark.archs.sd2_depth import _unet_fields, _vae_fields
     from benchmark.reference.sd import (RefUNet, RefUNetConfig, RefVAE,
                                         RefVAEConfig)
     cfg = json.loads(cfg_json)

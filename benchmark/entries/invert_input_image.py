@@ -9,11 +9,11 @@ CFG passes at batch 2 with the recording)."""
 
 import torch
 
-from benchmark import check, counting, models, traffic
+from benchmark import check, counting, traffic
 
 
 def setup(session) -> dict:
-    _invert(models.warmup_handles(session.cfg, session.handles),
+    _invert(session.arch.warmup_handles(session.cfg, session.handles),
             session.mix, traffic.request(session.mix, session.res,
                                          session.seed, traffic.WARMUP))
     return {}

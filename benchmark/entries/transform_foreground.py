@@ -9,7 +9,7 @@ request through a two-step copy of the program's loops on the same models
 transform, the VAE decode). The tap keeps the activations of the guidance
 calls that the check samples."""
 
-from benchmark import check, counting, models, traffic
+from benchmark import check, counting, traffic
 
 
 def setup(session, serve_with=None) -> dict:
@@ -28,7 +28,7 @@ def setup(session, serve_with=None) -> dict:
         for i, it in check.edit_samples(mix, gd, session.seed)["guidance"]}
     session.tap.begin()
     (serve_with or _edit)(
-        models.warmup_handles(cfg, h), mix, state,
+        session.arch.warmup_handles(cfg, h), mix, state,
         traffic.request(mix, session.res, session.seed, traffic.WARMUP))
     return state
 

@@ -2,11 +2,23 @@
 the correctness check, and the result line.
 
 Everything specific to a cell is read from files found by name: the
-configuration (`BENCHMARK.json`'s "file"), the traffic mix
+configuration (`BENCHMARK.json`'s "file"), its model family
+(`archs/<arch>.py`, named by the configuration's "arch"), the traffic mix
 (`traffic/<mix>.json`), the entry that serves the mix's requests and
 checks them (`entries/<entry>.py`, named by the mix), the limits of the
 correctness check (`limits/<cell>.json`) and one reader per metric,
-end-to-end or per-layer (`metrics/<metric>.py`). An entry module has:
+end-to-end or per-layer (`metrics/<metric>.py`). An arch module has:
+
+    program_modules(cfg) -> ({name: module}, extra)   the program's
+                                  models on the meta device, seeded in order
+    program_handles(cfg, weights, device) -> handles  the program, built on
+                                  the seeded weights
+    image_res(cfg) -> int         the image's side in pixels
+    tap(cfg) -> UNetTap           the denoiser's class and its call's reading
+    shared(cfg, weights, prompt, device) -> sh        the reference's part
+                                  of the check, which `readings` receives
+
+An entry module has:
 
     setup(session) -> state       the cell's own set-up and its warm-up
     serve(session, state, request) -> outputs     one request
@@ -29,7 +41,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmark import check, models, traffic
+from benchmark import traffic
 from benchmark.tap import Call, UNetTap
 from benchmark.trace import Digest, TraceSession
 from benchmark.weights import seeded_state_dicts
@@ -42,7 +54,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "diffusionhandles_tpu")
 @dataclasses.dataclass
 class Session:
     """What an entry gets: the cell's files, the run's seed and device,
-    the program's handles and the U-Net tap."""
+    the program's handles, the denoiser's tap and the model family's
+    module."""
 
     cell: dict
     cfg: dict
@@ -52,6 +65,7 @@ class Session:
     res: int
     handles: object
     tap: UNetTap
+    arch: object
 
 
 @dataclasses.dataclass
@@ -103,6 +117,9 @@ def cell_files(spec: dict, name: str, bench_dir: pathlib.Path = BENCH_DIR):
     cell = next(w for w in spec["workloads"] if w["name"] == name)
     conf = next(c for c in spec["configs"] if c["name"] == cell["config"])
     cfg = json.loads((ROOT / conf["file"]).read_text())
+    if "arch" not in cfg:
+        raise ValueError(f"{conf['file']}: no \"arch\" key (the model "
+                         "family, archs/<arch>.py)")
     mix = traffic.load_mix(bench_dir / "traffic" / f"{cell['traffic']}.json")
     lim_path = bench_dir / "limits" / f"{name}.json"
     limits = json.loads(lim_path.read_text()) if lim_path.exists() else None
@@ -111,7 +128,8 @@ def cell_files(spec: dict, name: str, bench_dir: pathlib.Path = BENCH_DIR):
 
 def load_module(kind: str, name: str, bench_dir: pathlib.Path = BENCH_DIR):
     """The module `<kind>/<name>.py` under `bench_dir`, else under the
-    benchmark's own folder."""
+    benchmark's own folder (registered in `sys.modules` under a name of
+    its own, as dataclasses need)."""
     path = bench_dir / kind / f"{name}.py"
     if not path.exists():
         path = BENCH_DIR / kind / f"{name}.py"
@@ -119,6 +137,7 @@ def load_module(kind: str, name: str, bench_dir: pathlib.Path = BENCH_DIR):
         f"benchmark_{kind}_" + name.replace(".", "_").replace("-", "_"),
         path)
     mod = importlib.util.module_from_spec(mod_spec)
+    sys.modules[mod_spec.name] = mod
     mod_spec.loader.exec_module(mod)
     return mod
 
@@ -152,15 +171,16 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, trace: bool,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     entry = load_entry(mix["entry"], bench_dir)
+    arch = load_module("archs", cfg["arch"], bench_dir)
 
     # ---- set-up: weights, the program, the entry's own set-up and warm-up
-    meta, _ = models.program_modules(cfg)
+    meta, _ = arch.program_modules(cfg)
     weights = seeded_state_dicts(meta, seed, device)
     del meta
-    handles = models.program_handles(cfg, weights, device)
-    tap = UNetTap(cfg["unet"]["out_channels"])
-    session = Session(cell, cfg, mix, seed, device, models.image_res(cfg),
-                      handles, tap)
+    handles = arch.program_handles(cfg, weights, device)
+    tap = arch.tap(cfg)
+    session = Session(cell, cfg, mix, seed, device, arch.image_res(cfg),
+                      handles, tap, arch)
     served: List[Served] = []
     with tap:
         state = entry.setup(session)
@@ -226,8 +246,8 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    readings = correctness(entry, CheckInput(cfg, mix, weights, state, None,
-                                             seed, control), served, device)
+    readings = correctness(entry, arch, CheckInput(
+        cfg, mix, weights, state, None, seed, control), served, device)
     control_readings = readings.pop("control", None)
     limits = limits or {}
     correct = bool(limits) and all(
@@ -308,12 +328,11 @@ def _finite(outputs) -> bool:
     return True
 
 
-def correctness(entry, inp: CheckInput, served: List[Served],
+def correctness(entry, arch, inp: CheckInput, served: List[Served],
                 device) -> Dict[str, float]:
     """The entry's check of a request drawn from the seed among those the
     window finished, against the reference built on the run's weights."""
-    ref = models.reference_models(inp.cfg, inp.weights, device)
-    sh = check.shared(inp.cfg, ref, inp.mix["prompt"], device)
+    sh = arch.shared(inp.cfg, inp.weights, inp.mix["prompt"], device)
     s = served[traffic.sample_indices(len(served), 1, inp.seed, 0)[0]]
     s.calls = _unpark(s.calls, device)
     s.outputs = _unpark(s.outputs, device)

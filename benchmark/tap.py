@@ -1,16 +1,17 @@
-"""What the harness observes of the program's U-Net, at its module
+"""What the harness observes of the program's denoiser, at its module
 boundary.
 
-`UNetTap` wraps the U-Net class's `__call__` for the length of a run, so
-that it sees every instance, the copies that batched editing builds per
-request included. For each call it keeps the latents it was given (a
-detached reference to the input, no copy and no device sync), whether the
-call records a graph for a backward, and the host nanoseconds the call
-took to enqueue. At the call indices in `keep` that record a graph it
-also keeps the activations the call returned, copied without a sync into
-host buffers made before the request. While tracing it also records the shapes of the kernel
-sites that the roofline shares need: the long self-attentions and the
-resnet halves.
+`UNetTap` wraps the `__call__` of the denoiser's class (the model family's
+`tap(cfg)` names the class, and how to read a call's arguments) for the
+length of a run, so that it sees every instance, the copies that batched
+editing builds per request included. For each call it keeps the latents
+it was given (a detached reference to the input, no copy and no device
+sync), whether the call records a graph for a backward, and the host
+nanoseconds the call took to enqueue. At the call indices in `keep` that
+record a graph it also keeps the activations the call returned, copied
+without a sync into host buffers made before the request. While tracing
+it also records the shapes of the kernel sites that the roofline shares
+need: the long self-attentions and the resnet halves.
 """
 
 from __future__ import annotations
@@ -35,14 +36,15 @@ class Call:
 
 
 class UNetTap:
-    """Record the U-Net's calls into `self.calls` (one list per request,
-    started with `begin`)."""
+    """Record the calls of `cls` into `self.calls` (one list per request,
+    started with `begin`). `parse(args, kwargs)` reads a call's arguments
+    as (the latents [batch, C, h, w], detached; the timestep; the tensors
+    through which the call records a graph where one requires grad). A
+    call returns (eps, activations, ...)."""
 
-    def __init__(self, latent_channels: int):
-        from diffusionhandles_tpu_torch.models.unet import \
-            UNet2DConditionModel
-        self.cls = UNet2DConditionModel
-        self.latent_channels = latent_channels
+    def __init__(self, cls: type, parse: Callable):
+        self.cls = cls
+        self.parse = parse
         self.calls: List[Call] = []
         # call indices whose returned activations are kept, and the host
         # buffers made for them before the request
@@ -50,7 +52,7 @@ class UNetTap:
         self._shapes: Optional[list] = None
         self._buffers: dict = {}
         # called before each call with its index in the request and the
-        # U-Net instance
+        # denoiser instance
         self.on_call: Optional[Callable[[int, torch.nn.Module], None]] = \
             None
         self._orig = None
@@ -60,23 +62,19 @@ class UNetTap:
         orig, tap = self._orig, self
 
         def call(module, *args, **kwargs):
-            x = args[0] if args else kwargs["sample"]
-            ctx = args[2] if len(args) > 2 else kwargs.get(
-                "encoder_hidden_states")
-            t = args[1] if len(args) > 1 else kwargs["timestep"]
+            latents, t, inputs = tap.parse(args, kwargs)
             if tap.on_call is not None:
                 tap.on_call(len(tap.calls), module)
             grad = torch.is_grad_enabled() and any(
                 isinstance(a, torch.Tensor) and a.requires_grad
-                for a in (x, ctx))
+                for a in inputs)
             start = time.perf_counter_ns()
             out = orig(module, *args, **kwargs)
             took = time.perf_counter_ns() - start
             acts = (tap._kept(len(tap.calls), out[1])
                     if grad and len(tap.calls) in tap.keep else None)
-            tap.calls.append(Call(
-                grad, int(x.shape[0]), t,
-                x.detach()[:, :tap.latent_channels], took, acts, start))
+            tap.calls.append(Call(grad, int(latents.shape[0]), t,
+                                  latents, took, acts, start))
             return out
 
         self.cls.__call__ = call

@@ -79,7 +79,7 @@ def _run(cell, trace=False, fault=None, seed=SEED, seconds=0.0):
 
 
 @pytest.mark.parametrize("cell", ["toy_edit.toy", "toy_batch4.toy",
-                                  "toy_invert.toy"])
+                                  "toy_invert.toy", "toy_sample.toy_side"])
 def test_toy_cell_runs_and_is_correct(cell):
     r = _run(cell)
     keys = list(r)
@@ -132,6 +132,58 @@ def test_fixture_metric_is_read_by_name():
     class _R:
         requests = [1, 2, 3]
     assert read(_R()) == 3
+
+
+def test_config_without_arch_is_refused(tmp_path):
+    spec = _fixture_spec()
+    conf = json.loads((FIXTURE / "configs" / "toy.json").read_text())
+    del conf["arch"]
+    path = tmp_path / "no_arch.json"
+    path.write_text(json.dumps(conf))
+    spec["configs"][0]["file"] = str(path)
+    with pytest.raises(ValueError, match=r"no_arch\.json: no \"arch\" key"):
+        harness.cell_files(spec, "toy_edit.toy", FIXTURE)
+
+
+def test_tap_records_the_wrapper_not_its_unet():
+    """The toy_side family's tap sees the wrapper's calls (its whole
+    4-channel sample, at the CFG batch), and none of the calls that the
+    wrapper makes to the port's U-Net inside it."""
+    from benchmark.weights import seeded_state_dicts
+    spec = _fixture_spec()
+    cell, cfg, mix, _ = harness.cell_files(spec, "toy_sample.toy_side",
+                                           FIXTURE)
+    arch = harness.load_module("archs", cfg["arch"], FIXTURE)
+    meta, _ = arch.program_modules(cfg)
+    handles = arch.program_handles(
+        cfg, seeded_state_dicts(meta, SEED, "cpu"), "cpu")
+    inner = []
+    handles.denoiser.unet.register_forward_hook(
+        lambda mod, args, out: inner.append(args[0].shape))
+    tap = arch.tap(cfg)
+    assert tap.cls is type(handles.denoiser)
+    assert tap.cls is not type(handles.denoiser.unet)
+    session = harness.Session(cell, cfg, mix, SEED, torch.device("cpu"),
+                              arch.image_res(cfg), handles, tap, arch)
+    entry = harness.load_entry(mix["entry"], FIXTURE)
+    with tap:
+        calls = tap.begin()
+        entry.serve(session, {}, traffic.request(mix, session.res, SEED, 0))
+    steps = cfg["sampler"]["num_timesteps"]
+    assert len(calls) == len(inner) == steps
+    assert [tuple(c.latents.shape) for c in calls] == [(2, 4, 8, 8)] * steps
+    assert not any(c.grad for c in calls)
+
+
+def _side_residual_dropped(handles):
+    handles.denoiser.side.register_forward_hook(
+        lambda mod, args, out: torch.zeros_like(out))
+
+
+def test_side_residual_dropped_fails():
+    r = _run("toy_sample.toy_side", fault=_side_residual_dropped)
+    assert not r["correct"]
+    assert r["compared"]["steps"]["value"] > r["compared"]["steps"]["limit"]
 
 
 def _no_guidance(handles):
@@ -223,6 +275,24 @@ def test_null_text_unchanged_fails():
     assert not r["correct"]
     assert (r["compared"]["null_loss"]["value"]
             > r["compared"]["null_loss"]["limit"])
+
+
+def test_null_loss_is_pooled_over_steps():
+    """Losses (before, reference, program) of a sound inversion on the
+    card: at the last step the reference's fall is one float32 rounding,
+    so that step's own ratio read 1.0; pooled, the steps read as the
+    sound run they are, and an embedding left unchanged reads 1."""
+    from benchmark import check
+    sound = [(0.049042828381061554, 0.009754939004778862,
+              0.009702429175376892),
+             (0.1850178986787796, 0.14789028465747833, 0.14790058135986328),
+             (0.9652711153030396, 0.9506340622901917, 0.9506166577339172),
+             (0.48477745056152344, 0.48477742075920105,
+              0.48477745056152344)]
+    assert check.loss_missed(sound) < 2e-4
+    unchanged = [(before, want, before) for before, want, _ in sound]
+    assert check.loss_missed(unchanged) == pytest.approx(1.0)
+    assert check.loss_missed([(0.5, 0.5, 0.5)]) == 0.0
 
 
 def test_guidance_call_indices_follow_the_loop():

@@ -50,12 +50,56 @@ def test_names_compared_whole():
         probe.unlink()
 
 
+MODEL_KEYS = {"unet", "vae", "text_encoder"}
+MODEL_IMPORTS = ("diffusionhandles_tpu_torch.models", "benchmark.reference")
+
+
+def imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("name", ["harness.py", "tap.py", "run.py"])
+def test_harness_names_no_model_family(name):
+    """The harness reaches the model family only through the arch module
+    that a configuration names: it indexes no model's key and imports no
+    model of the program and no reference."""
+    tree = ast.parse((BENCH / name).read_text(), filename=name)
+    keys = {node.slice.value for node in ast.walk(tree)
+            if isinstance(node, ast.Subscript)
+            and isinstance(node.slice, ast.Constant)}
+    assert not keys & MODEL_KEYS, f"{name} indexes {keys & MODEL_KEYS}"
+    bad = [m for m in imported_modules(tree)
+           if any(m == p or m.startswith(p + ".") for p in MODEL_IMPORTS)]
+    assert not bad, f"{name} imports {bad}"
+
+
+def test_model_family_check_sees_a_planted_key():
+    tree = ast.parse('cfg["unet"]["sample_size"]\n'
+                     "from diffusionhandles_tpu_torch.models import unet\n"
+                     "from benchmark import reference\n")
+    keys = {node.slice.value for node in ast.walk(tree)
+            if isinstance(node, ast.Subscript)
+            and isinstance(node.slice, ast.Constant)}
+    assert "unet" in keys
+    assert {"diffusionhandles_tpu_torch.models",
+            "benchmark.reference"} <= set(imported_modules(tree))
+
+
 def test_harness_loads_no_jax():
     """Importing every harness module leaves no JAX module loaded."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import benchmark.harness, benchmark.control, benchmark.counting\n"
-        "import benchmark.models, benchmark.trace\n"
+        "import benchmark.archs.sd2_depth, benchmark.trace\n"
         "from benchmark.harness import forbidden_modules\n"
         "print(forbidden_modules())\n" % str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
