@@ -67,13 +67,21 @@ class GuidedDiffuserConfig:
     fused_recording: bool = True
 
 
+SD2_DEPTH = "stabilityai/stable-diffusion-2-depth"
+# SDXL base 1.0, conditioned on depth through diffusers/controlnet-depth-
+# sdxl-1.0 (diffuser.py)
+SDXL_DEPTH_CONTROLNET = "stabilityai/stable-diffusion-xl-base-1.0"
+
+
 @dataclasses.dataclass
 class ModelPathsConfig:
     """Where model weights come from. With `checkpoint_dir` None the models
-    get seeded random weights at the real shapes."""
+    get seeded random weights at the real shapes. `model_name` picks the
+    model family: SD2_DEPTH (and any other name) or
+    SDXL_DEPTH_CONTROLNET."""
 
     checkpoint_dir: Optional[str] = None
-    model_name: str = "stabilityai/stable-diffusion-2-depth"
+    model_name: str = SD2_DEPTH
 
 
 @dataclasses.dataclass

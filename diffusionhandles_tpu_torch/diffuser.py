@@ -19,6 +19,17 @@ inversion) recomputes its blocks in the backward.
 
 Layouts are NCHW: latents [1, 4, h, w], depth [1, 1, h, w], activation
 stacks [T, C, H, W] (the reference's own layout).
+
+Two model families (`ModelPathsConfig.model_name`). SD-2-depth takes the
+depth as a fifth input channel of its U-Net, one text tower, and records
+three activation stacks. SDXL base 1.0 with the depth ControlNet
+(`config.SDXL_DEPTH_CONTROLNET`) takes the depth as the
+ControlNet's control image at image resolution, two text towers whose
+penultimate states are concatenated, the pooled text vector and the size
+ids as added conditions, zeros for the unconditional row's context and
+pooled vector (its `force_zeros_for_empty_prompt`), and records two
+stacks. `denoise` is the one call of either; the guidance losses weigh the
+recorded stacks by the schedule's last weights, as many as there are.
 """
 
 from __future__ import annotations
@@ -32,7 +43,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from diffusionhandles_tpu_torch.config import (GuidedDiffuserConfig,
+from diffusionhandles_tpu_torch.config import (SDXL_DEPTH_CONTROLNET,
+                                               GuidedDiffuserConfig,
                                                ModelPathsConfig)
 from diffusionhandles_tpu_torch.guidance import (
     ProcessedCorrespondences, background_loss_apply,
@@ -62,7 +74,9 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 @dataclasses.dataclass
 class SDModels:
-    """The SD-2-depth component models."""
+    """The component models: SD-2-depth's, or with `controlnet` SDXL's
+    (its second text tower `text_encoder_2`, and `denoiser`, the
+    ControlNet and U-Net called as one, made here)."""
 
     unet: UNet2DConditionModel
     vae: AutoencoderKL
@@ -71,6 +85,23 @@ class SDModels:
     unet_config: UNetConfig
     vae_config: VAEConfig
     clip_config: CLIPTextConfig
+    controlnet: Optional[nn.Module] = None
+    text_encoder_2: Optional[nn.Module] = None
+    clip2_config: Optional[CLIPTextConfig] = None
+    denoiser: Optional[nn.Module] = None
+
+    def __post_init__(self):
+        if self.controlnet is not None and self.denoiser is None:
+            from diffusionhandles_tpu_torch.models.controlnet import \
+                ControlNetDenoiser
+            self.denoiser = ControlNetDenoiser(self.unet, self.controlnet)
+
+    def modules(self) -> list:
+        """Every model, the denoiser last (it holds the U-Net and the
+        ControlNet)."""
+        return [m for m in (self.unet, self.vae, self.text_encoder,
+                            self.controlnet, self.text_encoder_2,
+                            self.denoiser) if m is not None]
 
 
 @torch.no_grad()
@@ -103,18 +134,23 @@ def create_sd_models(model_paths: Optional[ModelPathsConfig] = None,
                      conf: Optional[GuidedDiffuserConfig] = None,
                      variant: str = "sd2", seed: int = 0,
                      device=None) -> SDModels:
-    """The SD stack on `device` (default: the GPU).
+    """The SD stack on `device` (default: the GPU), of the family that
+    `model_paths.model_name` names.
 
-    variant='sd2': the real SD-2-depth architecture; 'tiny': the miniature
-    test architecture. Weights: strictly loaded from
-    `model_paths.checkpoint_dir` (a diffusers layout: unet/, vae/,
-    text_encoder/ with .safetensors or .bin files, and the CLIP tokenizer
+    variant='sd2': the real architecture (SD-2-depth, or SDXL base 1.0 with
+    the depth ControlNet); 'tiny': the miniature test architecture.
+    Weights: strictly loaded from `model_paths.checkpoint_dir` (a diffusers
+    layout: unet/, vae/, text_encoder/, for SDXL also text_encoder_2/ and
+    controlnet/, with .safetensors or .bin files, and the CLIP tokenizer
     from tokenizer/) if given, else seeded random."""
     conf = conf or GuidedDiffuserConfig()
     device = resolve_device(device)
     ckpt_dir = model_paths.checkpoint_dir if model_paths else None
     dtype = DTYPES[conf.dtype]
     param_dtype = DTYPES[conf.param_dtype]
+    if model_paths and model_paths.model_name == SDXL_DEPTH_CONTROLNET:
+        return _create_sdxl_models(conf, variant, seed, device, ckpt_dir,
+                                   dtype, param_dtype)
     in_ch = 5 if conf.use_depth else 4
     if variant == "tiny":
         ucfg = tiny_unet_config(in_channels=in_ch,
@@ -148,6 +184,42 @@ def create_sd_models(model_paths: Optional[ModelPathsConfig] = None,
     tokenizer = load_tokenizer(ckpt_dir, max_length=77,
                                vocab_size=ccfg.vocab_size)
     return SDModels(unet, vae, clip, tokenizer, ucfg, vcfg, ccfg)
+
+
+def _create_sdxl_models(conf: GuidedDiffuserConfig, variant: str, seed: int,
+                        device, ckpt_dir, dtype, param_dtype) -> SDModels:
+    """create_sd_models' SDXL family: the U-Net and the ControlNet in the
+    config's dtypes, the VAE too (the tiny variant: fp32), the two text
+    towers in fp32; the ControlNet's residuals at the model card's scale
+    (controlnet.SDXL_CONDITIONING_SCALE)."""
+    from diffusionhandles_tpu_torch.models.clip_text import \
+        CLIPTextModelWithProjection
+    from diffusionhandles_tpu_torch.models.controlnet import (
+        SDXL_CONDITIONING_SCALE, ControlNetModel, sdxl_configs)
+    fields = dict(flash_attention=conf.flash_attention,
+                  remat=conf.remat_guidance,
+                  conditioning_scale=SDXL_CONDITIONING_SCALE)
+    if variant != "tiny":
+        fields.update(dtype=dtype, param_dtype=param_dtype)
+    ucfg, cncfg, vcfg, c1, c2 = sdxl_configs(variant == "tiny", **fields)
+    with torch.device(device):
+        mods = dict(unet=UNet2DConditionModel(ucfg), vae=AutoencoderKL(vcfg),
+                    text_encoder=CLIPTextModel(c1),
+                    text_encoder_2=CLIPTextModelWithProjection(c2),
+                    controlnet=ControlNetModel(ucfg, cncfg))
+    gen = torch.Generator(device=device)
+    for k, (name, mod) in enumerate(mods.items()):
+        if ckpt_dir is None:
+            seeded_init_(mod, gen.manual_seed(seed + k))
+        else:
+            load_checkpoint_into(mod, pathlib.Path(ckpt_dir) / name, name)
+        mod.eval().requires_grad_(False)
+    tokenizer = load_tokenizer(ckpt_dir, max_length=77,
+                               vocab_size=c1.vocab_size)
+    return SDModels(mods["unet"], mods["vae"], mods["text_encoder"],
+                    tokenizer, ucfg, vcfg, c1,
+                    controlnet=mods["controlnet"],
+                    text_encoder_2=mods["text_encoder_2"], clip2_config=c2)
 
 
 def _stack_uncond(uncond_embeddings, num_steps: int, device) -> torch.Tensor:
@@ -202,6 +274,13 @@ class GuidedStableDiffuser(GuidedDiffuser):
         self.image_res = (self.latent_res
                           * self.models.vae_config.downscale_factor)
         self.act_dtype = DTYPES[conf.activation_store_dtype]
+        self.sdxl = self.models.controlnet is not None
+        # SDXL's size and crop ids: original size, crop's top-left corner,
+        # target size (the whole image at its own resolution)
+        r = float(self.image_res)
+        self.time_ids = (torch.tensor([[r, r, 0.0, 0.0, r, r]],
+                                      device=self.device)
+                         if self.sdxl else None)
         self._prompt_cache = {}
 
     def get_image_shape(self):
@@ -240,18 +319,54 @@ class GuidedStableDiffuser(GuidedDiffuser):
         dmin, dmax = depth.amin(), depth.amax()
         return 2.0 * (depth - dmin) / (dmax - dmin) - 1.0
 
+    def depth_cond(self, depth) -> torch.Tensor:
+        """The depth as the denoiser takes it: SD-2's fifth channel on the
+        latent grid (`init_depth`), or SDXL's control image [1, 3, H, W]
+        at the image's resolution (`controlnet.control_image`)."""
+        if not self.sdxl:
+            return self.init_depth(depth)
+        from diffusionhandles_tpu_torch.models.controlnet import \
+            control_image
+        depth = self._tensor(depth)
+        return control_image(depth.reshape(depth.shape[-2:])[None, None],
+                             self.image_res)
+
     def encode_prompt(self, prompt: str) -> torch.Tensor:
-        """CLIP-encode a prompt -> [1, 77, D] fp32 (memoized)."""
+        """CLIP-encode a prompt -> [1, 77, D] fp32 (memoized). SDXL: the
+        two towers' penultimate states concatenated; the second tower's
+        pooled vector is kept for `pooled_prompt`."""
         if prompt not in self._prompt_cache:
-            ids = torch.tensor(self.models.tokenizer([prompt]),
-                               dtype=torch.long, device=self.device)
-            with torch.no_grad():
-                self._prompt_cache[prompt] = self.models.text_encoder(ids)
-        return self._prompt_cache[prompt]
+            m = self.models
+            ids = torch.tensor(m.tokenizer([prompt]), dtype=torch.long,
+                               device=self.device)
+            with torch.no_grad(), span("text_towers"):
+                if m.text_encoder_2 is None:
+                    self._prompt_cache[prompt] = (m.text_encoder(ids), None)
+                else:
+                    ctx2, pooled = m.text_encoder_2(ids)
+                    self._prompt_cache[prompt] = (
+                        torch.cat([m.text_encoder(ids), ctx2], dim=-1),
+                        pooled)
+        return self._prompt_cache[prompt][0]
+
+    def pooled_prompt(self, prompt: str) -> Optional[torch.Tensor]:
+        """SDXL: the prompt's pooled text vector [1, P]; None for SD-2."""
+        self.encode_prompt(prompt)
+        return self._prompt_cache[prompt][1]
+
+    def uncond_embedding(self) -> torch.Tensor:
+        """The unconditional row's context [1, 77, D]: the empty prompt's,
+        or SDXL's zeros (its force_zeros_for_empty_prompt; the row's
+        pooled vector is zeros too)."""
+        if not self.sdxl:
+            return self.encode_prompt("")
+        return torch.zeros(1, self.models.clip_config.max_position_embeddings,
+                           self.models.unet_config.cross_attention_dim,
+                           device=self.device)
 
     def init_prompt(self, prompt: str):
         """(uncond, cond) embeddings (reference: init_prompt :93-108)."""
-        return self.encode_prompt(""), self.encode_prompt(prompt)
+        return self.uncond_embedding(), self.encode_prompt(prompt)
 
     @torch.no_grad()
     def encode_latent_image(self, image) -> torch.Tensor:
@@ -273,8 +388,8 @@ class GuidedStableDiffuser(GuidedDiffuser):
         """Zeros noised to timesteps[0] with the seeded CPU noise
         (reference: guided_stable_diffuser.py:191-200)."""
         c = self.models.unet_config
-        lat_ch = c.in_channels - 1 if self.conf.use_depth else c.in_channels
-        noise = seeded_randn((1, lat_ch, self.latent_res, self.latent_res),
+        noise = seeded_randn((1, c.out_channels, self.latent_res,
+                              self.latent_res),
                              self.conf.seed, self.conf.noise_rng,
                              device=self.device)
         return add_noise(self.schedule, torch.zeros_like(noise), noise,
@@ -291,14 +406,34 @@ class GuidedStableDiffuser(GuidedDiffuser):
             return torch.tensor(int(self.schedule.timesteps[step_idx]),
                                 device=self.device)
 
-    def cfg_step(self, latents, depth64, uncond_t, cond, step_idx: int):
-        """One classifier-free-guidance DDIM step (batch-2 U-Net pass).
-        Returns (new latents, the cond row's activations)."""
+    def denoise(self, latents, depth_cond, step_idx: int, context,
+                pooled=None):
+        """One denoiser call on latents [B, 4, h, w] with the rows' text
+        context [B, 77, D]: SD-2's U-Net on the latents and the depth
+        channel, or SDXL's ControlNet and U-Net on the latents, the control
+        image, the rows' pooled vectors `pooled` [B, P] and the size ids.
+        Returns (eps, activations, attn)."""
+        m = self.models
+        if m.denoiser is None:
+            return m.unet(self.unet_in(latents, depth_cond),
+                          self.timestep(step_idx), context)
+        b = latents.shape[0]
+        return m.denoiser(latents, self.timestep(step_idx), context,
+                          depth_cond.expand(b, -1, -1, -1), pooled,
+                          self.time_ids.expand(b, -1))
+
+    def cfg_step(self, latents, depth64, uncond_t, cond, step_idx: int,
+                 pooled=None):
+        """One classifier-free-guidance DDIM step (batch-2 denoiser pass;
+        `pooled`: SDXL's pooled vector of the cond row, the uncond row's
+        being zeros). Returns (new latents, the cond row's
+        activations)."""
         with span("cfg.step"):
             lat2 = torch.cat([latents, latents], dim=0)
             ctx = torch.stack([uncond_t, cond[0]], dim=0)
-            eps, acts, _ = self.models.unet(self.unet_in(lat2, depth64),
-                                            self.timestep(step_idx), ctx)
+            if pooled is not None:
+                pooled = torch.cat([torch.zeros_like(pooled), pooled])
+            eps, acts, _ = self.denoise(lat2, depth64, step_idx, ctx, pooled)
             gs = self.conf.guidance_scale
             noise_pred = eps[0] + gs * (eps[1] - eps[0])
             return (ddim_step(self.schedule, noise_pred[None], step_idx,
@@ -312,13 +447,14 @@ class GuidedStableDiffuser(GuidedDiffuser):
         """Depth-conditioned reconstruction that records the decoder
         activations of the cond row.
 
-        Returns (activations: 3 stacks [T, C, H, W], final latents,
-        uncond_seq [T, 77, D], init_latents)."""
+        Returns (activations: a stack [T, C, H, W] per recorded up block,
+        final latents, uncond_seq [T, 77, D], init_latents)."""
         T = self.schedule.num_inference_steps
-        depth64 = self.init_depth(depth) if self.conf.use_depth else None
+        depth64 = self.depth_cond(depth) if self.conf.use_depth else None
         cond = self.encode_prompt(prompt)
+        pooled = self.pooled_prompt(prompt)
         if uncond_embeddings is None:
-            uncond_seq = self.encode_prompt("").expand(T, -1, -1)
+            uncond_seq = self.uncond_embedding().expand(T, -1, -1)
         else:
             uncond_seq = _stack_uncond(uncond_embeddings, T, self.device)
         if init_latents is None:
@@ -328,26 +464,29 @@ class GuidedStableDiffuser(GuidedDiffuser):
         recorded = []
         for i in range(T):
             latents, acts = self.cfg_step(latents, depth64, uncond_seq[i],
-                                          cond, i)
+                                          cond, i, pooled)
             recorded.append([a[1].to(self.act_dtype) for a in acts])
-        stacks = [torch.stack([r[k] for r in recorded]) for k in range(3)]
+        stacks = [torch.stack([r[k] for r in recorded])
+                  for k in range(len(recorded[0]))]
         return stacks, latents, uncond_seq, init_latents
 
     def guidance_energy(self, latents, depth64, cond, step_idx: int,
                         fg_pre, bg_pre, fgw, bgw,
-                        pc: ProcessedCorrespondences):
+                        pc: ProcessedCorrespondences, pooled=None):
         """The weighted fg + bg activation energy of `latents` at step
-        `step_idx` (fgw, bgw: the 3 per-layer weights)."""
+        `step_idx` (fgw, bgw: the schedule's 3 per-layer weights, of which
+        the recorded stacks take the last, one each: all three in SD-2,
+        whose first is zero at every step, the last two in SDXL)."""
         conf = self.conf
         size = (self.latent_res, self.latent_res)
-        _, acts, _ = self.models.unet(self.unet_in(latents, depth64),
-                                      self.timestep(step_idx), cond)
+        _, acts, _ = self.denoise(latents, depth64, step_idx, cond, pooled)
+        first = len(fgw) - len(acts)
         loss = 0.0
         with span("guidance.energy"):
-            for k in range(3):
-                loss = loss + float(fgw[k]) * foreground_loss_apply(
+            for k in range(len(acts)):
+                loss = loss + float(fgw[first + k]) * foreground_loss_apply(
                     fg_pre[k], acts[k][0], pc, conf.fg_patch_size, size)
-                loss = loss + float(bgw[k]) * background_loss_apply(
+                loss = loss + float(bgw[first + k]) * background_loss_apply(
                     bg_pre[k], acts[k][0], pc, conf.bg_patch_size, size,
                     conf.bg_loss_type)
         return loss
@@ -381,8 +520,9 @@ class GuidedStableDiffuser(GuidedDiffuser):
         bg_weight = conf.bg_weight if bg_weight is None else bg_weight
         T = self.schedule.num_inference_steps
         size = (self.latent_res, self.latent_res)
-        depth64 = self.init_depth(depth) if conf.use_depth else None
+        depth64 = self.depth_cond(depth) if conf.use_depth else None
         cond = self.encode_prompt(prompt)
+        pooled = self.pooled_prompt(prompt)
         uncond_seq = _stack_uncond(uncond_embeddings, T, self.device)
         fgw, bgw = build_guidance_weight_schedule(
             fg_weight, bg_weight, conf.guidance_max_step, T,
@@ -397,18 +537,18 @@ class GuidedStableDiffuser(GuidedDiffuser):
                 if i < conf.guidance_max_step:
                     # latent-independent halves of the losses, once per step
                     fg_pre = [foreground_orig_precompute(
-                        acts_orig[k][i], pc, conf.fg_patch_size, size)
-                        for k in range(3)]
+                        a[i], pc, conf.fg_patch_size, size)
+                        for a in acts_orig]
                     bg_pre = [background_orig_precompute(
-                        acts_orig[k][i], pc, conf.bg_patch_size, size,
-                        conf.bg_loss_type) for k in range(3)]
+                        a[i], pc, conf.bg_patch_size, size,
+                        conf.bg_loss_type) for a in acts_orig]
                     for it in range(conf.num_optsteps):
                         with span("guidance.opt_step"):
                             lat = latents.detach().requires_grad_(True)
                             with torch.enable_grad():
                                 energy = self.guidance_energy(
                                     lat, depth64, cond, i, fg_pre, bg_pre,
-                                    fgw[i, it], bgw[i, it], pc)
+                                    fgw[i, it], bgw[i, it], pc, pooled)
                                 with span("guidance.backward"):
                                     (grad,) = torch.autograd.grad(energy,
                                                                   lat)
@@ -419,7 +559,8 @@ class GuidedStableDiffuser(GuidedDiffuser):
                 post_opt = latents
                 with torch.no_grad():
                     latents, _ = self.cfg_step(latents, depth64,
-                                               uncond_seq[i], cond, i)
+                                               uncond_seq[i], cond, i,
+                                               pooled)
                 if save_denoising_steps:
                     steps.append((self._decoded_nhwc(post_opt),
                                   self._decoded_nhwc(latents)))

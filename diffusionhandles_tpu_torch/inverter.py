@@ -13,6 +13,9 @@ diffhandles/stable_null_inverter.py):
   float32 values); then the CFG step rolls the latent forward. With
   `record`, the conditional pass's decoder activations are captured on the
   way: that trajectory is exactly the recording reconstruction's.
+
+In the SDXL family the cond passes take the prompt's pooled vector and the
+uncond passes zeros; the null-text optimisation moves the context alone.
 """
 
 from __future__ import annotations
@@ -53,32 +56,32 @@ class StableNullInverter(NullInverter):
                 f"GuidedDiffuserConfig.num_timesteps)")
         self.guidance_scale = guidance_scale
 
-    def _unet(self, latent, depth64, context, step_idx: int):
-        m = self.model
-        return m.models.unet(m.unet_in(latent, depth64),
-                             m.timestep(step_idx), context)
-
     @torch.no_grad()
-    def ddim_loop(self, latent0, depth64, cond) -> torch.Tensor:
+    def ddim_loop(self, latent0, depth64, cond,
+                  pooled=None) -> torch.Tensor:
         """[S+1, 1, 4, h, w]: latent0 followed by the S noised latents."""
         S = self.num_ddim_steps
         traj = [latent0]
         latent = latent0
         for i in range(S):
             with span("invert.ddim_step"):
-                eps = self._unet(latent, depth64, cond, S - 1 - i)[0]
+                eps = self.model.denoise(latent, depth64, S - 1 - i, cond,
+                                         pooled)[0]
                 latent = ddim_next_step(self.model.schedule, eps, i, latent)
             traj.append(latent)
         return torch.stack(traj)
 
     def null_optimization(self, latents_traj, depth64, uncond0, cond,
                           num_inner_steps: int, epsilon: float,
-                          record: bool = False, verbose: bool = False):
+                          record: bool = False, verbose: bool = False,
+                          pooled=None):
         """Optimize the per-step null-text embeddings (with `verbose`,
-        print each timestep's inner iterations and last loss).
+        print each timestep's inner iterations and last loss; `pooled`:
+        SDXL's pooled vector of the cond row).
 
-        Returns uncond_seq [S, 1, 77, D] and, with `record`, also the three
+        Returns uncond_seq [S, 1, 77, D] and, with `record`, also the
         activation stacks [S, C, H, W] and the final latent."""
+        upooled = None if pooled is None else torch.zeros_like(pooled)
         m = self.model
         S = self.num_ddim_steps
         gs = self.guidance_scale
@@ -95,8 +98,8 @@ class StableNullInverter(NullInverter):
                            + np.float32(i) * np.float32(2e-5))
             with span("null_text.step"):
                 with torch.no_grad():
-                    eps_cond, cond_acts, _ = self._unet(latent_cur, depth64,
-                                                       cond, i)
+                    eps_cond, cond_acts, _ = m.denoise(latent_cur, depth64,
+                                                       i, cond, pooled)
                 if record:
                     recorded.append([a[0].to(m.act_dtype)
                                      for a in cond_acts])
@@ -107,8 +110,8 @@ class StableNullInverter(NullInverter):
                 while j < num_inner_steps and (j == 0 or last_loss >= thresh):
                     with span("null_text.inner"):
                         with torch.enable_grad():
-                            eps_u = self._unet(latent_cur, depth64, uncond,
-                                               i)[0]
+                            eps_u = m.denoise(latent_cur, depth64, i,
+                                              uncond, upooled)[0]
                             eps = eps_u + gs * (eps_cond - eps_u)
                             rec = ddim_step(schedule, eps, i, latent_cur)
                             loss = torch.mean((rec - latent_prev) ** 2)
@@ -126,14 +129,16 @@ class StableNullInverter(NullInverter):
                           f"loss {last_loss:.3e}", flush=True)
                 uncond = uncond.detach()
                 with torch.no_grad():
-                    eps_u = self._unet(latent_cur, depth64, uncond, i)[0]
+                    eps_u = m.denoise(latent_cur, depth64, i, uncond,
+                                      upooled)[0]
                     eps = eps_u + gs * (eps_cond - eps_u)
                     latent_cur = ddim_step(schedule, eps, i, latent_cur)
             uncond_seq.append(uncond)
         uncond_seq = torch.stack(uncond_seq)
         if not record:
             return uncond_seq
-        stacks = [torch.stack([r[k] for r in recorded]) for k in range(3)]
+        stacks = [torch.stack([r[k] for r in recorded])
+                  for k in range(len(recorded[0]))]
         return uncond_seq, stacks, latent_cur
 
     def invert(self, target_img, depth, prompt: str,
@@ -147,15 +152,16 @@ class StableNullInverter(NullInverter):
         uncond_seq [S, 1, 77, D]) and, with `record_activations`, a fourth
         element (activation stacks, final latents)."""
         m = self.model
-        depth64 = m.init_depth(depth) if m.conf.use_depth else None
+        depth64 = m.depth_cond(depth) if m.conf.use_depth else None
         uncond, cond = m.init_prompt(prompt)
+        pooled = m.pooled_prompt(prompt)
         latent0 = m.encode_latent_image(target_img)
         recon_img = m.decode_latent_image(latent0) if return_recon else None
-        traj = self.ddim_loop(latent0, depth64, cond)
+        traj = self.ddim_loop(latent0, depth64, cond, pooled)
         out = self.null_optimization(traj, depth64, uncond, cond,
                                      num_inner_steps, early_stop_epsilon,
                                      record=record_activations,
-                                     verbose=verbose)
+                                     verbose=verbose, pooled=pooled)
         init_noise = traj[self.num_ddim_steps]
         if record_activations:
             uncond_seq, acts, final_latents = out

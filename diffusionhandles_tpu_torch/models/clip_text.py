@@ -1,14 +1,19 @@
-"""CLIP text encoder (the OpenCLIP ViT-H text tower of SD-2),
-transformers CLIPTextModel module names (`text_model.` prefix).
+"""CLIP text encoders, transformers CLIPTextModel module names
+(`text_model.` prefix).
 
-The counterpart of the JAX package's `models/clip_text.py`: prompts are
-encoded to [B, 77, 1024] last hidden states with a causal mask and a final
-layer norm, in fp32.
+The counterpart of the JAX package's `models/clip_text.py`: SD-2's
+OpenCLIP ViT-H tower encodes prompts to [B, 77, 1024] last hidden states
+with a causal mask and a final layer norm, in fp32. SDXL reads two towers
+(CLIP ViT-L/14 and OpenCLIP bigG/14) at their penultimate layer, before
+any final norm (`CLIPTextConfig.penultimate`), and bigG's pooled output:
+the final-norm state at the end token through `text_projection`
+(`CLIPTextModelWithProjection`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +32,12 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
     hidden_act: str = "gelu"  # SD-2: exact gelu
+    # the context is the hidden state before the last layer, with no final
+    # norm (SDXL's towers); else the final-norm state after every layer
+    penultimate: bool = False
+    # the width of the pooled output's projection (SDXL's bigG: 1280);
+    # None: the tower has no projection
+    projection_dim: Optional[int] = None
 
 
 def tiny_clip_config(**overrides) -> CLIPTextConfig:
@@ -107,17 +118,31 @@ class CLIPTextTransformer(nn.Module):
                                              for _ in range(cfg.num_layers)])
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size,
                                              eps=cfg.layer_norm_eps)
+        self.penultimate = cfg.penultimate
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, pooled: bool = False):
+        """The context; with `pooled`, (the context, the final-norm state
+        at each row's end token, the largest id)."""
         s = input_ids.shape[-1]
         pos = torch.arange(s, device=input_ids.device)
         x = (self.embeddings.token_embedding(input_ids)
              + self.embeddings.position_embedding(pos)[None])
         causal = torch.tril(torch.ones(s, s, dtype=torch.bool,
                                        device=input_ids.device))[None, None]
-        for layer in self.encoder.layers:
+        last = len(self.encoder.layers) - 1
+        for i, layer in enumerate(self.encoder.layers):
+            if self.penultimate and i == last:
+                context = x
+                if not pooled:
+                    return context
             x = layer(x, causal)
-        return self.final_layer_norm(x)
+        x = self.final_layer_norm(x)
+        if not self.penultimate:
+            context = x
+        if not pooled:
+            return context
+        rows = torch.arange(x.shape[0], device=x.device)
+        return context, x[rows, input_ids.argmax(dim=-1)]
 
 
 class CLIPTextModel(nn.Module):
@@ -130,3 +155,18 @@ class CLIPTextModel(nn.Module):
 
     def forward(self, input_ids):
         return self.text_model(input_ids)
+
+
+class CLIPTextModelWithProjection(CLIPTextModel):
+    """input_ids [B, 77] -> (the context [B, 77, hidden], the pooled
+    output [B, projection_dim]: the final-norm state at the end token
+    through `text_projection`, which has no bias)."""
+
+    def __init__(self, config: CLIPTextConfig):
+        super().__init__(config)
+        self.text_projection = nn.Linear(config.hidden_size,
+                                         config.projection_dim, bias=False)
+
+    def forward(self, input_ids):
+        context, pooled = self.text_model(input_ids, pooled=True)
+        return context, self.text_projection(pooled)

@@ -1,5 +1,5 @@
-"""Depth-conditioned Stable Diffusion 2 U-Net (diffusers
-UNet2DConditionModel semantics), NCHW.
+"""The Stable Diffusion U-Net (diffusers UNet2DConditionModel semantics),
+NCHW: SD-2-depth's by default, SDXL's with its fields set.
 
 The counterpart of the JAX package's `models/unet.py`. Modules carry the
 diffusers names, so the state dict has a real checkpoint's keys
@@ -21,6 +21,13 @@ them; with `UNetConfig.conv3x3_kernel`, the resnet and upsampler 3x3 convs
 take the conv kernel of `ops/conv.py` where its gate passes ('hybrid': its
 dx kernel under the library forward; 'mixed': its forward kernel over a
 plain backward). The parameters are the same either way.
+
+SDXL's U-Net sets `transformer_layers_per_block` (transformer blocks per
+level, the mid block taking the last level's), `addition_embed_type
+="text_time"` (the pooled text vector and six size and crop ids, each as
+sinusoids, projected into the time embedding) and takes a ControlNet's
+residuals, added to the skip connections and to the mid block's output
+(`models/controlnet.py`). `UNetEncoder` is the part the two nets share.
 """
 
 from __future__ import annotations
@@ -110,6 +117,22 @@ class UNetConfig:
     # 'dots' (the matmul and convolution outputs saved, the rest
     # recomputed), as the JAX UNetConfig.remat
     remat: Union[bool, str] = False
+    # transformer blocks per level (SDXL: (1, 2, 10)); empty: one at every
+    # level. The mid block takes the last level's, as diffusers'
+    transformer_layers_per_block: Tuple[int, ...] = ()
+    # "text_time" (SDXL): the pooled text vector and the size and crop ids,
+    # each id as sinusoids of width addition_time_embed_dim, concatenated
+    # to projection_class_embeddings_input_dim and added to the time
+    # embedding; None: no added embedding (SD-2)
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 0
+
+    def depth(self, level: int) -> int:
+        """Transformer blocks per attention at down level `level` (-1:
+        the mid block)."""
+        layers = self.transformer_layers_per_block
+        return layers[level] if layers else 1
 
     def __post_init__(self):
         if self.fused_gn_conv and self.conv3x3_kernel:
@@ -121,6 +144,10 @@ class UNetConfig:
                              "False, True, 'hybrid' or 'mixed'")
         if self.remat not in (False, True, "dots"):
             raise ValueError(f"remat={self.remat!r}: False, True or 'dots'")
+        if self.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"addition_embed_type="
+                             f"{self.addition_embed_type!r}: None or "
+                             "'text_time'")
 
 
 def tiny_unet_config(**overrides) -> UNetConfig:
@@ -396,11 +423,13 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """Spatial transformer with linear projections (SD-2)."""
+    """Spatial transformer with linear projections and `depth` blocks (one
+    in SD-2; up to ten in SDXL). With `capture_probs` it returns the last
+    block's cross-attention probabilities."""
 
     def __init__(self, channels: int, heads: int, context_dim: int,
                  groups: int, dtype, param_dtype, use_flash: bool,
-                 fused_gn: bool = False):
+                 fused_gn: bool = False, depth: int = 1):
         super().__init__()
         self.dtype = dtype
         self.fused_gn = fused_gn
@@ -408,7 +437,8 @@ class Transformer2DModel(nn.Module):
         self.proj_in = Linear(channels, channels, dtype=dtype,
                               param_dtype=param_dtype)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
-            channels, heads, context_dim, dtype, param_dtype, use_flash)])
+            channels, heads, context_dim, dtype, param_dtype, use_flash)
+            for _ in range(depth)])
         self.proj_out = Linear(channels, channels, dtype=dtype,
                                param_dtype=param_dtype)
 
@@ -418,7 +448,8 @@ class Transformer2DModel(nn.Module):
                       fused=self.fused_gn)
         hid = hid.permute(0, 2, 3, 1).reshape(b, h * w, c)
         hid = self.proj_in(hid)
-        hid, probs = self.transformer_blocks[0](hid, context, capture_probs)
+        for block in self.transformer_blocks:
+            hid, probs = block(hid, context, capture_probs)
         hid = self.proj_out(hid)
         return hid.reshape(b, h, w, c).permute(0, 3, 1, 2) + x, probs
 
@@ -450,7 +481,7 @@ class DownBlock(nn.Module):
     def __init__(self, in_ch, out_ch, temb_ch, num_layers, heads,
                  context_dim, add_downsample, groups, dtype, param_dtype,
                  use_flash, fused_gn_conv=False, fused_gn=False,
-                 conv3x3_kernel=False):
+                 conv3x3_kernel=False, depth=1):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_ch,
@@ -459,7 +490,7 @@ class DownBlock(nn.Module):
             for i in range(num_layers)])
         self.attentions = (nn.ModuleList([
             Transformer2DModel(out_ch, heads, context_dim, groups, dtype,
-                               param_dtype, use_flash, fused_gn)
+                               param_dtype, use_flash, fused_gn, depth)
             for _ in range(num_layers)]) if heads else None)
         self.downsamplers = (nn.ModuleList([Downsample2D(out_ch, dtype,
                                                          param_dtype)])
@@ -485,7 +516,7 @@ class UpBlock(nn.Module):
     def __init__(self, prev_ch, skip_chs: Sequence[int], out_ch, temb_ch,
                  heads, context_dim, add_upsample, groups, dtype,
                  param_dtype, use_flash, fused_gn_conv=False, fused_gn=False,
-                 conv3x3_kernel=False):
+                 conv3x3_kernel=False, depth=1):
         super().__init__()
         resnets = []
         ch = prev_ch
@@ -500,7 +531,7 @@ class UpBlock(nn.Module):
         self.resnets = nn.ModuleList(resnets)
         self.attentions = (nn.ModuleList([
             Transformer2DModel(out_ch, heads, context_dim, groups, dtype,
-                               param_dtype, use_flash, fused_gn)
+                               param_dtype, use_flash, fused_gn, depth)
             for _ in skip_chs]) if heads else None)
         self.upsamplers = (nn.ModuleList([Upsample2D(
             out_ch, dtype, param_dtype, conv3x3_kernel)])
@@ -522,7 +553,7 @@ class UpBlock(nn.Module):
 class MidBlock(nn.Module):
     def __init__(self, channels, temb_ch, heads, context_dim, groups, dtype,
                  param_dtype, use_flash, fused_gn_conv=False, fused_gn=False,
-                 conv3x3_kernel=False):
+                 conv3x3_kernel=False, depth=1):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_ch, groups, 1e-5, dtype,
@@ -531,7 +562,7 @@ class MidBlock(nn.Module):
             for _ in range(2)])
         self.attentions = nn.ModuleList([Transformer2DModel(
             channels, heads, context_dim, groups, dtype, param_dtype,
-            use_flash, fused_gn)])
+            use_flash, fused_gn, depth)])
 
     def forward(self, x, temb, context, capture_probs: bool = False):
         x = self.resnets[0](x, temb)
@@ -566,12 +597,13 @@ def _remat_call(mode, block, *args):
     return ckpt.checkpoint(block, *args, use_reentrant=False, **kwargs)
 
 
-class UNet2DConditionModel(nn.Module):
-    """The denoising U-Net. Input NCHW; returns (eps, activations, attn)."""
+class UNetEncoder(nn.Module):
+    """What the U-Net and a ControlNet share: the input conv, the time
+    embedding (with SDXL's added embedding), the down blocks and the mid
+    block, registered in the U-Net's order."""
 
-    def __init__(self, config: UNetConfig):
-        super().__init__()
-        self.config = cfg = config
+    def _init_encoder(self, cfg: UNetConfig):
+        self.config = cfg
         dt, pdt = cfg.dtype, cfg.param_dtype
         g = cfg.norm_num_groups
         ch0 = cfg.block_out_channels[0]
@@ -585,6 +617,14 @@ class UNet2DConditionModel(nn.Module):
                                               param_dtype=pdt)
         self.time_embedding.linear_2 = Linear(temb_ch, temb_ch, dtype=dt,
                                               param_dtype=pdt)
+        self.add_embedding = None
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = nn.Module()
+            self.add_embedding.linear_1 = Linear(
+                cfg.projection_class_embeddings_input_dim, temb_ch,
+                dtype=dt, param_dtype=pdt)
+            self.add_embedding.linear_2 = Linear(temb_ch, temb_ch, dtype=dt,
+                                                 param_dtype=pdt)
 
         n = len(cfg.block_out_channels)
         down, ch, skip_chs = [], ch0, [ch0]
@@ -593,7 +633,8 @@ class UNet2DConditionModel(nn.Module):
             heads = cfg.num_heads[i] if btype == "CrossAttnDownBlock2D" else 0
             down.append(DownBlock(ch, out_ch, temb_ch, cfg.layers_per_block,
                                   heads, cfg.cross_attention_dim, i < n - 1,
-                                  g, dt, pdt, flash, *switches))
+                                  g, dt, pdt, flash, *switches,
+                                  depth=cfg.depth(i)))
             skip_chs.extend([out_ch] * cfg.layers_per_block)
             if i < n - 1:
                 skip_chs.append(out_ch)
@@ -601,9 +642,62 @@ class UNet2DConditionModel(nn.Module):
         self.down_blocks = nn.ModuleList(down)
         self.mid_block = MidBlock(ch, temb_ch, cfg.num_heads[-1],
                                   cfg.cross_attention_dim, g, dt, pdt, flash,
-                                  *switches)
+                                  *switches, depth=cfg.depth(-1))
+        # the channels of the skip connections, in the order they are made
+        self.skip_channels = tuple(skip_chs)
+        return temb_ch, g, flash, switches
 
-        up, prev = [], ch
+    def _embed(self, timesteps, sample, text_embeds=None, time_ids=None):
+        """The time embedding [B, 4 * ch0] in the compute dtype, plus the
+        added embedding of `text_embeds` [B, P] and `time_ids` [B, 6]
+        where the config has one."""
+        cfg = self.config
+        dt = cfg.dtype
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                  cfg.flip_sin_to_cos, cfg.freq_shift)
+        temb = self.time_embedding.linear_1(temb.to(dt))
+        temb = self.time_embedding.linear_2(F.silu(temb))
+        if self.add_embedding is None:
+            return temb
+        ids = timestep_embedding(time_ids.flatten(),
+                                 cfg.addition_time_embed_dim,
+                                 cfg.flip_sin_to_cos, cfg.freq_shift)
+        added = torch.cat([text_embeds.float(),
+                           ids.reshape(text_embeds.shape[0], -1)], dim=-1)
+        aug = self.add_embedding.linear_1(added.to(dt))
+        return temb + self.add_embedding.linear_2(F.silu(aug))
+
+    def _encode(self, x, temb, context, capture_attention: bool):
+        """Down blocks and mid block on the input features `x`: (the mid
+        block's output, the skip connections, the down and mid blocks'
+        cross-attention probabilities)."""
+        cfg = self.config
+        skips = [x]
+        attn_down = []
+        for i, block in enumerate(self.down_blocks):
+            x, block_skips, probs = _remat_call(
+                cfg.remat, block, x, temb, context, capture_attention)
+            skips.extend(block_skips)
+            if cfg.down_block_types[i] == "CrossAttnDownBlock2D":
+                attn_down.append(probs)
+        x, attn_mid = self.mid_block(x, temb, context, capture_attention)
+        return x, skips, attn_down, attn_mid
+
+
+class UNet2DConditionModel(UNetEncoder):
+    """The denoising U-Net. Input NCHW; returns (eps, activations, attn)."""
+
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        cfg = config
+        temb_ch, g, flash, switches = self._init_encoder(cfg)
+        dt, pdt = cfg.dtype, cfg.param_dtype
+        n = len(cfg.block_out_channels)
+        skip_chs = list(self.skip_channels)
+        up, prev = [], cfg.block_out_channels[-1]
         rev_channels = list(reversed(cfg.block_out_channels))
         rev_heads = list(reversed(cfg.num_heads))
         for i, btype in enumerate(cfg.up_block_types):
@@ -613,7 +707,7 @@ class UNet2DConditionModel(nn.Module):
                            for _ in range(cfg.layers_per_block + 1)]
             up.append(UpBlock(prev, block_skips, out_ch, temb_ch, heads,
                               cfg.cross_attention_dim, i < n - 1, g, dt, pdt,
-                              flash, *switches))
+                              flash, *switches, depth=cfg.depth(n - 1 - i)))
             prev = out_ch
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(g, prev, eps=1e-5, dtype=pdt)
@@ -640,40 +734,38 @@ class UNet2DConditionModel(nn.Module):
         """sample [B, C_in, H, W]; timesteps scalar or [B];
         encoder_hidden_states [B, 77, cross_attention_dim].
 
-        Returns eps [B, out, H, W] fp32, the three decoder activations
-        (fp32, NCHW) and, with `capture_attention`, a dict of cross-attention
-        probability lists ('down', 'mid', 'up'), else None. On CUDA a
-        signature's later calls replay CUDA graphs of its second
-        (`unet_graphs.py`), with the same kernels and the same results."""
+        Returns eps [B, out, H, W] fp32, the decoder activations (fp32,
+        NCHW; one per cross-attention up block) and, with
+        `capture_attention`, a dict of cross-attention probability lists
+        ('down', 'mid', 'up'), else None. On CUDA a signature's later calls
+        replay CUDA graphs of its second (`unet_graphs.py`), with the same
+        kernels and the same results. SDXL's U-Net is called through
+        `controlnet.ControlNetDenoiser`, which gives `_forward` its added
+        conditions and residuals."""
         with span("unet"):
             return self._graphs.call(self, self._forward, sample, timesteps,
                                      encoder_hidden_states,
                                      capture_attention)
 
     def _forward(self, sample, timesteps, encoder_hidden_states,
-                 capture_attention: bool):
-        """The eager forward (`forward`)."""
+                 capture_attention: bool, text_embeds=None, time_ids=None,
+                 down_residuals=None, mid_residual=None):
+        """The eager forward (`forward`). SDXL: text_embeds [B, P] and
+        time_ids [B, 6] feed the added embedding, and a ControlNet's
+        residuals, where given, are added to the skip connections
+        (`down_residuals`, in their order) and to the mid block's
+        output."""
         cfg = self.config
         dt = cfg.dtype
-        timesteps = torch.as_tensor(timesteps, device=sample.device)
-        if timesteps.ndim == 0:
-            timesteps = timesteps.expand(sample.shape[0])
-        temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
-                                  cfg.flip_sin_to_cos, cfg.freq_shift)
-        temb = self.time_embedding.linear_1(temb.to(dt))
-        temb = self.time_embedding.linear_2(F.silu(temb))
+        temb = self._embed(timesteps, sample, text_embeds, time_ids)
         context = encoder_hidden_states.to(dt)
 
-        x = self.conv_in(sample.to(dt))
-        skips = [x]
-        attn_down = []
-        for i, block in enumerate(self.down_blocks):
-            x, block_skips, probs = _remat_call(
-                cfg.remat, block, x, temb, context, capture_attention)
-            skips.extend(block_skips)
-            if cfg.down_block_types[i] == "CrossAttnDownBlock2D":
-                attn_down.append(probs)
-        x, attn_mid = self.mid_block(x, temb, context, capture_attention)
+        x, skips, attn_down, attn_mid = self._encode(
+            self.conv_in(sample.to(dt)), temb, context, capture_attention)
+        if down_residuals is not None:
+            skips = [s + r for s, r in zip(skips, down_residuals)]
+        if mid_residual is not None:
+            x = x + mid_residual
 
         activations, attn_up = [], []
         for i, block in enumerate(self.up_blocks):

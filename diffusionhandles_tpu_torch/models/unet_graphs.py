@@ -2,16 +2,17 @@
 
 Every U-Net call of an edit or an inversion repeats one of a few
 signatures (`signature`: the device; the shapes and dtypes of the latents,
-the timestep and the text context; grad mode and which of the latents and
-the context require grad), with the same weights and kernels each time,
-and the host's enqueue of one call and its backward outlasts the card's
-work on it. So on each instance the first call of a signature runs
-eagerly (it warms cuDNN and sets the kernels' attributes), the second
+the timestep, the text context and the call's further inputs, SDXL's
+control image, pooled text vector and size ids; grad mode and which of the
+latents and the context require grad), with the same weights and kernels
+each time, and the host's enqueue of one call and its backward outlasts
+the card's work on it. So on each instance the first call of a signature
+runs eagerly (it warms cuDNN and sets the kernels' attributes), the second
 captures it into CUDA graphs, and every later call replays them:
 
 - a forward-only call copies its inputs into static buffers, replays the
   captured forward and returns clones of the static outputs (eps and the
-  three activations; callers keep outputs across calls);
+  activations; callers keep outputs across calls);
 - a call that records a graph for a backward goes through `_Replayed`, an
   autograd Function whose forward replays the captured forward and whose
   backward copies the incoming gradients into static buffers (zeros for an
@@ -39,7 +40,9 @@ one at a time on one stream, and their outputs are cloned out. Each
 signature that records a graph keeps a pool of its own for its forward and
 backward. The graphs read the parameters in place, so an update in place
 reaches them; `UNet2DConditionModel` drops its graphs where its parameters
-may be replaced (`_apply`, `load_state_dict`).
+may be replaced (`_apply`, `load_state_dict`). The same holds for the
+ControlNet and U-Net of SDXL (`controlnet.ControlNetDenoiser`): one call
+of the pair is one graph.
 """
 
 from __future__ import annotations
@@ -78,15 +81,18 @@ def _wants(sample, context) -> Tuple[bool, bool]:
 
 
 def signature(sample: torch.Tensor, timesteps: torch.Tensor,
-              context: torch.Tensor, capture_attention: bool) -> tuple:
+              context: torch.Tensor, capture_attention: bool,
+              extra: tuple = ()) -> tuple:
     """The key of a call's graphs: the device, each input's shape and
-    dtype, grad mode and which inputs require grad, `capture_attention`,
-    and the process's switches that pick the kernels a call runs (the
-    flash backward's route, TF32, cuDNN's deterministic algorithms)."""
+    dtype (`extra`: the further inputs), grad mode and which inputs
+    require grad, `capture_attention`, and the process's switches that
+    pick the kernels a call runs (the flash backward's route, TF32,
+    cuDNN's deterministic algorithms)."""
     return (sample.device,
             tuple(sample.shape), sample.dtype,
             tuple(timesteps.shape), timesteps.dtype,
             tuple(context.shape), context.dtype,
+            tuple((tuple(x.shape), x.dtype) for x in extra),
             torch.is_grad_enabled(), _wants(sample, context),
             bool(capture_attention),
             os.environ.get(attention.BWD_ENV),
@@ -136,14 +142,16 @@ def _advance(delta: Counts) -> None:
 
 class _Graph:
     """One signature's captured forward (and backward), its static
-    buffers, and the counts its capture took."""
+    buffers, and the counts its capture took. The inputs are (sample,
+    timesteps, context, *extra); only the sample and the context can
+    require grad."""
 
-    def __init__(self, forward: Callable, sample, timesteps, context,
-                 pool, wants: Tuple[bool, bool]):
+    def __init__(self, forward: Callable, inputs: tuple, pool,
+                 wants: Tuple[bool, bool]):
         self.wants = wants  # (sample, context) require grad
         grad = any(wants)
         self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
-                       for x in (sample, timesteps, context)]
+                       for x in inputs]
         self.inputs[0].requires_grad_(wants[0])
         self.inputs[2].requires_grad_(wants[1])
         self.pending: Optional[weakref.ref] = None
@@ -152,7 +160,8 @@ class _Graph:
         self.fwd = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.fwd, pool=pool), \
                 torch.set_grad_enabled(grad):
-            eps, acts, _ = forward(*self.inputs, False)
+            eps, acts, _ = forward(*self.inputs[:3], False,
+                                   *self.inputs[3:])
         outs = (eps, *acts)
         self.fwd_counts = _taken(before)
         self.out = tuple(o.detach() for o in outs)
@@ -163,14 +172,14 @@ class _Graph:
         self.bwd = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.bwd, pool=pool):
             self.grad_in = torch.autograd.grad(
-                outs, [x for x, w in zip(self.inputs[::2], wants) if w],
+                outs, [x for x, w in zip(self.inputs[:3:2], wants) if w],
                 self.grad_out)
         self.bwd_counts = _taken(before)
 
-    def forward(self, sample, timesteps, context) -> tuple:
+    def forward(self, inputs: tuple) -> tuple:
         """Replay the forward on these inputs: clones of the outputs."""
         with torch.no_grad():
-            for buf, x in zip(self.inputs, (sample, timesteps, context)):
+            for buf, x in zip(self.inputs, inputs):
                 buf.copy_(x)
             self.fwd.replay()
             _advance(self.fwd_counts)
@@ -197,10 +206,11 @@ class _Replayed(torch.autograd.Function):
     captured graphs of `graph`."""
 
     @staticmethod
-    def forward(ctx, graph: _Graph, sample, timesteps, context):
+    def forward(ctx, graph: _Graph, sample, timesteps, context, *extra):
         ctx.set_materialize_grads(False)
         ctx.graph = graph
-        outs = graph.forward(sample, timesteps, context)
+        ctx.n_extra = len(extra)
+        outs = graph.forward((sample, timesteps, context, *extra))
         graph.pending = weakref.ref(ctx)
         return outs
 
@@ -217,7 +227,7 @@ class _Replayed(torch.autograd.Function):
         grad_in = iter(graph.backward(grads))
         g_sample, g_context = (next(grad_in) if w else None
                                for w in graph.wants)
-        return None, g_sample, None, g_context
+        return (None, g_sample, None, g_context) + (None,) * ctx.n_extra
 
 
 class UNetGraphs:
@@ -247,9 +257,10 @@ class UNetGraphs:
         return hooked, tensor_parallel, trainable
 
     def call(self, unet: torch.nn.Module, forward: Callable, sample,
-             timesteps, context, capture_attention: bool):
-        """`forward(sample, timesteps, context, capture_attention)` (the
-        eager U-Net), or its graphs' replay."""
+             timesteps, context, capture_attention: bool, extra: tuple = ()):
+        """`forward(sample, timesteps, context, capture_attention, *extra)`
+        (the eager U-Net, or SDXL's ControlNet and U-Net), or its graphs'
+        replay. `unet.config.remat` is read."""
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         cuda = sample.device.type == "cuda"
         remat = unet.config.remat
@@ -258,7 +269,8 @@ class UNetGraphs:
         # observing costs a walk over the modules: only where the cheap
         # conditions leave a replay possible
         if cuda and not capture_attention and not remat:
-            key = signature(sample, timesteps, context, capture_attention)
+            key = signature(sample, timesteps, context, capture_attention,
+                            extra)
             graph = self.graphs.get(key)
             hooked, tensor_parallel, trainable = self._observe(unet)
         how = mode(cuda=cuda, capture_attention=capture_attention,
@@ -270,24 +282,25 @@ class UNetGraphs:
             self.seen.add(key)
         GRAPH_CALLS[how] += 1
         if how == "eager":
-            return forward(sample, timesteps, context, capture_attention)
+            return forward(sample, timesteps, context, capture_attention,
+                           *extra)
+        inputs = (sample, timesteps, context, *extra)
         with torch.cuda.device(sample.device):
             if how == "capture":
-                graph = self._capture(forward, key, sample, timesteps,
-                                      context)
+                graph = self._capture(forward, key, inputs)
             if any(graph.wants):
-                outs = _Replayed.apply(graph, sample, timesteps, context)
+                outs = _Replayed.apply(graph, *inputs)
             else:
-                outs = graph.forward(sample, timesteps, context)
+                outs = graph.forward(inputs)
         return outs[0], tuple(outs[1:]), None
 
-    def _capture(self, forward, key, sample, timesteps, context) -> _Graph:
+    def _capture(self, forward, key, inputs: tuple) -> _Graph:
+        sample, _, context = inputs[:3]
         wants = _wants(sample, context)
         if any(wants):
             pool = torch.cuda.graph_pool_handle()
         else:
             pool = self.pools.setdefault(sample.device,
                                          torch.cuda.graph_pool_handle())
-        graph = self.graphs[key] = _Graph(forward, sample, timesteps,
-                                          context, pool, wants)
+        graph = self.graphs[key] = _Graph(forward, inputs, pool, wants)
         return graph

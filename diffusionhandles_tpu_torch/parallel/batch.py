@@ -251,6 +251,9 @@ def edit_batch(handles, depth, prompt: str, fg_mask, bg_depth,
             return (imgs, disps) if return_disparities else imgs
 
         d = handles.diffuser
+        if d.sdxl:
+            raise NotImplementedError("batched editing runs the SD-2-depth "
+                                      "family only")
         conf = d.conf
         mode = handles.conf.depth_transform_mode
         K = d.get_depth_intrinsics()

@@ -52,7 +52,9 @@ def _same(a, b) -> bool:
 class DiffusionHandles:
     """Training-free 3D-aware image editing (PyTorch).
 
-    Runs on the GPU unless `device` says otherwise. `models` (from
+    Runs on the GPU unless `device` says otherwise. The model family is
+    the config's `model_paths.model_name` (SD-2-depth, or SDXL base 1.0
+    with the depth ControlNet). `models` (from
     `diffuser.create_sd_models`) replaces the seeded SD stack, e.g. with
     one built on the fused GroupNorm U-Net config."""
 
@@ -86,8 +88,10 @@ class DiffusionHandles:
             return self
         device = torch.device(device)
         d = self.diffuser
-        for m in (d.models.unet, d.models.vae, d.models.text_encoder):
+        for m in d.models.modules():
             m.to(device)
+        if d.time_ids is not None:
+            d.time_ids = d.time_ids.to(device)
         d.device = self.device = device
         d._prompt_cache.clear()
         self._recording = None
@@ -133,7 +137,8 @@ class DiffusionHandles:
         of the last fused-recording inversion, its capture is served.
 
         Returns (null_text_emb [T, 1, 77, D], init_noise [1, 4, h, w],
-        activations: 3 stacks [T, C, H, W], latents [1, 4, h, w])."""
+        activations: a stack [T, C, H, W] per recorded up block, latents
+        [1, 4, h, w])."""
         with request("record"):
             rec = self._recording
             if (rec is not None and self.conf.guided_diffuser.fused_recording
