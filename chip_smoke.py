@@ -23,11 +23,16 @@ Phases, each reported on its own line:
      path's, and their plans; K8 on channels-last and NCHW x, with a check
      that a second call gives the same bits and nothing is copied into
      another layout; K1 and K2 also at the batched edit's shapes (B 4 and
-     8), where two equal rows must give equal bits;
+     8), where two equal rows must give equal bits; the foreground
+     guidance term's kernel pair (fg_l1_fwd, fg_l1_bwd) at SD-2's and
+     SDXL's term shapes (FG_TERMS, FG_MAX_CORR slots, most empty) against
+     the gather f2[:, ty, tx] and autograd's backward of it, with the
+     second call's bits;
   4. edit: one 512x512 DiffusionHandles(variant="sd2") edit through the four
      public steps with the default U-Net (seeded random weights),
      EDIT_TIMESTEPS timesteps, with per-step seconds, the kernels' launch
-     counts, output checks and peak device memory;
+     counts (the foreground kernel pair's once per application of the
+     term, guidance.FG_LOSS_CALLS), output checks and peak device memory;
   4a. edit_paths: on those handles, transform_foreground with
      save_denoising_steps (T decoded step pairs; the final image bitwise
      the flag-off run's), the packed [N, 4] host correspondence path
@@ -300,6 +305,10 @@ KERNELS = {
                     "diffusionhandles_tpu/ops/conv.py:35"),
     "conv3x3_dx": ("diffusionhandles_tpu_torch/csrc/conv.cu",
                    "diffusionhandles_tpu/ops/conv.py:35"),
+    "fg_l1_fwd": ("diffusionhandles_tpu_torch/csrc/fg_loss.cu",
+                  "diffusionhandles_tpu/guidance.py:257"),
+    "fg_l1_bwd": ("diffusionhandles_tpu_torch/csrc/fg_loss.cu",
+                  "diffusionhandles_tpu/guidance.py:257"),
 }
 # The general route of each kernel (`<name>_general`): fp32, fp16 and the
 # shapes the Hopper kernels are not built for, through the general kernels
@@ -401,9 +410,9 @@ def _bound(flops: float, nbytes: float, peak: float):
 
 
 def _kernel_modules():
-    from diffusionhandles_tpu_torch.ops import (attention, conv, gn_conv,
-                                                groupnorm)
-    return attention, groupnorm, gn_conv, conv
+    from diffusionhandles_tpu_torch.ops import (attention, conv, fg_loss,
+                                                gn_conv, groupnorm)
+    return attention, groupnorm, gn_conv, conv, fg_loss
 
 
 def reset_launch_counts() -> None:
@@ -418,10 +427,27 @@ def launch_counts() -> dict:
     return counts
 
 
+def fg_loss_calls() -> dict:
+    """Foreground-term applications by route so far (`kernel`: the
+    card's kernel pair, `plain`: the CPU's indexing)."""
+    from diffusionhandles_tpu_torch.guidance import FG_LOSS_CALLS
+    return dict(FG_LOSS_CALLS)
+
+
+def fg_pair_checks(launches, fg_calls) -> dict:
+    """Every foreground-term application of a run on the kernel pair: one
+    forward launch each, one backward launch for each forward (every
+    guidance energy is differentiated), none on the plain route."""
+    return {"fg_l1_per_term": 0 < launches["fg_l1_fwd"] == fg_calls["kernel"],
+            "fg_l1_bwd_per_fwd": launches["fg_l1_bwd"]
+            == launches["fg_l1_fwd"],
+            "fg_no_plain_route": fg_calls["plain"] == 0}
+
+
 def layout_copies() -> dict:
     """Inputs K8's (`gn`) and K9's (`gn_conv`) wrappers copied into their
     kernels' layouts so far."""
-    _, gn, gc, _ = _kernel_modules()
+    gn, gc = _kernel_modules()[1:3]
     return {**gn.LAYOUT_COPIES, **gc.LAYOUT_COPIES}
 
 
@@ -443,9 +469,9 @@ def phase_device():
 
 def phase_build():
     from diffusionhandles_tpu_torch.utils.cuda_build import build_log
-    attention, groupnorm, _, conv = _kernel_modules()
+    attention, groupnorm, _, conv, fg_loss = _kernel_modules()
     libs = (("flash_attention", attention), ("groupnorm", groupnorm),
-            ("conv3x3", conv))
+            ("conv3x3", conv), ("fg_loss", fg_loss))
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(mod.kernel_library) for _, mod in libs]:
@@ -885,7 +911,7 @@ def _kernels_gn_conv(res, rand):
     default_wall_ms. No one PyTorch call computes the fused function."""
     import torch
     import torch.nn.functional as F
-    gc, conv = _kernel_modules()[2:]
+    gc, conv = _kernel_modules()[2:4]
     bf16 = torch.bfloat16
     for side, ci, co in CONV_SHAPES:
         for b in BATCHES:
@@ -1226,7 +1252,7 @@ def _kernels_general_gn_conv(res, rand):
     default_wall_ms."""
     import torch
     import torch.nn.functional as F
-    _, gn, gc, conv = _kernel_modules()
+    _, gn, gc, conv, _ = _kernel_modules()
     for i, (dt, (b, side, ci, co, groups)) in enumerate(GENERAL_CONV):
         dtype = getattr(torch, dt)
         timed = i == 0
@@ -1430,7 +1456,7 @@ def _kernels_fp16(res, rand):
     their device ms there (on the kernel line, beside the bf16 instance's
     on its own); the worst error joins the kernel's row."""
     import torch
-    att, _, gc, conv = _kernel_modules()
+    att, _, gc, conv, _ = _kernel_modules()
     f16 = torch.float16
 
     def check(name, shape, pairs, rtol, fn):
@@ -1491,6 +1517,111 @@ def _kernels_fp16(res, rand):
                                              rsig_ref, dyl, 32))
 
 
+# The foreground term's kernel pair (fg_l1_fwd, fg_l1_bwd) at each recorded
+# stack's term: (family, channels, latent side), SD-2's three stacks at
+# 64x64 latents and SDXL's two at 128x128, FG_MAX_CORR slots
+FG_TERMS = [("sd2", 1280, 64), ("sd2", 640, 64), ("sd2", 320, 64),
+            ("sdxl", 1280, 128), ("sdxl", 640, 128)]
+FG_MAX_CORR = 16384
+# Kernel pair vs autograd of the plain gather, fp32: S within 1e-6 of its
+# largest value (both sum the same fp32 products, in other orders); the
+# gradient within 1e-5 of its largest element (autograd's index_put rounds
+# each term of a cell's run, the kernel sums the run's integer weights and
+# rounds once)
+FG_FWD_RTOL = 1e-6
+FG_BWD_RTOL = 1e-5
+
+
+def _fg_term(lat, seed):
+    """(pc, order) of a box foreground of about a fifth of the image moved
+    by up to 9 pixels, binned at latent side `lat`: most of the
+    FG_MAX_CORR slots stay empty, as in an edit."""
+    import numpy as np
+
+    from diffusionhandles_tpu_torch.guidance import (
+        fg_slot_order, process_correspondences)
+    res = 8 * lat
+    rng = np.random.RandomState(seed)
+    o = rng.randint(res // 4, 3 * res // 4, (FG_MAX_CORR // 3, 2))
+    t = np.clip(o + rng.randint(-9, 10, o.shape), -3, res + 2)
+    pc = process_correspondences(np.concatenate([o, t], 1), res,
+                                 max_corr=FG_MAX_CORR, latent_res=lat,
+                                 device="cuda")
+    return pc, fg_slot_order(pc, (lat, lat))
+
+
+def _kernels_fg_l1(res, rand):
+    """The foreground term's kernel pair at FG_TERMS against the plain
+    route it replaces on the card, f2[:, ty, tx] with autograd's
+    index_put backward: S and the gradient within FG_*_RTOL, the same
+    gradient bits over two calls, one launch of each kernel per call.
+    ms: each kernel alone; plain_ms: the plain forward (gather, L1,
+    weighted sum), and its backward alone (from a retained graph); bound:
+    the bytes each kernel must move at the live slots and cells."""
+    import torch
+    fg = _kernel_modules()[4]
+    for family, ch, lat in FG_TERMS:
+        pc, order = _fg_term(lat, seed=ch + lat)
+        f1, f2 = (rand((ch, lat, lat), dtype=torch.float32)
+                  for _ in range(2))
+        g = torch.linspace(0.5, 1.5, ch, device="cuda")
+        slots = order.slots
+        f1s = f1[:, pc.corr_oy[slots], pc.corr_ox[slots]].contiguous()
+        f1g = f1[:, pc.corr_oy, pc.corr_ox].T
+
+        def plain_fwd(f2=f2):
+            d = (f1g - f2[:, pc.corr_ty, pc.corr_tx].T).abs()
+            return (d * pc.corr_w[:, None]).sum(0)
+
+        f2g = f2.clone().requires_grad_(True)
+        s_plain = plain_fwd(f2g)
+        want = s_plain.detach()
+        (want_grad,) = torch.autograd.grad(s_plain, f2g, g,
+                                           retain_graph=True)
+
+        def kernel_pair():
+            x = f2.clone().requires_grad_(True)
+            s = fg.fg_l1(x, f1s, order.cells, order.weights, order.offsets)
+            return s.detach(), torch.autograd.grad(s, x, g)[0]
+
+        fg.reset_launch_counts()
+        got, got_grad = kernel_pair()
+        launches = dict(fg.LAUNCHES)
+        again, again_grad = kernel_pair()
+        repeatable = bool(torch.equal(again, got)
+                          and torch.equal(again_grad, got_grad))
+        live = int(order.offsets[-1])
+        cells = int((order.offsets[1:] > order.offsets[:-1]).sum())
+        hw = lat * lat
+        shape = (family, ch, lat, lat, FG_MAX_CORR)
+        fwd_bytes = 4 * ch * (live + cells) + 8 * live + 4 * ch
+        bwd_bytes = (4 * ch * hw + 4 * ch * (live + cells) + 4 * live
+                     + 4 * (hw + 1) + 4 * ch)
+        rows = (
+            ("fg_l1_fwd", got, want, FG_FWD_RTOL,
+             lambda: fg.fg_l1_fwd_cuda(f1s, f2, order.cells, order.weights,
+                                       order.offsets),
+             lambda: plain_fwd(), fwd_bytes),
+            ("fg_l1_bwd", got_grad, want_grad, FG_BWD_RTOL,
+             lambda: fg.fg_l1_bwd_cuda(f1s, f2, order.weights,
+                                       order.offsets, g),
+             lambda: torch.autograd.grad(s_plain, f2g, g,
+                                         retain_graph=True), bwd_bytes))
+        for name, out, ref, rtol, kernel, plain, nbytes in rows:
+            err, tol = _rel_err(out, ref, rtol)
+            bound = _bound(3.0 * ch * live, nbytes, PEAK_FP32)
+            ms, plain_ms = _device_ms(kernel), _device_ms(plain)
+            _check(name, shape, [err], [tol], ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound[0], bound_by=bound[1], live_slots=live,
+                   live_cells=cells, launches=launches[name],
+                   bitwise_repeatable=repeatable)
+            if launches[name] != 1 or not repeatable:
+                raise AssertionError(
+                    f"{name} at {shape}: launches {launches[name]}, "
+                    f"bitwise repeatable {repeatable}")
+            res.add(name, err, ms, plain_ms, bound)
+
+
 def _add_general(res, name, err, fields, bound):
     """A general kernel's row: the worst error over its checks, the times
     and bounds of its first check (timed, fp32)."""
@@ -1526,6 +1657,7 @@ def phase_kernels() -> dict:
     _kernels_general_flash(res, rand)
     _kernels_general_gn_conv(res, rand)
     _kernels_general_conv_sites(res, rand)
+    _kernels_fg_l1(res, rand)
     return res.rows
 
 
@@ -1642,6 +1774,7 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     copies0 = layout_copies()
+    fg0 = fg_loss_calls()
     reset_launch_counts()
     steps = {}
 
@@ -1667,6 +1800,7 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
             bg_depth=bg, null_text_emb=null, init_noise=noise,
             activations=acts, **EDIT_TRANSFORM))
     launches = launch_counts()
+    fg_calls = {k: n - fg0[k] for k, n in fg_loss_calls().items()}
     copies = {k: n - copies0[k] for k, n in layout_copies().items()}
     peak = torch.cuda.max_memory_allocated()
 
@@ -1685,10 +1819,12 @@ def phase_edit(name: str, num_timesteps: int, kernels: tuple, **switches):
         # bf16 at the U-Net's shapes: every call on a Hopper kernel
         "no_general_route": not any(n for k, n in launches.items()
                                     if k.endswith("_general")),
+        **fg_pair_checks(launches, fg_calls),
     }
     _line(name, seconds=steps, total_seconds=sum(steps.values()),
           launches=launches, layout_copies=copies, unet_calls=calls,
-          peak_bytes=peak, resident_bytes=resident, checks=checks)
+          fg_loss_calls=fg_calls, peak_bytes=peak, resident_bytes=resident,
+          checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"{name} checks failed: {checks}")
     edit = dict(inputs=dict(depth=sample["depth"], prompt=prompt,
@@ -2020,10 +2156,12 @@ def phase_edit_batched(handles, edit, single_seconds: float):
         _free_device_memory()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
+        fg0 = fg_loss_calls()
         reset_launch_counts()
         imgs, seconds = _timed(lambda: edit_batch(handles, *args, transforms,
                                                   chunk=4))
         launches = launch_counts()
+        fg_calls = {k: n - fg0[k] for k, n in fg_loss_calls().items()}
         peak = torch.cuda.max_memory_allocated()
         # one launch a site per U-Net call; remat reruns the guidance
         # forward's blocks (all ten sites) in the backward
@@ -2038,6 +2176,7 @@ def phase_edit_batched(handles, edit, single_seconds: float):
             "k1_launches": launches["flash_fwd"] == want_fwd,
             "k2_launches": launches["flash_bwd"] == sites * guided_calls,
             "no_general_route": _no_general(launches),
+            **fg_pair_checks(launches, fg_calls),
         }
         if remat:
             checks["remat_vs_off"] = _within(vs_off, ref)
@@ -2046,6 +2185,8 @@ def phase_edit_batched(handles, edit, single_seconds: float):
               single_edit_seconds=single_seconds, peak_bytes=peak,
               resident_bytes=resident, flash_fwd=launches["flash_fwd"],
               flash_bwd=launches["flash_bwd"], flash_fwd_expected=want_fwd,
+              fg_l1_fwd=launches["fg_l1_fwd"],
+              fg_l1_bwd=launches["fg_l1_bwd"], fg_loss_calls=fg_calls,
               row0_vs_single_edit=row0, twin_rows=twin, vs_remat_off=vs_off,
               checks=checks)
         if not all(checks.values()):
@@ -3618,6 +3759,7 @@ def phase_fp32_routes() -> dict:
     return total
 
 
+FG_KERNELS = ("fg_l1_fwd", "fg_l1_bwd")
 FUSED_EDIT_KERNELS = ("flash_fwd", "flash_bwd", "gn_silu_fwd",
                       "gn_silu_bwd", "gn_silu_conv3x3_fwd",
                       "gn_silu_conv3x3_dx")
@@ -3641,8 +3783,9 @@ def main() -> int:
         phase_device()
         phase_build()
         kernels = phase_kernels()
-        default, _, _, _, edit = phase_edit("edit", EDIT_TIMESTEPS,
-                                            ("flash_fwd", "flash_bwd"))
+        default, edit_launches, _, _, edit = phase_edit(
+            "edit", EDIT_TIMESTEPS,
+            ("flash_fwd", "flash_bwd") + FG_KERNELS)
         single_seconds = phase_edit_paths(default, edit)
         batched = phase_edit_batched(default, edit, single_seconds)
         del edit
@@ -3656,6 +3799,7 @@ def main() -> int:
         _free_device_memory()
         phase_unet_reference(default)
         launches = phase_unet_flash_bwd_modes(default)
+        launches.update({n: edit_launches[n] for n in FG_KERNELS})
         default_config = default.diffuser.models.unet_config
         del default
         _free_device_memory()

@@ -49,7 +49,7 @@ from diffusionhandles_tpu_torch.config import (SDXL_DEPTH_CONTROLNET,
 from diffusionhandles_tpu_torch.guidance import (
     ProcessedCorrespondences, background_loss_apply,
     background_orig_precompute, build_guidance_weight_schedule,
-    foreground_loss_apply, foreground_orig_precompute,
+    fg_slot_order, foreground_loss_apply, foreground_orig_precompute,
     process_correspondences)
 from diffusionhandles_tpu_torch.models.clip_text import (CLIPTextConfig,
                                                          CLIPTextModel,
@@ -516,10 +516,11 @@ class GuidedStableDiffuser(GuidedDiffuser):
                                               conf.bg_erosion)
         else:
             pc = processed_correspondences
+        size = (self.latent_res, self.latent_res)
+        order = fg_slot_order(pc, size)
         fg_weight = conf.fg_weight if fg_weight is None else fg_weight
         bg_weight = conf.bg_weight if bg_weight is None else bg_weight
         T = self.schedule.num_inference_steps
-        size = (self.latent_res, self.latent_res)
         depth64 = self.depth_cond(depth) if conf.use_depth else None
         cond = self.encode_prompt(prompt)
         pooled = self.pooled_prompt(prompt)
@@ -537,7 +538,7 @@ class GuidedStableDiffuser(GuidedDiffuser):
                 if i < conf.guidance_max_step:
                     # latent-independent halves of the losses, once per step
                     fg_pre = [foreground_orig_precompute(
-                        a[i], pc, conf.fg_patch_size, size)
+                        a[i], pc, conf.fg_patch_size, size, order)
                         for a in acts_orig]
                     bg_pre = [background_orig_precompute(
                         a[i], pc, conf.bg_patch_size, size,
@@ -554,6 +555,9 @@ class GuidedStableDiffuser(GuidedDiffuser):
                                                                   lat)
                             with span("guidance.update"):
                                 latents = latents - conf.guidance_lr * grad
+                    # the step's loss halves are the edit's largest eager
+                    # buffers: free them before the CFG pass and the decode
+                    del fg_pre, bg_pre
                 # past guidance_max_step "post opt" is the previous step's
                 # latents, as the reference's empty opt loop leaves them
                 post_opt = latents

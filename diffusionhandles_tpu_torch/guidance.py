@@ -9,22 +9,32 @@ background masks are dense [L, L] grids. Activation maps here are a single
 image's [C, H, W] (this package is NCHW; the JAX package's are [H, W, C]).
 Each loss is split into a latent-independent precompute (run once per
 denoising step) and the apply half that the guidance gradient differentiates.
+On a CUDA device the foreground term's L1 and its gradient run as a kernel
+pair (`ops/fg_loss.py`) over the live slots sorted by transformed cell
+(`fg_slot_order`, built once per edit); on the CPU they are plain PyTorch
+indexing.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from diffusionhandles_tpu_torch.ops.fg_loss import fg_l1
 from diffusionhandles_tpu_torch.ops.resize import resize_hw
+from diffusionhandles_tpu_torch.utils.cuda_build import route
 from diffusionhandles_tpu_torch.utils.device import resolve_device
 from diffusionhandles_tpu_torch.utils.profiling import span
 
 EPS = 1e-10  # reference: losses.py:75
+
+# Foreground-term applications by route since the process started (tracing
+# off too): "kernel" the card's kernel pair, "plain" the CPU's indexing.
+FG_LOSS_CALLS = {"kernel": 0, "plain": 0}
 
 
 class ProcessedCorrespondences(NamedTuple):
@@ -199,11 +209,50 @@ def _scatter_max_grid(iy, ix, values, size) -> torch.Tensor:
                                reduce="amax").reshape(h, w)
 
 
+class FgSlotOrder(NamedTuple):
+    """The live correspondence slots sorted stably by transformed cell, for
+    the foreground term's kernel pair; every field has a fixed size.
+
+    slots: [max_corr] int64, the live slots' indices by cell, then the empty
+    ones; cells, weights: [max_corr] int32 / fp32, each sorted slot's
+    transformed cell ty * W + tx and weight (0 for an empty slot); offsets:
+    [H*W + 1] int32, cell k's run of sorted slots at [offsets[k],
+    offsets[k + 1]), offsets[H*W] the live count."""
+
+    slots: torch.Tensor
+    cells: torch.Tensor
+    weights: torch.Tensor
+    offsets: torch.Tensor
+
+
+def fg_slot_order(pc: ProcessedCorrespondences, activations_size
+                  ) -> FgSlotOrder:
+    """The slot order of `pc` on an activations grid of `activations_size`
+    (H, W), on pc's device with no host sync: once per edit, where the
+    correspondences are settled."""
+    h, w = activations_size
+    live = pc.corr_w > 0
+    cell = pc.corr_ty * w + pc.corr_tx
+    key = torch.where(live, cell, torch.full_like(cell, h * w))
+    key, slots = torch.sort(key, stable=True)
+    bounds = torch.arange(h * w + 1, device=key.device, dtype=key.dtype)
+    offsets = torch.searchsorted(key, bounds).int()
+    live = key < h * w
+    return FgSlotOrder(
+        slots=slots, cells=torch.where(live, key, 0).int(),
+        weights=torch.where(live, pc.corr_w[slots], 0.0),
+        offsets=offsets)
+
+
 def foreground_orig_precompute(activations_orig, pc: ProcessedCorrespondences,
-                               patch_size: int, activations_size):
+                               patch_size: int, activations_size,
+                               order: Optional[FgSlotOrder] = None):
     """Latent-independent half of the foreground loss: the pooled ORIG
-    features at the orig cells ([max_corr, C]), the w2 scatter grid and its
-    pooling denominator."""
+    features at the orig cells, the w2 scatter grid and its pooling
+    denominator. On the CPU the features are [max_corr, C] in pc's slot
+    order and `order` is not read; on a CUDA device they are [C, max_corr]
+    in `order` (`fg_slot_order`, built here when not passed), which ends
+    the tuple."""
     f_orig = _to_chw(activations_orig, activations_size)
     valid = (pc.corr_w > 0).float()
     w1 = _scatter_max_grid(pc.corr_oy, pc.corr_ox, valid, activations_size)
@@ -211,30 +260,43 @@ def foreground_orig_precompute(activations_orig, pc: ProcessedCorrespondences,
     f1 = _avg_pool_same(w1[None] * f_orig, patch_size) / (
         _avg_pool_same(w1[None], patch_size) + EPS)
     w2_den = _avg_pool_same(w2[None], patch_size)
-    return f1[:, pc.corr_oy, pc.corr_ox].T, w2, w2_den
+    if route(f1.device, True) == "cpu":
+        return f1[:, pc.corr_oy, pc.corr_ox].T, w2, w2_den
+    if order is None:
+        order = fg_slot_order(pc, activations_size)
+    f1_slots = f1[:, pc.corr_oy[order.slots], pc.corr_ox[order.slots]]
+    return f1_slots.contiguous(), w2, w2_den, order
 
 
 def foreground_loss_apply(pre, activations, pc: ProcessedCorrespondences,
                           patch_size: int, activations_size):
     """Weighted local-average L1 between the orig features at the orig
-    cells and the current features at the transformed cells."""
-    f1_gathered, w2, w2_den = pre
+    cells and the current features at the transformed cells (`pre` from
+    `foreground_orig_precompute` on the same device)."""
+    f1_gathered, w2, w2_den = pre[:3]
     f_cur = _to_chw(activations, activations_size)
     f2 = _avg_pool_same(w2[None] * f_cur, patch_size) / (w2_den + EPS)
-    d = (f1_gathered - f2[:, pc.corr_ty, pc.corr_tx].T).abs()
     total = pc.corr_w.sum()
-    per_channel = (d * pc.corr_w[:, None]).sum(0) / (total + EPS)
+    if route(f2.device, True) == "cpu":
+        FG_LOSS_CALLS["plain"] += 1
+        d = (f1_gathered - f2[:, pc.corr_ty, pc.corr_tx].T).abs()
+        per_channel = (d * pc.corr_w[:, None]).sum(0) / (total + EPS)
+    else:
+        FG_LOSS_CALLS["kernel"] += 1
+        order = pre[3]
+        per_channel = fg_l1(f2, f1_gathered, order.cells, order.weights,
+                            order.offsets) / (total + EPS)
     return per_channel.mean()
 
 
 def foreground_loss(activations, activations_orig,
                     pc: ProcessedCorrespondences, patch_size: int,
-                    activations_size):
+                    activations_size, order: Optional[FgSlotOrder] = None):
     """Weighted local-average L1 between the orig features at the orig
     cells and the current features at the transformed cells (reference:
     losses.py:4-17,51-84); activations [C, H, W]."""
     pre = foreground_orig_precompute(activations_orig, pc, patch_size,
-                                     activations_size)
+                                     activations_size, order)
     return foreground_loss_apply(pre, activations, pc, patch_size,
                                  activations_size)
 

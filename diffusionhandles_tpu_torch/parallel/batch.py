@@ -38,7 +38,7 @@ from diffusionhandles_tpu_torch.diffuser import (GuidedStableDiffuser,
 from diffusionhandles_tpu_torch.guidance import (
     ProcessedCorrespondences, background_loss_apply,
     background_orig_precompute, build_guidance_weight_schedule,
-    foreground_loss_apply, foreground_orig_precompute)
+    fg_slot_order, foreground_loss_apply, foreground_orig_precompute)
 from diffusionhandles_tpu_torch.models.unet import UNet2DConditionModel
 from diffusionhandles_tpu_torch.parallel.sharding import (axis_size,
                                                           gather_batch,
@@ -138,13 +138,13 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
                         bg_loss_type)
         return loss
 
-    def orig_precompute(acts_t, pcs, b):
+    def orig_precompute(acts_t, pcs, orders, b):
         """The latent-independent loss halves, per sample."""
         fg, bg = [], []
         for r in range(b):
             pc = _row(pcs, r)
             fg.append([foreground_orig_precompute(acts_t[k], pc, fg_patch,
-                                                  act_size)
+                                                  act_size, orders[r])
                        for k in range(3)])
             bg.append([background_orig_precompute(acts_t[k], pc, bg_patch,
                                                   act_size, bg_loss_type)
@@ -177,11 +177,12 @@ def build_batched_guided_inference(diffuser: GuidedStableDiffuser,
         latents = init_latents
         b = latents.shape[0]
         grad_unet, cfg_unet = unets(b)
+        orders = [fg_slot_order(_row(pcs, r), act_size) for r in range(b)]
         for i in range(schedule.num_inference_steps):
             with span("step"):
                 if i < guidance_max_step:
                     fg_pre, bg_pre = orig_precompute(
-                        [a[i] for a in acts_orig], pcs, b)
+                        [a[i] for a in acts_orig], pcs, orders, b)
                     for it in range(num_optsteps):
                         with span("guidance.opt_step"):
                             lat = latents.detach().requires_grad_(True)
